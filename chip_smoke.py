@@ -22,6 +22,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 
 The last lines are a JSON object with one entry per kernel of the path and
 ``{"ok": true, "device": {...}}``.
+
+The script imports the PyTorch package only (its ``_shared`` module supplies
+the jax-free ``make_config`` / ``make_batch`` helpers) and never jax.
 """
 
 from __future__ import annotations
@@ -243,7 +246,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from medicaldetectiontoolkit_tpu.testing import make_batch, make_config
+    from medicaldetectiontoolkit_torch._shared import testing
     from medicaldetectiontoolkit_torch.models import build_model
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
@@ -270,6 +273,7 @@ def main() -> int:
 
     nms_entry = _check_nms(torch, np, nms_ops, nms_cuda)
 
+    make_batch, make_config = testing.make_batch, testing.make_config
     batches = [make_batch(_slice_config(make_config, "float32"), seed=i) for i in range(3)]
     runs = {}
     for dtype in ("float32", "bfloat16"):

@@ -1,9 +1,16 @@
-"""Host-side NumPy modules of the JAX package, loaded without importing jax.
+"""Host-side NumPy modules of the JAX package, reached without importing jax.
 
-``medicaldetectiontoolkit_tpu/ops/anchors.py`` is pure NumPy, but importing it
-as ``medicaldetectiontoolkit_tpu.ops.anchors`` runs ``ops/__init__.py``, which
-imports jax. This helper loads the file by path instead, so the port shares
-the anchor-ordering contract with the reference rather than copying it.
+The port shares these with the reference rather than copying them:
+
+  * ``config`` and ``testing`` (``DefaultConfigs``, ``make_config``,
+    ``make_batch``) import only the standard library and NumPy, and
+    ``medicaldetectiontoolkit_tpu/__init__.py`` imports nothing, so they are
+    imported as they are;
+  * ``ops/anchors.py`` is pure NumPy too, but importing it as
+    ``medicaldetectiontoolkit_tpu.ops.anchors`` runs ``ops/__init__.py``,
+    which imports jax, so the file is loaded by path.
+
+Scripts and code of the port reach them through this module only.
 """
 
 from __future__ import annotations
@@ -11,13 +18,11 @@ from __future__ import annotations
 import importlib.util
 import os
 
+from medicaldetectiontoolkit_tpu import config, testing  # noqa: F401  (re-exported)
+
 
 def _load_by_path(relpath: str, name: str):
-    # find_spec on the top-level package locates it without executing it
-    pkg = importlib.util.find_spec("medicaldetectiontoolkit_tpu")
-    if pkg is None or not pkg.submodule_search_locations:
-        raise ImportError("medicaldetectiontoolkit_tpu package not found")
-    path = os.path.join(list(pkg.submodule_search_locations)[0], relpath)
+    path = os.path.join(os.path.dirname(config.__file__), relpath)
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

@@ -121,11 +121,7 @@ def batched_nms(boxes, scores, iou_threshold, max_output: int, valid=None, pixel
     if L == 0 or max_output == 0:
         return keep_idx, keep_mask
 
-    if boxes.shape[0] == 1 or boxes.stride(0) == 0:
-        coords, coords_stride = boxes[0].to(torch.float32).t().contiguous(), 0  # (2*dim, N)
-    else:
-        coords = boxes.to(torch.float32).permute(0, 2, 1).contiguous()  # (L, 2*dim, N)
-        coords_stride = 2 * dim * N
+    coords, coords_stride = _lane_rows(boxes.transpose(1, 2), torch.float32)  # SoA (L|1, 2*dim, N)
     score_rows, score_stride = _lane_rows(scores, torch.float32)
     if valid is None:
         valid_rows, valid_ptr, valid_stride = None, None, 0

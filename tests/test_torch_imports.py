@@ -26,9 +26,10 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.models.retina_net",
     "medicaldetectiontoolkit_torch.utils",
     "medicaldetectiontoolkit_torch.utils.convert",
-    "medicaldetectiontoolkit_tpu.testing",  # the shared config helpers chip_smoke uses
     "chip_smoke",
 ]
+# the jax-free host modules of the JAX package that ``_shared`` re-exports
+SHARED = ("medicaldetectiontoolkit_tpu", "medicaldetectiontoolkit_tpu.config", "medicaldetectiontoolkit_tpu.testing")
 
 
 def _run(code, cwd, env_extra=None):
@@ -41,14 +42,16 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "from medicaldetectiontoolkit_torch.models import build_model\n"
-        "from medicaldetectiontoolkit_tpu.testing import make_config\n"
-        "net = build_model(make_config(model='retina_unet', dim=2), None, device='cpu')\n"
+        "from medicaldetectiontoolkit_torch._shared import testing\n"
+        "net = build_model(testing.make_config(model='retina_unet', dim=2), None, device='cpu')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
+        "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"
     )
     res = _run(code, REPO, {"PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")})
     assert res.returncode == 0, res.stderr[-3000:]
     assert "BANNED []" in res.stdout, res.stdout
+    assert f"JAX_PACKAGE {sorted(SHARED)!r}" in res.stdout, res.stdout
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):

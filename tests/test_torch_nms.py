@@ -90,6 +90,30 @@ def test_broadcast_lanes_match_materialised():
     assert stride == 0 and tuple(base.shape) == (300,)
 
 
+def test_kernel_coordinate_layout():
+    """The CUDA wrapper hands the kernel SoA coordinates (lanes, 2*dim, N),
+    one shared row block with lane stride 0 for an expanded lane axis."""
+    boxes, _, _ = make_case(seed=12, L=3, n=40, dim=3)
+    tb = torch.from_numpy(boxes)
+    base, stride = nms_cuda._lane_rows(tb.transpose(1, 2), torch.float32)
+    assert base.is_contiguous() and stride == 6 * 40
+    assert torch.equal(base, tb.transpose(1, 2))
+    base, stride = nms_cuda._lane_rows(tb[:1].expand(3, 40, 6).transpose(1, 2), torch.float32)
+    assert base.is_contiguous() and stride == 0
+    assert torch.equal(base, tb[0].t())
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_single_lane_nms_matches_jax(dim):
+    boxes, scores, valid = make_case(seed=11 + dim, L=1, n=90, dim=dim, valid_frac=0.7)
+    t_idx, t_mask = tnms.nms(torch.from_numpy(boxes[0]), torch.from_numpy(scores[0]), 0.3, 12,
+                             valid=torch.from_numpy(valid[0]))
+    j_idx, j_mask = jnms.nms(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.3, 12, valid=jnp.asarray(valid[0]))
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
+    assert t_mask.any()
+
+
 def test_dispatcher_keys_on_device(monkeypatch):
     boxes, scores, valid = make_case(seed=9, L=2, n=50, dim=2, valid_frac=0.7)
     args = (torch.from_numpy(boxes), torch.from_numpy(scores), 0.3, 8)
