@@ -23,30 +23,17 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The last lines are a JSON object with one entry per kernel of the path and
 ``{"ok": true, "device": {...}}``.
 
-The script imports the PyTorch package only (its ``_shared`` module supplies
-the jax-free ``make_config`` / ``make_batch`` helpers) and never jax.
+The script imports the PyTorch package only (configs and batches come from
+``medicaldetectiontoolkit_torch.testing``): neither jax nor any module of the
+JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
-
-
-class _Log:
-    def info(self, *args, **kwargs):
-        pass
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def _cuda_ms(torch, fn, iters=20, warmup=3):
@@ -133,35 +120,19 @@ def _check_nms(torch, np, nms_ops, nms_cuda):
     return slice_entry
 
 
-def _slice_config(make_config, dtype):
-    cf = make_config(model="retina_unet", dim=3, patch_size=[128, 128, 64], start_filts=18, end_filts=36,
-                     batch_size=8)
-    cf.n_rpn_features = 64
-    cf.pre_nms_limit = 50000
-    cf.model_max_instances_per_batch_element = 30
-    cf.compute_dtype = dtype
-    return cf
-
-
-def _drive_slice(torch, np, dtype, batches, make_config, build_model, nms_cuda, refine_detections, nms_ops, card):
+def _drive_slice(torch, np, dtype, batches, common, nms_cuda, refine_detections, nms_ops, card):
     print(f"== phase 4: retina_unet 3D 128x128x64 sf18 ef36 batch 8, {dtype}")
-    cf = _slice_config(make_config, dtype)
-    net = build_model(cf, _Log(), device="cuda")
-    net.initialize(seed=0)
+    net = common.slice_net(dtype, seed=0)
+    cf = net.cf
     n_params = sum(p.numel() for p in net.module.parameters())
-    print(f"  params {n_params}, anchors {net.np_anchors.shape[0]}")
+    print(f"  params {n_params}, anchors {net.anchors.shape[0]}")
 
     # warm-up chunk (cuDNN plans, kernel library load); not counted
     net.test_forward_convert(net.test_forward_dispatch(batches[0]), batches[0])
     torch.cuda.synchronize()
 
     nms_cuda.batched_nms.launches = 0
-    t0 = time.perf_counter()
-    handles = [net.test_forward_dispatch(b) for b in batches]
-    t_dispatch = time.perf_counter() - t0
-    results = [net.test_forward_convert(h, b) for h, b in zip(handles, batches)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    handles, results, t_dispatch, wall = common.run_window(net, batches)
     launches = nms_cuda.batched_nms.launches
     print(f"  NMS kernel launches in the main-path run: {launches} (chunks: {len(batches)})")
     if launches != len(batches):
@@ -202,14 +173,14 @@ def _drive_slice(torch, np, dtype, batches, make_config, build_model, nms_cuda, 
     return {"launches": launches, "per_chunk_ms": per_chunk * 1e3, "heads": [h.float().cpu() for h in heads[:2]]}
 
 
-def _small_reference(torch, np, make_config, make_batch, build_model):
+def _small_reference(torch, np, make_config, make_batch, build_model, log):
     """A small 3D retina_unet: the card (kernel NMS, TF32 off) against the CPU
     run of the same weights (plain PyTorch everywhere)."""
     print("== phase 4b: small 3D retina_unet, card vs CPU plain path")
     cf = make_config(model="retina_unet", dim=3, batch_size=2)
     batch = make_batch(cf, seed=5)
-    gpu = build_model(cf, _Log(), device="cuda")
-    cpu = build_model(cf, _Log(), device="cpu")
+    gpu = build_model(cf, log, device="cuda")
+    cpu = build_model(cf, log, device="cpu")
     gpu.initialize(seed=1)
     cpu.load_state_dict(gpu.state_dict())
     with torch.inference_mode():
@@ -246,14 +217,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from medicaldetectiontoolkit_torch._shared import testing
+    from medicaldetectiontoolkit_torch.testing import make_batch, make_config
+    from medicaldetectiontoolkit_torch.tools import common
     from medicaldetectiontoolkit_torch.models import build_model
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
     from medicaldetectiontoolkit_torch.ops import nms_cuda
 
     print("== phase 1: device")
-    card = _card_line()
+    card = common.card_line()
     name = torch.cuda.get_device_name(0)
     print(f"  nvidia-smi: {card}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, device 0: {name}, "
@@ -273,16 +245,14 @@ def main() -> int:
 
     nms_entry = _check_nms(torch, np, nms_ops, nms_cuda)
 
-    make_batch, make_config = testing.make_batch, testing.make_config
-    batches = [make_batch(_slice_config(make_config, "float32"), seed=i) for i in range(3)]
+    batches = common.slice_batches(3)
     runs = {}
     for dtype in ("float32", "bfloat16"):
-        runs[dtype] = _drive_slice(torch, np, dtype, batches, make_config, build_model, nms_cuda,
-                                   refine_detections, nms_ops, card)
+        runs[dtype] = _drive_slice(torch, np, dtype, batches, common, nms_cuda, refine_detections, nms_ops, card)
     h32, h16 = runs["float32"]["heads"], runs["bfloat16"]["heads"]
     for hname, a, b in zip(("class_logits", "bb_deltas"), h32, h16):
         print(f"  bfloat16 vs float32 {hname}: max abs diff {float((a - b).abs().max()):.3e}")
-    _small_reference(torch, np, make_config, make_batch, build_model)
+    _small_reference(torch, np, make_config, make_batch, build_model, common.QuietLog())
 
     print(f"== summary ({card})")
     for dtype, r in runs.items():

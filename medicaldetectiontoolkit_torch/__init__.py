@@ -9,9 +9,11 @@ version beside it; a CPU tensor takes the plain version, a CUDA tensor the
 kernel.
 
 Ported so far: the inference path of RetinaNet / Retina U-Net (2D + 3D),
-with the NMS kernel (``ops/nms_cuda.py`` + ``csrc/nms.cu``). Host-side
-modules without a jax dependency (``config``, ``testing``, ``predictor``,
-``ops/anchors.py``) are shared with the JAX package, not copied.
+with the NMS kernel (``ops/nms_cuda.py`` + ``csrc/nms.cu``). The package
+loads nothing of the JAX package: its anchors (``ops/anchors.py``) and test
+configs and batches (``testing.py``) are its own, held equal to the JAX
+package's by the CPU tests. Measurement scripts for the card are in
+``tools/``.
 
 Importing this package never needs a compiler: kernels build at first use.
 """

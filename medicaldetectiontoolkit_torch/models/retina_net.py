@@ -22,9 +22,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from medicaldetectiontoolkit_torch import _shared
 from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
+from medicaldetectiontoolkit_torch.ops import anchors as anchor_ops
 from medicaldetectiontoolkit_torch.ops import boxes as box_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 
@@ -159,8 +159,7 @@ class RetinaNetDetector(base.Detector):
         h, w = cf.patch_size[:2]
         if h % 2**5 or w % 2**5:
             raise ValueError("patch size must be divisible by 2**5 (e.g. 256, 320, 384, ...)")
-        self.np_anchors = _shared.anchors.generate_pyramid_anchors(cf, self.logger).astype(np.float32)
-        self.anchors = torch.from_numpy(self.np_anchors).to(self.device)
+        self.anchors = anchor_ops.generate_pyramid_anchors(cf, self.logger).to(self.device, torch.float32)
         self.module = RetinaModule(
             dim=cf.dim,
             n_channels=cf.n_channels,

@@ -3,9 +3,11 @@
 Replaces ``medicaldetectiontoolkit_tpu/ops/nms_pallas.py::nms_pallas`` on the
 GPU. The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C entry point and loaded through ``ctypes``. The build
-happens at first use, into ``_build/`` next to the package sources, keyed on
-a hash of the source and the flags, so a changed ``.cu`` rebuilds and
-importing this module never needs a compiler.
+happens at first use, into ``_build/`` next to the package sources (or, where
+the package directory is read-only, as in an installed copy, into a per-user
+directory under the system temporary directory), keyed on a hash of the
+source and the flags, so a changed ``.cu`` rebuilds and importing this module
+never needs a compiler.
 
 The wrapper takes CUDA tensors only. It validates shapes, lays the boxes out
 as SoA ``(lanes, 2*dim, N)`` (``nms_pallas.py:101``), passes a lane stride of
@@ -22,13 +24,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = _PKG_DIR / "csrc" / "nms.cu"
-BUILD_DIR = _PKG_DIR / "_build"
+BUILD_DIR = (
+    _PKG_DIR / "_build" if os.access(_PKG_DIR, os.W_OK)
+    else Path(tempfile.gettempdir()) / f"medicaldetectiontoolkit_torch_build_{os.getuid()}"
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",

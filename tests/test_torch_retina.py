@@ -27,6 +27,7 @@ from medicaldetectiontoolkit_tpu.predictor import Predictor  # noqa: E402
 from medicaldetectiontoolkit_tpu.testing import make_batch, make_config  # noqa: E402
 from medicaldetectiontoolkit_torch.models import build_model as tbuild  # noqa: E402
 from medicaldetectiontoolkit_torch.models.retina_net import refine_detections as trefine  # noqa: E402
+from medicaldetectiontoolkit_torch.ops.anchors import generate_pyramid_anchors  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -51,9 +52,7 @@ def nets(model, dim):
 def test_refine_detections_same_heads(dim, pre_nms_limit):
     cf = make_config(model="retina_net", dim=dim)
     cf.pre_nms_limit = pre_nms_limit
-    from medicaldetectiontoolkit_torch import _shared
-
-    anchors = _shared.anchors.generate_pyramid_anchors(cf).astype(np.float32)
+    anchors = generate_pyramid_anchors(cf).to(torch.float32).numpy()
     rng = np.random.RandomState(dim)
     A = anchors.shape[0]
     # logits on a 0.25 grid: many exactly tied probabilities, so the top-k
