@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference path once on one CUDA card and check it.
+"""Drive the PyTorch port's inference paths once on one CUDA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -9,18 +9,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   1. device: require CUDA, print the card (``nvidia-smi`` name and power
      limit) and the float32 precision switches (TF32 off for convs and
      matmuls);
-  2. build the NMS kernel from ``medicaldetectiontoolkit_torch/csrc/nms.cu``;
-  3. kernel vs plain PyTorch NMS on the card: bit-identical keep lists on
-     random, tied, all-invalid, ragged and slice-shaped cases, with times;
-  4. the slice: 3D Retina U-Net at LIDC width (patch 128x128x64,
-     start_filts 18, end_filts 36, batch 8) through ``build_model`` ->
+  2. build both kernels in parallel: NMS (``csrc/nms.cu``) and pyramid
+     RoIAlign (``csrc/roi_align.cu``);
+  3. NMS kernel vs plain PyTorch NMS on the card: bit-identical keep lists on
+     random, tied, all-invalid, ragged and slice-shaped cases (the Mask
+     R-CNN proposal shape included), with times;
+  3b. RoIAlign kernel vs plain PyTorch pyramid RoIAlign on the card:
+     bit-identical float32 crops in 2D and 3D, every level, crop 1, clamped
+     and zero-size boxes, bf16 and f16 maps, ragged RoI counts, and the Mask
+     R-CNN slice's two shapes on the LIDC pyramid, with times;
+  4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
+     end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
-     any is converted, in float32 and bfloat16; the NMS launch counter must
-     rise once per chunk; outputs finite and shaped; refine_detections with
-     the kernel equals refine_detections with the plain NMS; a small 3D
-     input agrees with the CPU (plain PyTorch) run of the same weights.
+     any is converted, in float32 and bfloat16; the NMS launch counter rises
+     once per chunk; refine_detections with the kernel equals it with the
+     plain NMS; a small 3D input agrees with the CPU run of the same weights;
+  5. 3D Mask R-CNN at LIDC width (the same geometry, 3 anchors per
+     position, 500 proposals per patch, RoIs classified in chunks of 600),
+     three chunks with masks, float32 and bfloat16: the NMS counter rises by
+     2 per chunk and the RoIAlign counter by the classify launches plus one
+     mask launch per chunk; on chunk 0 the kernels give the same detections
+     and masks as the plain versions on the same heads and maps;
+  6. small 3D Mask R-CNN and U-Faster R-CNN+: the card against the CPU run
+     of the same weights.
 
-The last lines are a JSON object with one entry per kernel of the path and
+The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
 
 The script imports the PyTorch package only (configs and batches come from
@@ -31,9 +44,11 @@ JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 
 def _cuda_ms(torch, fn, iters=20, warmup=3):
@@ -52,7 +67,7 @@ def _cuda_ms(torch, fn, iters=20, warmup=3):
 
 def _nms_cases(np):
     """(name, boxes (L,N,2d), scores (L,N), valid (L,N)|None, thresh, max_out,
-    pixel_offset, broadcast lanes) from a numpy seed."""
+    pixel_offset, broadcast lanes, timed) from a numpy seed."""
     rng = np.random.RandomState(0)
 
     def boxes(L, n, dim, integer=False, extent=80.0, size=30.0):
@@ -67,27 +82,33 @@ def _nms_cases(np):
 
     cases = []
     cases.append(("random_2d", boxes(3, 1000, 2), rng.rand(3, 1000).astype(np.float32),
-                  rng.rand(3, 1000) < 0.8, 0.4, 50, 1.0, False))
-    cases.append(("random_3d", boxes(4, 3000, 3), rng.rand(4, 3000).astype(np.float32), None, 0.3, 40, 0.0, False))
+                  rng.rand(3, 1000) < 0.8, 0.4, 50, 1.0, False, False))
+    cases.append(("random_3d", boxes(4, 3000, 3), rng.rand(4, 3000).astype(np.float32), None, 0.3, 40, 0.0, False,
+                  False))
     tie_scores = (rng.randint(0, 10, (2, 2000)) / 10.0).astype(np.float32)
     cases.append(("ties_int_3d_off1", boxes(2, 2000, 3, integer=True, extent=20, size=5), tie_scores,
-                  None, 0.1, 100, 1.0, False))
+                  None, 0.1, 100, 1.0, False, False))
     cases.append(("ties_int_2d_off0", boxes(2, 2000, 2, integer=True, extent=20, size=5), tie_scores,
-                  None, 0.1, 100, 0.0, False))
+                  None, 0.1, 100, 0.0, False, False))
     valid = rng.rand(3, 500) < 0.5
     valid[1] = False
     cases.append(("all_invalid_lane", boxes(3, 500, 3), rng.rand(3, 500).astype(np.float32), valid, 0.5, 20, 1.0,
-                  False))
-    cases.append(("n37", boxes(2, 37, 2), rng.rand(2, 37).astype(np.float32), None, 0.5, 10, 1.0, False))
+                  False, False))
+    cases.append(("n37", boxes(2, 37, 2), rng.rand(2, 37).astype(np.float32), None, 0.5, 10, 1.0, False, False))
     cases.append(("max_output_gt_survivors", boxes(2, 20, 3, extent=5), rng.rand(2, 20).astype(np.float32), None,
-                  0.0, 64, 1.0, False))
-    # the slice's shape: 16 lanes (8 elements x 2 fg classes) over one
-    # broadcast array of 50,000 rounded boxes, descending scores with ties
+                  0.0, 64, 1.0, False, False))
+    # Mask R-CNN's proposal shape: 8 lanes of 6,000 unrounded pixel boxes
+    # each (not broadcast), descending scores, IoU 0.7, 500 keep slots
+    prop_scores = -np.sort(-rng.rand(8, 6000), axis=1).astype(np.float32)
+    cases.append(("proposals_8x6000_3d", boxes(8, 6000, 3, extent=120, size=24), prop_scores, None, 0.7, 500, 1.0,
+                  False, True))
+    # Retina U-Net's refine shape: 16 lanes (8 elements x 2 fg classes) over
+    # one broadcast array of 50,000 rounded boxes, descending scores with ties
     n, lanes = 50000, 16
     scores = np.sort((rng.rand(n) * 1000).round() / 1000.0)[::-1].astype(np.float32)
     lane_of = rng.randint(0, lanes, n)
     cases.append(("slice_16x50000_3d", boxes(1, n, 3, integer=True, extent=120, size=20), scores[None],
-                  lane_of[None, :] == np.arange(lanes)[:, None], 1e-5, 30, 1.0, True))
+                  lane_of[None, :] == np.arange(lanes)[:, None], 1e-5, 30, 1.0, True, True))
     return cases
 
 
@@ -95,7 +116,7 @@ def _check_nms(torch, np, nms_ops, nms_cuda):
     print("== phase 3: NMS kernel vs plain PyTorch (bit-identical idx and mask)")
     dev = torch.device("cuda")
     slice_entry = None
-    for name, b, s, v, thr, max_out, off, broadcast in _nms_cases(np):
+    for name, b, s, v, thr, max_out, off, broadcast, timed in _nms_cases(np):
         L = v.shape[0] if v is not None else b.shape[0]
         tb, ts = torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
         if broadcast:
@@ -112,12 +133,109 @@ def _check_nms(torch, np, nms_ops, nms_cuda):
               f"kept={kept} identical={same}")
         if not same:
             raise AssertionError(f"NMS kernel disagrees with plain PyTorch on {name}")
-        if broadcast:
+        if timed:
             k_ms = _cuda_ms(torch, lambda: nms_cuda.batched_nms(*args, valid=tv, pixel_offset=off))
             p_ms = _cuda_ms(torch, lambda: nms_ops.batched_nms(*args, valid=tv, pixel_offset=off), iters=5)
             print(f"  {name}: kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms (CUDA events)")
-            slice_entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+            if broadcast:
+                slice_entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
     return slice_entry
+
+
+def _pyramid(torch, rng, dim, B, C, sizes, dtype):
+    """One random channel-first map (B, C, *size) per level on the card."""
+    return [torch.from_numpy(rng.randn(B, C, *s).astype("float32")).cuda().to(dtype) for s in sizes]
+
+
+def _roi_boxes(np, rng, dim, R, edge=True):
+    """R normalised boxes whose sizes span every FPN level, plus clamped
+    (beyond [0, 1]) and zero-size boxes."""
+    side = np.exp(rng.uniform(np.log(0.02), np.log(0.9), (R, dim)))
+    lo = rng.rand(R, dim) * (1 - side)
+    hi = lo + side
+    cols = [lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]] + ([lo[:, 2], hi[:, 2]] if dim == 3 else [])
+    boxes = np.stack(cols, -1).astype(np.float32)
+    if edge:
+        rows = [[-0.2, -0.3, 1.4, 1.2], [0.9, 0.9, 1.1, 1.3], [0.5, 0.5, 0.5, 0.5], [0.3, 0.7, 0.3, 0.9]]
+        z = [[-0.5, 1.5], [0.8, 1.2], [0.5, 0.5], [0.2, 0.2]]
+        extra = np.array([r + zz for r, zz in zip(rows, z)] if dim == 3 else rows, np.float32)
+        boxes = np.concatenate([boxes[: R - len(extra)], extra])
+    return boxes
+
+
+def _roi_cases(torch):
+    """(name, dim, B, C, level sizes, map dtype, R, crop, timed)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    lidc = [(32, 32, 64), (16, 16, 32), (8, 8, 16), (4, 4, 8)]  # P2..P5 of the 128x128x64 patch
+    small3 = [(16, 16, 8), (8, 8, 4), (4, 4, 2), (2, 2, 1)]
+    small2 = [(32, 32), (16, 16), (8, 8), (4, 4)]
+    return [
+        ("2d_every_level", 2, 2, 5, small2, f32, 53, (7, 7), False),
+        ("2d_crop1", 2, 2, 5, small2, f32, 37, (1, 1), False),
+        ("2d_bf16", 2, 2, 5, small2, bf16, 41, (7, 7), False),
+        ("3d_every_level", 3, 3, 6, small3, f32, 61, (7, 7, 3), False),
+        ("3d_crop1", 3, 3, 6, small3, f32, 29, (1, 1, 1), False),
+        ("3d_crop_z1", 3, 3, 6, small3, f32, 29, (4, 4, 1), False),
+        ("3d_bf16", 3, 3, 6, small3, bf16, 67, (14, 14, 5), False),
+        ("3d_f16", 3, 3, 6, small3, f16, 67, (7, 7, 3), False),
+        ("3d_r1", 3, 3, 6, small3, f32, 1, (7, 7, 3), False),
+        ("lidc_classify_4000_f32", 3, 8, 36, lidc, f32, 4000, (7, 7, 3), True),
+        ("lidc_mask_240_f32", 3, 8, 36, lidc, f32, 240, (14, 14, 5), True),
+        ("lidc_classify_4000_bf16", 3, 8, 36, lidc, bf16, 4000, (7, 7, 3), False),
+        ("lidc_mask_240_bf16", 3, 8, 36, lidc, bf16, 240, (14, 14, 5), False),
+    ]
+
+
+def _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, cases):
+    print("== phase 3b: RoIAlign kernel vs plain PyTorch pyramid RoIAlign (bit-identical float32 crops)")
+    rng = np.random.RandomState(1)
+    entry, timings = None, {}
+    for name, dim, B, C, sizes, dtype, R, crop, timed in cases:
+        fms = _pyramid(torch, rng, dim, B, C, [s[:dim] for s in sizes], dtype)
+        boxes = torch.from_numpy(_roi_boxes(np, rng, dim, R, edge=R > 8)).cuda()
+        bix = torch.from_numpy(rng.randint(0, B, R).astype(np.int32)).cuda()
+        lvl = roi_levels(boxes, (0, 1, 2, 3))
+        args = (fms, boxes, bix, lvl, crop)
+        got = roi_align_cuda.pyramid_roi_align(*args)
+        want = roi_ops.pyramid_roi_align(*args)
+        torch.cuda.synchronize()
+        counts = torch.bincount(lvl.long(), minlength=4).tolist()
+        same = got.dtype == want.dtype == torch.float32 and got.shape == want.shape and torch.equal(got, want)
+        err = float((got - want).abs().max())
+        print(f"  {name}: R={R} crop={crop} C={C} maps {str(dtype)[6:]} RoIs per level {counts} "
+              f"max|err|={err:.3e} identical={same}")
+        if not same:
+            raise AssertionError(f"RoIAlign kernel disagrees with plain PyTorch on {name}")
+        if timed:
+            # the kernel alone, on rows prepared once; then the whole wrapper
+            # (the rows' PyTorch ops included) and the plain version
+            _, launch_args = roi_align_cuda.prepare(*args)
+            k_ms = _cuda_ms(torch, lambda: roi_align_cuda.launch(launch_args))
+            w_ms = _cuda_ms(torch, lambda: roi_align_cuda.pyramid_roi_align(*args))
+            p_ms = _cuda_ms(torch, lambda: roi_ops.pyramid_roi_align(*args), iters=3, warmup=1)
+            print(f"  {name}: kernel {k_ms:.4f} ms, wrapper with its index rows {w_ms:.4f} ms, "
+                  f"plain PyTorch {p_ms:.4f} ms (CUDA events)")
+            timings[name] = (k_ms, w_ms, p_ms)
+            if entry is None:
+                entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        del fms, got, want
+        torch.cuda.empty_cache()
+    return entry, timings
+
+
+def _check_results(np, results, cf, seg_dtype):
+    ps = tuple(cf.patch_size)
+    for r in results:
+        if r["seg_preds"].shape != (cf.batch_size, 1) + ps or r["seg_preds"].dtype != seg_dtype:
+            raise AssertionError(f"seg_preds {r['seg_preds'].shape} {r['seg_preds'].dtype}")
+        if len(r["boxes"]) != cf.batch_size:
+            raise AssertionError(f"boxes list of length {len(r['boxes'])}")
+        for boxes in r["boxes"]:
+            for box in boxes:
+                if box["box_type"] != "det" or not np.all(np.isfinite(box["box_coords"])) \
+                        or not np.isfinite(box["box_score"]):
+                    raise AssertionError(f"bad box {box}")
+    return [sum(len(b) for b in r["boxes"]) for r in results]
 
 
 def _drive_slice(torch, np, dtype, batches, common, nms_cuda, refine_detections, nms_ops, card):
@@ -137,20 +255,10 @@ def _drive_slice(torch, np, dtype, batches, common, nms_cuda, refine_detections,
     print(f"  NMS kernel launches in the main-path run: {launches} (chunks: {len(batches)})")
     if launches != len(batches):
         raise AssertionError(f"expected {len(batches)} NMS kernel launches, counted {launches}")
-    for det, mask, seg in handles:
+    for _, (det, mask, _, seg) in handles:
         if not (det.is_cuda and mask.is_cuda and seg.is_cuda):
             raise AssertionError("a main-path output is not on the CUDA card")
-    for r in results:
-        if r["seg_preds"].shape != (8, 1, 128, 128, 64) or r["seg_preds"].dtype != np.uint8:
-            raise AssertionError(f"seg_preds {r['seg_preds'].shape} {r['seg_preds'].dtype}")
-        if len(r["boxes"]) != 8:
-            raise AssertionError(f"boxes list of length {len(r['boxes'])}")
-        for boxes in r["boxes"]:
-            for box in boxes:
-                if box["box_type"] != "det" or not np.all(np.isfinite(box["box_coords"])) \
-                        or not np.isfinite(box["box_score"]):
-                    raise AssertionError(f"bad box {box}")
-    n_det = [sum(len(b) for b in r["boxes"]) for r in results]
+    n_det = _check_results(np, results, cf, np.uint8)
     per_chunk = wall / len(batches)
     print(f"  {len(batches)} chunks: dispatch {t_dispatch * 1e3:.1f} ms, dispatch+convert {wall * 1e3:.1f} ms; "
           f"{per_chunk * 1e3:.1f} ms/chunk, {8 * len(batches) / wall:.2f} patches/s ({card}); "
@@ -187,17 +295,29 @@ def _small_reference(torch, np, make_config, make_batch, build_model, log):
         hg = [h.cpu() for h in gpu._predict(torch.from_numpy(batch["data"]).cuda())]
         hc = cpu._predict(torch.from_numpy(batch["data"]))
     for name, a, b in zip(("class_logits", "bb_deltas", "seg_logits"), hg, hc):
-        err, ref = float((a - b).abs().max()), float(b.abs().max())
-        print(f"  {name}: max|gpu-cpu| {err:.3e} (max|cpu| {ref:.3e})")
-        # float32 convs summed in another order: relative 1e-4
-        if not err <= 1e-4 * ref:
-            raise AssertionError(f"{name} differs from the CPU reference beyond 1e-4 relative")
+        _close(name, a, b)
     rg, rc = gpu.test_forward(batch), cpu.test_forward(batch)
-    n_diff = int((rg["seg_preds"] != rc["seg_preds"]).sum())
-    print(f"  seg_preds: {n_diff} of {rc['seg_preds'].size} voxels differ (argmax near-ties)")
-    if n_diff > 1e-4 * rc["seg_preds"].size:
+    _same_seg(rg["seg_preds"], rc["seg_preds"])
+    _same_boxes(np, rg["boxes"], rc["boxes"])
+
+
+def _close(name, a, b, rel=1e-4):
+    err, ref = float((a - b).abs().max()), float(b.abs().max())
+    print(f"  {name}: max|gpu-cpu| {err:.3e} (max|cpu| {ref:.3e})")
+    # float32 convs summed in another order: relative 1e-4
+    if not err <= rel * ref:
+        raise AssertionError(f"{name} differs from the CPU reference beyond {rel} relative")
+
+
+def _same_seg(a, b):
+    n_diff = int((a != b).sum())
+    print(f"  seg_preds: {n_diff} of {b.size} voxels differ (argmax near-ties)")
+    if n_diff > 1e-4 * b.size:
         raise AssertionError("small input: seg_preds differ from the CPU reference")
-    for bg, bc in zip(rg["boxes"], rc["boxes"]):
+
+
+def _same_boxes(np, ga, ca):
+    for bg, bc in zip(ga, ca):
         same = len(bg) == len(bc) and all(
             np.array_equal(g["box_coords"], c["box_coords"]) and g["box_pred_class_id"] == c["box_pred_class_id"]
             and abs(g["box_score"] - c["box_score"]) < 1e-5
@@ -205,7 +325,111 @@ def _small_reference(torch, np, make_config, make_batch, build_model, log):
         )
         if not same:
             raise AssertionError("small input: detections differ from the CPU reference")
-    print(f"  detections equal: {sum(len(b) for b in rc['boxes'])} boxes")
+    print(f"  detections equal: {sum(len(b) for b in ca)} boxes")
+
+
+def _drive_mrcnn(torch, np, dtype, batches, common, nms_cuda, roi_align_cuda, nms_ops, roi_ops, card):
+    print(f"== phase 5: mrcnn 3D 128x128x64 sf18 ef36 batch 8, {dtype}, with masks")
+    net = common.slice_net(dtype, seed=0, model="mrcnn")
+    cf = net.cf
+    bsz, max_inst = cf.batch_size, cf.model_max_instances_per_batch_element
+    n_classify = math.ceil(bsz * cf.post_nms_rois_inference / cf.roi_chunk_size)
+    n_params = sum(p.numel() for p in net.module.parameters())
+    print(f"  params {n_params}, anchors {net.anchors.shape[0]}, classify launches per chunk {n_classify}")
+
+    net.test_forward_convert(net.test_forward_dispatch(batches[0]), batches[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    nms_cuda.batched_nms.launches = 0
+    roi_align_cuda.pyramid_roi_align.launches = 0
+    handles, results, t_dispatch, wall = common.run_window(net, batches)
+    launches = {"nms": nms_cuda.batched_nms.launches, "roi_align": roi_align_cuda.pyramid_roi_align.launches}
+    expect = {"nms": 2 * len(batches), "roi_align": (n_classify + 1) * len(batches)}
+    print(f"  kernel launches in the main-path run: {launches} (expected {expect}; chunks: {len(batches)})")
+    if launches != expect:
+        raise AssertionError(f"expected kernel launches {expect}, counted {launches}")
+    for with_masks, (det, mask, masks_raw, seg) in handles:
+        if not with_masks or seg is not None:
+            raise AssertionError("mrcnn handles: masks were asked for and there is no seg head")
+        if not (det.is_cuda and mask.is_cuda and masks_raw.is_cuda):
+            raise AssertionError("a main-path output is not on the CUDA card")
+        if det.shape != (bsz, max_inst, 8) or masks_raw.shape != (bsz, max_inst, cf.head_classes, *cf.mask_shape):
+            raise AssertionError(f"det {tuple(det.shape)}, masks {tuple(masks_raw.shape)}")
+        if not (bool(torch.isfinite(det).all()) and bool(torch.isfinite(masks_raw).all())):
+            raise AssertionError("detections or masks not finite")
+    n_det = _check_results(np, results, cf, np.uint8)
+    n_fg = [int(r["seg_preds"].sum()) for r in results]
+    per_chunk = wall / len(batches)
+    print(f"  {len(batches)} chunks: dispatch {t_dispatch * 1e3:.1f} ms, dispatch+convert {wall * 1e3:.1f} ms; "
+          f"{per_chunk * 1e3:.1f} ms/chunk, {bsz * len(batches) / wall:.2f} patches/s ({card}); "
+          f"detections per chunk {n_det}; mask-union voxels per chunk {n_fg}")
+
+    # chunk 0: the kernels against the plain versions on the same heads and maps
+    from medicaldetectiontoolkit_torch.models.base import host_to_device
+
+    with torch.inference_mode():
+        img = host_to_device(batches[0]["data"], net.device)
+        heads = net.module.extract(img)
+        for name, t in zip(("rpn_logits", "rpn_deltas"), heads[1:3]):
+            if not t.is_cuda or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} not finite or not on the card")
+        out_k = net._from_heads(heads, bsz, True)
+        net.nms_fn, net.align_fn = nms_ops.batched_nms, roi_ops.pyramid_roi_align
+        try:
+            out_p = net._from_heads(heads, bsz, True)
+        finally:
+            del net.nms_fn, net.align_fn  # back to the class's dispatchers
+        torch.cuda.synchronize()
+    for name, k, p in zip(("det", "det_mask", "det_masks_raw"), out_k[:3], out_p[:3]):
+        if not torch.equal(k, p):
+            err = float((k.float() - p.float()).abs().max())
+            raise AssertionError(f"{name}: kernels and plain versions differ on chunk 0 (max|err| {err:.3e})")
+    print(f"  chunk 0, K1 + K2 == plain NMS + plain RoIAlign: {int(out_k[1].sum())} detections and their "
+          f"masks identical")
+    return {"launches": launches, "per_chunk_ms": per_chunk * 1e3,
+            "heads": [h.float().cpu() for h in heads[1:3]]}
+
+
+def _small_two_stage(torch, np, make_config, make_batch, build_model, log, model):
+    """Small 3D two-stage detector: the card (kernels, TF32 off) against the
+    CPU run of the same weights (plain PyTorch everywhere)."""
+    print(f"== phase 6: small 3D {model}, card vs CPU plain path")
+    cf = make_config(model=model, dim=3, batch_size=2, retina_scales=False)
+    batch = make_batch(cf, seed=5)
+    gpu = build_model(cf, log, device="cuda")
+    cpu = build_model(cf, log, device="cpu")
+    gpu.initialize(seed=1)
+    cpu.load_state_dict(gpu.state_dict())
+    x = torch.from_numpy(batch["data"])
+    with torch.inference_mode():
+        hg = gpu.module.extract(x.cuda())
+        hc = cpu.module.extract(x)
+        _close("rpn_logits", hg[1].cpu(), hc[1])
+        _close("rpn_deltas", hg[2].cpu(), hc[2])
+        # the same heads and maps on both sides: the CPU's, copied to the card
+        hm = ([m.cuda() for m in hc[0]], hc[1].cuda(), hc[2].cuda(), None if hc[3] is None else hc[3].cuda())
+        pg, pc = gpu._proposals(hm[1], hm[2]), cpu._proposals(hc[1], hc[2])
+        if not torch.equal(pg[2].cpu(), pc[2]):
+            raise AssertionError("proposals: valid slots differ")
+        err = float((pg[1].cpu() - pc[1]).abs().max())
+        print(f"  proposals (pixel boxes, scores): max|gpu-cpu| {err:.3e}, {int(pc[2].sum())} valid")
+        # unrounded decoded boxes: exp on another device may differ in the last bit
+        if err > 1e-4:
+            raise AssertionError("proposals differ from the CPU reference")
+        og = gpu._from_heads(hm, cf.batch_size, True)
+        oc = cpu._from_heads(hc, cf.batch_size, True)
+    from medicaldetectiontoolkit_torch.models.base import detections_to_box_results
+
+    boxes = [detections_to_box_results(cf, o[0].cpu().numpy(), o[1].cpu().numpy()) for o in (og, oc)]
+    _same_boxes(np, *boxes)
+    if og[2] is not None:
+        # random weights put mask probabilities near 0.5, where the rounded
+        # union of the unmolded masks flips on any difference: compare the
+        # raw masks instead
+        _close("det_masks_raw", og[2].cpu(), oc[2])
+    else:
+        shape = batch["data"].shape
+        _same_seg(gpu._make_seg_preds(*og, shape, True), cpu._make_seg_preds(*oc, shape, True))
 
 
 def main() -> int:
@@ -220,10 +444,13 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.testing import make_batch, make_config
     from medicaldetectiontoolkit_torch.tools import common
     from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.models.mrcnn import roi_levels
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
-    from medicaldetectiontoolkit_torch.ops import nms_cuda
+    from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda
+    from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
 
+    t_start = time.perf_counter()
     print("== phase 1: device")
     card = common.card_line()
     name = torch.cuda.get_device_name(0)
@@ -235,35 +462,61 @@ def main() -> int:
     print(f"  cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    print("== phase 2: build")
+    print("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    lib_path = nms_cuda.build()
-    print(f"  {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    log = lib_path.with_suffix(".log")
-    if log.exists():
-        print("  " + log.read_text().strip().replace("\n", "\n  "))
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda)))
+    print(f"  {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib_path in libs:
+        log = lib_path.with_suffix(".log")
+        if log.exists():
+            print("  " + log.read_text().strip().replace("\n", "\n  "))
 
     nms_entry = _check_nms(torch, np, nms_ops, nms_cuda)
+    roi_entry, roi_times = _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, _roi_cases(torch))
 
     batches = common.slice_batches(3)
     runs = {}
     for dtype in ("float32", "bfloat16"):
         runs[dtype] = _drive_slice(torch, np, dtype, batches, common, nms_cuda, refine_detections, nms_ops, card)
+        torch.cuda.empty_cache()
     h32, h16 = runs["float32"]["heads"], runs["bfloat16"]["heads"]
     for hname, a, b in zip(("class_logits", "bb_deltas"), h32, h16):
         print(f"  bfloat16 vs float32 {hname}: max abs diff {float((a - b).abs().max()):.3e}")
     _small_reference(torch, np, make_config, make_batch, build_model, common.QuietLog())
 
-    print(f"== summary ({card})")
+    mruns = {}
+    for dtype in ("float32", "bfloat16"):
+        mruns[dtype] = _drive_mrcnn(torch, np, dtype, batches, common, nms_cuda, roi_align_cuda, nms_ops, roi_ops,
+                                    card)
+        torch.cuda.empty_cache()
+    h32, h16 = mruns["float32"]["heads"], mruns["bfloat16"]["heads"]
+    for hname, a, b in zip(("rpn_logits", "rpn_deltas"), h32, h16):
+        print(f"  bfloat16 vs float32 mrcnn {hname}: max abs diff {float((a - b).abs().max()):.3e}")
+    for model in ("mrcnn", "ufrcnn"):
+        _small_two_stage(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
+
+    print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for dtype, r in runs.items():
-        print(f"  {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
+        print(f"  retina_unet {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
+    for dtype, r in mruns.items():
+        print(f"  mrcnn {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
+    for case, (k_ms, w_ms, p_ms) in roi_times.items():
+        print(f"  roi_align {case}: kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms")
     kernels = [{
         "name": "nms",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/nms.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
-        "launches": sum(r["launches"] for r in runs.values()),
+        "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values()),
         **nms_entry,
+    }, {
+        "name": "roi_align",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
+        "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
+        "launches": sum(r["launches"]["roi_align"] for r in mruns.values()),
+        **roi_entry,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

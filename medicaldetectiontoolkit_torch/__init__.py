@@ -8,8 +8,10 @@ path is a hand-written Hopper kernel under ``csrc/`` with a plain PyTorch
 version beside it; a CPU tensor takes the plain version, a CUDA tensor the
 kernel.
 
-Ported so far: the inference path of RetinaNet / Retina U-Net (2D + 3D),
-with the NMS kernel (``ops/nms_cuda.py`` + ``csrc/nms.cu``). The package
+Ported so far: the inference paths of RetinaNet / Retina U-Net and of
+Mask R-CNN / U-Faster R-CNN+ (2D + 3D), with the NMS kernel
+(``ops/nms_cuda.py`` + ``csrc/nms.cu``) and the pyramid RoIAlign kernel
+(``ops/roi_align_cuda.py`` + ``csrc/roi_align.cu``). The package
 loads nothing of the JAX package: its anchors (``ops/anchors.py``) and test
 configs and batches (``testing.py``) are its own, held equal to the JAX
 package's by the CPU tests. Measurement scripts for the card are in

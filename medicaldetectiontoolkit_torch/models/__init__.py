@@ -1,8 +1,9 @@
 """Model zoo of the port: a registry keyed by ``cf.model``.
 
-Same names as ``medicaldetectiontoolkit_tpu/models/__init__.py:14-78``. Only
-the one-stage detectors (``retina_net``, ``retina_unet``) are ported so far;
-the rest follow in the order of ROADMAP.md, Queue 1.
+Same names as ``medicaldetectiontoolkit_tpu/models/__init__.py:14-78``. The
+inference paths of the one-stage (``retina_net``, ``retina_unet``) and the
+two-stage detectors (``mrcnn``, ``ufrcnn``) are ported so far; training and
+``detection_unet`` follow in the order of ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def register(name):
 def build_model(cf, logger, device=None):
     """Instantiate the detector named by ``cf.model`` on ``device`` (default:
     the CUDA card when present, else the CPU)."""
-    from medicaldetectiontoolkit_torch.models import retina_net  # noqa: F401  (registers)
+    from medicaldetectiontoolkit_torch.models import mrcnn, retina_net  # noqa: F401  (registers)
 
     if cf.model not in _REGISTRY:
         raise KeyError(f"unknown model '{cf.model}', the PyTorch package has {sorted(_REGISTRY)}")

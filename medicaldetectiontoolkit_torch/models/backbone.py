@@ -35,12 +35,14 @@ import torch.nn.functional as F
 GN_EPS = 1e-6
 
 
-def _variance_scaling(shape, scale: float, mode: str, distribution: str, generator):
-    """flax/jax ``variance_scaling`` draw for a torch conv weight shape
-    (cout, cin, k...): fan_in = cin*prod(k), fan_out = cout*prod(k).
-    Drawn on the CPU so a seed gives the same weights on every device."""
+def _variance_scaling(shape, scale: float, mode: str, distribution: str, generator, in_axis: int = 1):
+    """flax/jax ``variance_scaling`` draw for a torch weight shape: conv
+    (cout, cin, k...) and Linear (out, in) with ``in_axis`` 1, transposed conv
+    (cin, cout, k...) with ``in_axis`` 0; fan_in = cin*prod(k), fan_out =
+    cout*prod(k). Drawn on the CPU so a seed gives the same weights on every
+    device."""
     receptive = math.prod(shape[2:])
-    fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+    fan_in, fan_out = shape[in_axis] * receptive, shape[1 - in_axis] * receptive
     fan = {"fan_in": fan_in, "fan_avg": (fan_in + fan_out) / 2}[mode]
     var = scale / fan
     w = torch.empty(shape, dtype=torch.float32)
@@ -63,16 +65,20 @@ _INITS = {
 
 def init_weights(module: nn.Module, weight_init: Optional[str], generator: torch.Generator):
     """Re-initialise every conv and norm of ``module`` like the JAX package
-    (``backbone.py:30-42``): kernels by ``cf.weight_init``, zero biases,
-    unit norm scales. The draws differ from JAX's; parity tests load
-    converted JAX params instead."""
+    (``backbone.py:30-42``): conv kernels by ``cf.weight_init``, zero biases,
+    unit norm scales. Linear and transposed-conv layers are flax ``Dense``
+    and ``ConvTranspose`` in JAX, which take flax's default init
+    (lecun_normal) whatever ``cf.weight_init`` says. The draws differ from
+    JAX's; parity tests load converted JAX params instead."""
     if weight_init not in _INITS:
         raise ValueError(f"unknown weight_init '{weight_init}'")
-    scale, mode, dist = _INITS[weight_init]
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d)):
-                m.weight.copy_(_variance_scaling(tuple(m.weight.shape), scale, mode, dist, generator))
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                flax_default = isinstance(m, (nn.Linear, nn.ConvTranspose2d, nn.ConvTranspose3d))
+                scale, mode, dist = _INITS[None if flax_default else weight_init]
+                in_axis = 0 if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)) else 1
+                m.weight.copy_(_variance_scaling(tuple(m.weight.shape), scale, mode, dist, generator, in_axis))
                 m.bias.zero_()
             elif isinstance(m, nn.GroupNorm):
                 m.weight.fill_(1.0)

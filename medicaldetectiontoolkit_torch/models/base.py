@@ -10,11 +10,14 @@ tensors stay channel-first, as torch convolutions take them.
 ``test_forward_dispatch`` only enqueues CUDA work and returns un-synchronised
 tensors; ``test_forward_convert`` does the device->host copy. That keeps the
 Predictor's in-flight window of dispatched chunks (``predictor.py:374-417``)
-overlapping host work with device work.
+overlapping host work with device work. The handles are ``(with_masks, (det,
+det_mask, det_masks_raw, seg_preds))`` for every detector: the one-stage
+detectors (``retina_net.py``) leave ``det_masks_raw`` None, the two-stage
+ones (``mrcnn.py``) fill it when masks are asked for.
 
 The training half (matching, losses, optimizer, gradient accumulation) is
-not ported yet; its entry points raise ``NotImplementedError`` (see
-ROADMAP.md, Queue 1).
+not ported yet for any detector; its entry points raise
+``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -76,11 +79,35 @@ def detections_to_box_results(cf, detections, det_mask, box_results_list=None):
     return box_results_list
 
 
+def unmold_mask(mask, bbox, image_shape):
+    """Resize a small (mask_shape) mask into its box within a full-size image
+    (``base.py:148-170``): order-1 zoom of the raw mask to the box extent,
+    placed into a zero canvas (scipy on the host)."""
+    from scipy import ndimage
+
+    dim = 2 if len(bbox) == 4 else 3
+    if dim == 2:
+        y1, x1, y2, x2 = [int(v) for v in bbox[:4]]
+        out_zoom = [y2 - y1, x2 - x1]
+    else:
+        y1, x1, y2, x2, z1, z2 = [int(v) for v in bbox[:6]]
+        out_zoom = [y2 - y1, x2 - x1, z2 - z1]
+    zoom_factor = [i / j for i, j in zip(out_zoom, mask.shape)]
+    small = ndimage.zoom(mask, zoom_factor, order=1).astype(np.float32)
+    full_mask = np.zeros(image_shape[:dim], dtype=np.float32)
+    if dim == 2:
+        full_mask[y1:y2, x1:x2] = small
+    else:
+        full_mask[y1:y2, x1:x2, z1:z2] = small
+    return full_mask
+
+
 class Detector:
     """Base class: owns (cf, logger, device, module) and the host API.
 
-    Subclasses implement ``build`` (set ``self.module``), ``_predict`` and
-    ``_finalize_outputs``.
+    Subclasses implement ``build`` (set ``self.module``) and either
+    ``_predict`` + ``_finalize_outputs`` (one-stage) or ``_forward`` +
+    ``_make_seg_preds`` (two-stage).
     """
 
     def __init__(self, cf, logger, device: Optional[torch.device] = None):
@@ -126,22 +153,34 @@ class Detector:
     def _finalize_outputs(self, *heads):
         raise NotImplementedError
 
-    def test_forward_dispatch(self, batch, **kwargs):
-        """Enqueue forward + detection refinement; return un-synchronised
-        device tensors (nothing waits for the device until convert)."""
+    def _forward(self, img, with_masks: bool):
+        """img -> (det, det_mask, det_masks_raw | None, seg_preds | None) on
+        the device."""
+        det, det_mask, seg_preds = self._finalize_outputs(*self._predict(img))
+        return det, det_mask, None, seg_preds
+
+    def _make_seg_preds(self, det, det_mask, det_masks_raw, seg_preds, data_shape, with_masks: bool):
+        """The results' seg_preds on the host: the seg head's argmax, or a
+        float32 zero volume for detectors without one."""
+        if seg_preds is None:
+            return np.zeros((data_shape[0], 1) + tuple(data_shape[2:]), dtype=np.float32)
+        return seg_preds.cpu().numpy()
+
+    def test_forward_dispatch(self, batch, return_masks=True, **kwargs):
+        """Enqueue the forward pass and detection refinement (and, for
+        detectors with a mask head, the masks when ``return_masks``); return
+        un-synchronised device tensors (nothing waits for the device until
+        convert)."""
+        with_masks = bool(return_masks)
         with torch.inference_mode():
             img = host_to_device(batch["data"], self.device)
-            return self._finalize_outputs(*self._predict(img))
+            return with_masks, self._forward(img, with_masks)
 
     def test_forward_convert(self, handles, batch, **kwargs):
-        det, det_mask, seg_preds = handles
+        with_masks, (det, det_mask, det_masks_raw, seg_preds) = handles
         boxes = detections_to_box_results(self.cf, det.cpu().numpy(), det_mask.cpu().numpy())
-        if seg_preds is None:
-            data_shape = batch["data"].shape
-            seg_preds = np.zeros((data_shape[0], 1) + tuple(data_shape[2:]), dtype=np.float32)
-        else:
-            seg_preds = seg_preds.cpu().numpy()
-        return {"boxes": boxes, "seg_preds": seg_preds}
+        seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape, with_masks)
+        return {"boxes": boxes, "seg_preds": seg}
 
     def test_forward(self, batch, **kwargs):
         """Inference forward -> {boxes, seg_preds} (reference test_forward contract)."""

@@ -80,6 +80,12 @@ class RetinaModule(nn.Module):
         return class_logits, bb_deltas, seg_logits
 
 
+def _softmax(logits):
+    """softmax over the last axis in ``jax.nn.softmax``'s operation order."""
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def _stable_topk(x, k: int, dim: int = -1):
     """Exact top-k with JAX's ``lax.top_k`` tie order (lower index first):
     a stable descending sort, sliced. ``torch.topk`` promises no tie order."""
@@ -103,10 +109,7 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     max_inst = cf.model_max_instances_per_batch_element
     k = min(cf.pre_nms_limit, bsz * A * n_fg)
 
-    # softmax written out in jax.nn.softmax's operation order
-    e = torch.exp(class_logits - class_logits.amax(dim=-1, keepdim=True))
-    probs = e / e.sum(dim=-1, keepdim=True)
-    flat = probs[..., 1:].reshape(-1)
+    flat = _softmax(class_logits)[..., 1:].reshape(-1)
     # exact top-k: flat index order is (elem, anchor, class), so an
     # approximate selection would drop the weaker class of the same anchor
     scores, flat_ix = _stable_topk(flat, k)

@@ -1,13 +1,8 @@
 """Build, binding and launch of the hand-written CUDA NMS kernel (``csrc/nms.cu``).
 
 Replaces ``medicaldetectiontoolkit_tpu/ops/nms_pallas.py::nms_pallas`` on the
-GPU. The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry point and loaded through ``ctypes``. The build
-happens at first use, into ``_build/`` next to the package sources (or, where
-the package directory is read-only, as in an installed copy, into a per-user
-directory under the system temporary directory), keyed on a hash of the
-source and the flags, so a changed ``.cu`` rebuilds and importing this module
-never needs a compiler.
+GPU. The source is compiled at first use by ``ops/cuda_build.py`` (nvcc for
+``sm_90a``, a plain C entry point) and loaded through ``ctypes``.
 
 The wrapper takes CUDA tensors only. It validates shapes, lays the boxes out
 as SoA ``(lanes, 2*dim, N)`` (``nms_pallas.py:101``), passes a lane stride of
@@ -20,65 +15,20 @@ raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "nms.cu"
-BUILD_DIR = (
-    _PKG_DIR / "_build" if os.access(_PKG_DIR, os.W_OK)
-    else Path(tempfile.gettempdir()) / f"medicaldetectiontoolkit_torch_build_{os.getuid()}"
-)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3",
-    # no contracted multiply-adds and IEEE division: bit-identical IoU
-    "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+from medicaldetectiontoolkit_torch.ops import cuda_build
+
+SOURCE = cuda_build.CSRC / "nms.cu"
 
 _lib = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
-    if os.path.isfile(default):
-        return default
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> Path:
-    """Compile ``csrc/nms.cu`` unless a library for this source hash exists.
-
-    Returns the library path; the compiler's output (``-Xptxas -v``:
-    registers, shared memory, spills) is kept beside it as ``.log``.
-    """
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libmdt_nms_{key}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent process never loads a partial file
-    return lib_path
+def build():
+    """Compile ``csrc/nms.cu`` unless a library for this source exists;
+    returns its path."""
+    return cuda_build.build(SOURCE, "mdt_nms")
 
 
 def _load():

@@ -1,10 +1,11 @@
 """Small synthetic configs and batches for the port's scripts and tests.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/testing.py``, cut to what the
-ported inference path reads. ``make_config`` gives the same values as the JAX
-package's ``make_config`` (``testing.py:10-95``) for every attribute it sets,
-and ``make_batch`` draws the same arrays from the same seed
-(``testing.py:98-131``); ``tests/test_torch_testing.py`` holds them equal.
+ported inference paths read (one-stage and two-stage detectors). ``make_config``
+gives the same values as the JAX package's ``make_config``
+(``testing.py:10-95``) for every attribute it sets, and ``make_batch`` draws
+the same arrays from the same seed (``testing.py:98-131``);
+``tests/test_torch_testing.py`` holds them equal.
 The config is a plain attribute bag, so an experiment's own config object
 (e.g. the JAX package's ``DefaultConfigs`` subclass) serves the port as well.
 """
@@ -52,7 +53,20 @@ def make_config(model="retina_net", dim=2, patch_size=None, start_filts=4, end_f
         detection_nms_threshold=1e-5,
         model_min_confidence=0.1,
         operate_stride1=model in ("retina_unet", "ufrcnn", "detection_unet"),
+        # mrcnn-family extras (``testing.py:65-77``, ``config.py:89-91``)
+        rpn_nms_threshold=0.7,
+        pool_size=(7, 7) if dim == 2 else (7, 7, 3),
+        mask_pool_size=(14, 14) if dim == 2 else (14, 14, 5),
+        mask_shape=(28, 28) if dim == 2 else (28, 28, 10),
+        roi_chunk_size=100,
+        post_nms_rois_training=50,
+        post_nms_rois_inference=50,
+        return_masks_in_val=True,
+        return_masks_in_test=False,
+        frcnn_mode=model == "ufrcnn",
     )
+    if model == "ufrcnn":
+        cf.num_seg_classes = 3
     if retina_scales:
         for ax in ("xy", "z"):
             cf.rpn_anchor_scales[ax] = [[s[0], s[0] * 2 ** (1 / 3), s[0] * 2 ** (2 / 3)]
@@ -88,15 +102,32 @@ def make_slice_config(compute_dtype="float32"):
     return cf
 
 
+def make_mrcnn_slice_config(compute_dtype="float32"):
+    """3D Mask R-CNN at LIDC width (``experiments/lidc_exp/configs.py:164-211``)
+    on the same bench geometry as ``make_slice_config``: 3 anchors per
+    position (224,640 per patch), 6,000 pre-NMS proposals per patch, 500 kept,
+    second stage in chunks of 600 RoIs."""
+    cf = make_config(model="mrcnn", dim=3, patch_size=[128, 128, 64], start_filts=18, end_filts=36,
+                     batch_size=8, retina_scales=False)
+    cf.n_rpn_features = 128
+    cf.pre_nms_limit = 6000
+    cf.post_nms_rois_training = 75
+    cf.post_nms_rois_inference = 500
+    cf.roi_chunk_size = 600
+    cf.model_max_instances_per_batch_element = 30
+    cf.compute_dtype = compute_dtype
+    return cf
+
+
 def make_batch(cf, seed=42):
     """Synthetic batch dict in the framework's data contract: channel-first
-    float32 ``data`` in [0, 1), one box-shaped lesion per element in ``seg``
-    and ``bb_target``."""
+    float32 ``data`` in [0, 1), one box-shaped lesion per element in ``seg``,
+    ``bb_target`` and ``roi_masks``."""
     rng = np.random.RandomState(seed)
     bsz, ps = cf.batch_size, cf.patch_size
     data = rng.rand(bsz, cf.n_channels, *ps).astype(np.float32)
     seg = np.zeros((bsz, 1) + tuple(ps), dtype=np.uint8)
-    boxes, labels = [], []
+    boxes, labels, roi_masks = [], [], []
     for b in range(bsz):
         y1, x1 = rng.randint(2, ps[0] // 2, 2)
         y2 = y1 + rng.randint(8, ps[0] // 2)
@@ -110,11 +141,14 @@ def make_batch(cf, seed=42):
             boxes.append(np.array([[y1, x1, y2, x2, z1, z2]], np.float32))
             seg[b, 0, y1:y2, x1:x2, z1:z2] = 1
         labels.append(np.array([rng.randint(1, cf.head_classes)]))
+        # per-RoI full-resolution binary masks (mrcnn's data contract)
+        roi_masks.append(seg[b][None].copy())
     return {
         "data": data,
         "seg": seg,
         "bb_target": boxes,
         "roi_labels": labels,
+        "roi_masks": roi_masks,
         "pid": [str(i) for i in range(bsz)],
         "class_target": np.array([[lab[0] - 1] for lab in labels]),
     }

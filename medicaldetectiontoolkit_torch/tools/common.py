@@ -1,5 +1,5 @@
 """Helpers shared by the measurement scripts: the card's identity, float32
-precision switches, the served slice, and one pipelined window of chunks."""
+precision switches, the served slices, and one pipelined window of chunks."""
 
 from __future__ import annotations
 
@@ -9,7 +9,10 @@ import time
 import torch
 
 from medicaldetectiontoolkit_torch.models import build_model
-from medicaldetectiontoolkit_torch.testing import make_batch, make_slice_config
+from medicaldetectiontoolkit_torch.testing import make_batch, make_mrcnn_slice_config, make_slice_config
+
+# the served slices: 3D Retina U-Net and 3D Mask R-CNN at LIDC width, batch 8
+SLICE_CONFIGS = {"retina_unet": make_slice_config, "mrcnn": make_mrcnn_slice_config}
 
 
 class QuietLog:
@@ -36,15 +39,15 @@ def setup_card() -> str:
     return card_line()
 
 
-def slice_net(compute_dtype: str, seed: int = 0):
-    """The served 3D Retina U-Net on the card, random weights from ``seed``."""
-    net = build_model(make_slice_config(compute_dtype), QuietLog(), device="cuda")
+def slice_net(compute_dtype: str, seed: int = 0, model: str = "retina_unet"):
+    """A served slice's detector on the card, random weights from ``seed``."""
+    net = build_model(SLICE_CONFIGS[model](compute_dtype), QuietLog(), device="cuda")
     net.initialize(seed=seed)
     return net
 
 
-def slice_batches(n_chunks: int = 3):
-    return [make_batch(make_slice_config(), seed=i) for i in range(n_chunks)]
+def slice_batches(n_chunks: int = 3, model: str = "retina_unet"):
+    return [make_batch(SLICE_CONFIGS[model](), seed=i) for i in range(n_chunks)]
 
 
 def run_window(net, batches):

@@ -1,5 +1,6 @@
 """The port and ``chip_smoke.py`` import without jax, flax, optax, pandas,
-sklearn or matplotlib and without any module of the JAX package, and
+sklearn or matplotlib and without any module of the JAX package, running
+the one-stage and two-stage detectors loads none of them either, and
 ``chip_smoke.py`` refuses to run without a GPU."""
 
 import os
@@ -22,10 +23,14 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.ops.boxes",
     "medicaldetectiontoolkit_torch.ops.nms",
     "medicaldetectiontoolkit_torch.ops.nms_cuda",
+    "medicaldetectiontoolkit_torch.ops.cuda_build",
+    "medicaldetectiontoolkit_torch.ops.roi_align",
+    "medicaldetectiontoolkit_torch.ops.roi_align_cuda",
     "medicaldetectiontoolkit_torch.models",
     "medicaldetectiontoolkit_torch.models.backbone",
     "medicaldetectiontoolkit_torch.models.base",
     "medicaldetectiontoolkit_torch.models.retina_net",
+    "medicaldetectiontoolkit_torch.models.mrcnn",
     "medicaldetectiontoolkit_torch.utils",
     "medicaldetectiontoolkit_torch.utils.convert",
     "medicaldetectiontoolkit_torch.tools",
@@ -47,10 +52,11 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "from medicaldetectiontoolkit_torch.models import build_model\n"
         "from medicaldetectiontoolkit_torch.testing import make_batch, make_config\n"
-        "cf = make_config(model='retina_unet', dim=2)\n"
-        "net = build_model(cf, None, device='cpu')\n"
-        "net.initialize(seed=0)\n"
-        "net.test_forward(make_batch(cf, seed=0))\n"
+        "for model in ('retina_unet', 'mrcnn', 'ufrcnn'):\n"
+        "    cf = make_config(model=model, dim=2)\n"
+        "    net = build_model(cf, None, device='cpu')\n"
+        "    net.initialize(seed=0)\n"
+        "    net.test_forward(make_batch(cf, seed=0), return_masks=True)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
         "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"

@@ -23,6 +23,9 @@ CASES = [
     dict(model="retina_unet", dim=2, retina_scales=False),
     dict(model="retina_unet", dim=3),
     dict(model="retina_net", dim=3, patch_size=[32, 64, 16], start_filts=6, end_filts=12, batch_size=3),
+    dict(model="mrcnn", dim=2, retina_scales=False),
+    dict(model="mrcnn", dim=3, retina_scales=False),
+    dict(model="ufrcnn", dim=3, retina_scales=False),
 ]
 
 
@@ -52,6 +55,25 @@ def test_slice_config_is_the_bench_geometry():
     assert ttesting.make_slice_config().compute_dtype == "float32"
 
 
+def test_mrcnn_slice_config_is_lidc_mrcnn_on_the_bench_geometry():
+    """LIDC's 3D Mask R-CNN (``experiments/lidc_exp/configs.py:164-211``) on
+    the bench patch: 74,880 positions x 3 anchors per patch."""
+    from medicaldetectiontoolkit_torch.ops.anchors import generate_pyramid_anchors
+
+    cf = ttesting.make_mrcnn_slice_config("bfloat16")
+    assert (cf.model, cf.dim, cf.patch_size, cf.start_filts, cf.end_filts, cf.batch_size) == (
+        "mrcnn", 3, [128, 128, 64], 18, 36, 8)
+    assert (cf.n_rpn_features, cf.pre_nms_limit, cf.rpn_nms_threshold, cf.post_nms_rois_inference,
+            cf.roi_chunk_size) == (128, 6000, 0.7, 500, 600)
+    assert (cf.pool_size, cf.mask_pool_size, cf.mask_shape) == ((7, 7, 3), (14, 14, 5), (28, 28, 10))
+    assert (cf.model_max_instances_per_batch_element, cf.detection_nms_threshold, cf.model_min_confidence,
+            cf.head_classes) == (30, 1e-5, 0.1, 3)
+    assert cf.compute_dtype == "bfloat16" and not cf.operate_stride1 and not cf.frcnn_mode
+    assert cf.n_anchors_per_pos == len(cf.rpn_anchor_ratios) == 3
+    assert generate_pyramid_anchors(cf).shape == (224640, 6)
+    assert ttesting.make_mrcnn_slice_config().compute_dtype == "float32"
+
+
 @pytest.mark.parametrize("kwargs", CASES)
 @pytest.mark.parametrize("seed", [0, 7])
 def test_make_batch_matches_jax(kwargs, seed):
@@ -66,9 +88,10 @@ class _Log:
         pass
 
 
-@pytest.mark.parametrize("model,dim", [("retina_unet", 2), ("retina_net", 3)])
+@pytest.mark.parametrize("model,dim", [("retina_unet", 2), ("retina_net", 3), ("mrcnn", 3), ("ufrcnn", 2)])
 def test_detector_from_either_config_agrees(model, dim):
-    tcf, jcf = ttesting.make_config(model=model, dim=dim), jtesting.make_config(model=model, dim=dim)
+    kw = dict(model=model, dim=dim, retina_scales=model in ("retina_net", "retina_unet"))
+    tcf, jcf = ttesting.make_config(**kw), jtesting.make_config(**kw)
     a, b = build_model(tcf, _Log(), device="cpu"), build_model(jcf, _Log(), device="cpu")
     a.initialize(seed=3)
     b.load_state_dict(a.state_dict())
