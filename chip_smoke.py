@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference paths once on one CUDA card and check them.
+"""Drive the PyTorch port's inference and training paths once on one CUDA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   1. device: require CUDA, print the card (``nvidia-smi`` name and power
      limit) and the float32 precision switches (TF32 off for convs and
      matmuls);
-  2. build both kernels in parallel: NMS (``csrc/nms.cu``) and pyramid
-     RoIAlign (``csrc/roi_align.cu``);
+  2. build the three kernel sources in parallel, one nvcc each: NMS
+     (``csrc/nms.cu``), pyramid RoIAlign (``csrc/roi_align.cu``) and the stem
+     conv's forward and weight gradient (``csrc/stem_conv.cu``);
   3. NMS kernel vs plain PyTorch NMS on the card: bit-identical keep lists on
      random, tied, all-invalid, ragged and slice-shaped cases (the Mask
      R-CNN proposal shape included), with times;
@@ -18,6 +19,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      bit-identical float32 crops in 2D and 3D, every level, crop 1, clamped
      and zero-size boxes, bf16 and f16 maps, ragged RoI counts, and the Mask
      R-CNN slice's two shapes on the LIDC pyramid, with times;
+  3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
+     PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
+     stem at LIDC width, odd Y/X, cin 2, bfloat16; K4 run twice must be
+     bit-identical; times beside F.conv3d and conv3d_weight;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
@@ -31,7 +36,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      mask launch per chunk; on chunk 0 the kernels give the same detections
      and masks as the plain versions on the same heads and maps;
   6. small 3D Mask R-CNN and U-Faster R-CNN+: the card against the CPU run
-     of the same weights.
+     of the same weights;
+  7. 3D Retina U-Net training at LIDC width (``make_train_slice_config``:
+     batch 2 x 4 accumulated, remat, 300 training anchors per image) with
+     ``MDT_STEM_PALLAS=1``, float32 and bfloat16, through
+     ``train_forward_dispatch``/``convert``: one warm-up step, three timed
+     steps; the K3, K4 and NMS counters rise by the counts derived per step;
+     from the same weights and draws the cuDNN stem (the opt-in unset) gives
+     the same loss and gradients within the stated tolerance, and both
+     step times are printed; small 3D retina_unet and retina_net train steps
+     on the card agree with the CPU run of the same weights and draws.
 
 The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
@@ -49,6 +63,19 @@ import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+
+# the H100's device-memory rate and peak arithmetic rates by operand type
+# (NVIDIA's data sheet, SXM, dense): the bounds below are the larger of bytes
+# over the memory rate and operations over the peak rate
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def _bound(bytes_moved, ops, dtype="float32"):
+    """(bound ms, what bounds it) for moving ``bytes_moved`` and doing ``ops``."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _cuda_ms(torch, fn, iters=20, warmup=3):
@@ -138,7 +165,18 @@ def _check_nms(torch, np, nms_ops, nms_cuda):
             p_ms = _cuda_ms(torch, lambda: nms_ops.batched_nms(*args, valid=tv, pixel_offset=off), iters=5)
             print(f"  {name}: kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms (CUDA events)")
             if broadcast:
-                slice_entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+                # the least work this lane data needs: each lane's valid
+                # candidates, min(max_out, valid) select-and-suppress steps,
+                # each an IoU against the winner (9 operations per axis, 5
+                # for the union and the test) and an argmax compare; the
+                # broadcast boxes and scores read once
+                dim = tb.shape[-1] // 2
+                n_valid = tv.sum(1).long()
+                ops = int((n_valid * n_valid.clamp(max=max_out)).sum()) * (9 * dim + 6)
+                bound_ms, bound_by = _bound(b.nbytes + s.nbytes + v.nbytes + L * max_out * 5, ops)
+                print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
+                slice_entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": None}
     return slice_entry
 
 
@@ -217,10 +255,101 @@ def _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, cases):
                   f"plain PyTorch {p_ms:.4f} ms (CUDA events)")
             timings[name] = (k_ms, w_ms, p_ms)
             if entry is None:
-                entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+                bound_ms, bound_by = _roi_bound(torch, got, launch_args, fms, dim)
+                print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
+                entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
         del fms, got, want
         torch.cuda.empty_cache()
     return entry, timings
+
+
+def _roi_bound(torch, out, launch_args, fms, dim):
+    """K2's bound on this call's data: the float32 output written, the map
+    voxels its corners touch read once (counted exactly from the index rows),
+    the boxes' indices; three operations per lerp (7 lerps a 3D sample, 3 in
+    2D)."""
+    levels_idx, box_idx, rows = launch_args[0][1], launch_args[0][2], launch_args[0][3]
+    B, C, *sizes = fms[0].shape
+    key = (levels_idx.long() * B + box_idx.long()).view(-1, *([1] * (2 * dim)))
+    for ax in range(dim):
+        corners = torch.stack([rows[3 * ax], rows[3 * ax + 1]], -1).long()  # (R, crop_ax, 2)
+        shape = [corners.shape[0]] + [1] * dim + [1] * dim
+        shape[1 + ax], shape[1 + dim + ax] = corners.shape[1], 2
+        key = key * sizes[ax] + corners.view(shape)
+    voxels = torch.unique(key).numel()
+    bytes_moved = out.numel() * 4 + voxels * C * fms[0].element_size() + levels_idx.numel() * (2 * dim * 4 + 8)
+    return _bound(bytes_moved, out.numel() * (7 if dim == 3 else 3) * 3)
+
+
+def _stem_cases(torch):
+    """(name, (B, cin, Y, X, Z), k, sy, sx, cout, dtype, timed)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    lidc = (128, 128, 64)
+    return [
+        ("conv0_2x1x128x128x64_k3", (2, 1, *lidc), 3, 1, 1, 18, f32, True),
+        ("c1_8x1x128x128x64_k7_s2", (8, 1, *lidc), 7, 2, 2, 18, f32, True),
+        ("odd_13x11x6_k7_s2", (2, 1, 13, 11, 6), 7, 2, 2, 6, f32, False),
+        ("cin2_64x64x32_k5_s2", (2, 2, 64, 64, 32), 5, 2, 2, 18, f32, False),
+        ("conv0_bf16", (2, 1, *lidc), 3, 1, 1, 18, bf16, True),
+        ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, False),
+    ]
+
+
+def _check_stem(torch, np, stem_conv, stem_conv_cuda, cases):
+    """K3 and K4 against their plain versions. Tolerances, relative to the
+    plain version's max |value|: K3 float32 1e-5 and K4 1e-5 (float32 sums of
+    the same products in another order; K4's over up to 2 M positions);
+    K3 bfloat16 1e-2 (both round the float32 sum, then the bias add, to
+    bf16: a sum near a rounding boundary lands one bf16 ulp, 2^-8, apart)."""
+    print("== phase 3c: stem conv kernels K3 / K4 vs plain PyTorch; K4 twice bit-identical")
+    F = torch.nn.functional
+    rng = np.random.RandomState(2)
+    entries, timings = {}, {}
+    for name, shape, k, sy, sx, cout, dtype, timed in cases:
+        cin = shape[1]
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda().to(dtype)
+        w = torch.from_numpy((rng.randn(cout, cin, k, k, k) * 0.2).astype(np.float32)).cuda().to(dtype)
+        b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).cuda().to(dtype)
+        out = stem_conv_cuda.stem_conv3d(x, w, b, sy, sx)
+        ref = stem_conv.stem_conv3d_reference(x, w, b, sy, sx)
+        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).cuda().to(dtype)
+        dw, dw2 = stem_conv_cuda.stem_wgrad(x, g, k, sy, sx), stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)
+        dw_ref = stem_conv.stem_wgrad_reference(x, g, k, sy, sx)
+        torch.cuda.synchronize()
+        err3 = float((out.float() - ref.float()).abs().max())
+        err4 = float((dw - dw_ref).abs().max())
+        tol3 = (1e-5 if dtype == torch.float32 else 1e-2) * float(ref.float().abs().max())
+        tol4 = 1e-5 * float(dw_ref.abs().max())
+        repro = torch.equal(dw, dw2)
+        print(f"  {name}: {str(dtype)[6:]} x {tuple(shape)} k {k} stride ({sy},{sx},1) cout {cout}: "
+              f"K3 max|err| {err3:.3e} (tol {tol3:.3e}), K4 max|err| {err4:.3e} (tol {tol4:.3e}), "
+              f"K4 twice identical {repro}")
+        if out.dtype != dtype or out.shape != ref.shape or not err3 <= tol3 or not err4 <= tol4 or not repro:
+            raise AssertionError(f"stem kernels disagree with their plain versions on {name}")
+        if timed:
+            item = x.element_size()
+            ops = 2 * out.numel() * cin * k**3
+            k3 = {"ms": _cuda_ms(torch, lambda: stem_conv_cuda.stem_conv3d(x, w, b, sy, sx)),
+                  "plain_ms": _cuda_ms(torch, lambda: stem_conv.stem_conv3d_reference(x, w, b, sy, sx), 3, 1),
+                  "library_ms": _cuda_ms(torch, lambda: F.conv3d(x, w, b, (sy, sx, 1), k // 2))}
+            k4 = {"ms": _cuda_ms(torch, lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)),
+                  "plain_ms": _cuda_ms(torch, lambda: stem_conv.stem_wgrad_reference(x, g, k, sy, sx), 3, 1),
+                  "library_ms": _cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+                      x, w.shape, g, (sy, sx, 1), k // 2), 3, 1)}
+            dt = "float32" if dtype == torch.float32 else "bfloat16"
+            k3["bound_ms"], k3["bound_by"] = _bound((x.numel() + w.numel() + b.numel() + out.numel()) * item, ops, dt)
+            k4["bound_ms"], k4["bound_by"] = _bound((x.numel() + g.numel()) * item + dw.numel() * 4, ops, dt)
+            for kname, t in (("K3", k3), ("K4", k4)):
+                print(f"  {name} {kname}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                      f"{t['library_ms']:.4f} ms ({'F.conv3d' if kname == 'K3' else 'conv3d_weight'}), bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (CUDA events)")
+            timings[name] = (k3, k4)
+            if name.startswith("conv0") and dtype == torch.float32:  # the training slice's shape
+                entries = {"stem_fwd": dict(k3, max_abs_err=err3), "stem_wgrad": dict(k4, max_abs_err=err4)}
+        del x, w, b, out, ref, g, dw, dw2, dw_ref
+        torch.cuda.empty_cache()
+    return entries, timings
 
 
 def _check_results(np, results, cf, seg_dtype):
@@ -432,6 +561,135 @@ def _small_two_stage(torch, np, make_config, make_batch, build_model, log, model
         _same_seg(gpu._make_seg_preds(*og, shape, True), cpu._make_seg_preds(*oc, shape, True))
 
 
+def _grad_errors(torch, a, b):
+    """Worst per-tensor max|a - b| / max|b| over two {name: grad} dicts."""
+    errs = {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30) for n in b}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def _drive_train(torch, np, dtype, batches, common, kernels, card):
+    """Phase 7 in one dtype. ``kernels`` maps counter names to the wrappers
+    whose ``.launches`` count the main path's kernel launches.
+
+    A/B tolerances, the kernel stem against cuDNN's from the same weights
+    and draws: float32 (TF32 off) loss 1e-4 relative, gradients 1e-2 of each
+    tensor's max |g|: the stem output differs in summation order only, but
+    ReLU boundaries and the sums that cancel in the early layers' gradients
+    amplify that (the CPU tests measure up to 2e-3 against JAX); bfloat16
+    loss 2e-2 relative and gradients 0.25 of the max: a one-ulp (2^-8)
+    difference of the bf16 stem output is carried through some 60 bf16
+    layers."""
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+
+    print(f"== phase 7: retina_unet 3D training 128x128x64 sf18 ef36, batch 2 x 4, remat, MDT_STEM_PALLAS=1, {dtype}")
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    net = common.slice_net(dtype, seed=0, model="retina_unet_train")
+    cf = net.cf
+    n_micro = resolve_grad_accum(cf, cf.batch_size)
+    m = cf.batch_size // n_micro
+    common.train_steps(net, batches[:1])  # warm-up: cuDNN plans, kernel load
+    torch.cuda.reset_peak_memory_stats()
+
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    results, times = common.train_steps(net, batches)
+    launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    n = len(batches)
+    expect = {"stem_fwd": 2 * n_micro * n, "stem_wgrad": n_micro * n, "nms": n}
+    print(f"  expected launches over {n} steps of {n_micro} microbatches: K3 2 per microbatch (its forward and "
+          f"the remat recompute in the backward) = {expect['stem_fwd']}, K4 1 per microbatch = "
+          f"{expect['stem_wgrad']}, K1 1 per step (refinement of the merged heads) = {expect['nms']}")
+    print(f"  counted: {launches}")
+    if launches != expect:
+        raise AssertionError(f"expected kernel launches {expect}, counted {launches}")
+    if not net.module.fpn.stem0[0].stem_kernel or net.module.fpn.stem0[1].stem_kernel:
+        raise AssertionError("only stem0's first conv (cin 1) should take the stem kernels")
+    for r in results:
+        values = [r["loss"], *r["monitor_values"].values()]
+        if not all(math.isfinite(v) for v in values) or len(r["boxes"]) != cf.batch_size:
+            raise AssertionError(f"a training step gave non-finite losses or a malformed result: {r['logger_string']}")
+        print(f"  {r['logger_string']}; boxes per element {[len(b) for b in r['boxes']]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [t * 1e3 for t in times]
+    print(f"  {n} steps: {', '.join(f'{t:.1f}' for t in ms)} ms per step, {cf.batch_size * n / sum(times):.2f} "
+          f"patches/s, peak device memory {peak:.2f} GiB ({card})")
+
+    # the same weights and draws through the kernel stem and cuDNN's
+    inputs = net._prep(batches[0])
+    draws = net.draws(n_micro, m)
+    ab = {}
+    for stem in ("1", "0"):
+        os.environ["MDT_STEM_PALLAS"] = stem
+        loss, _ = net._accumulate(inputs, draws)
+        ab[stem] = (float(loss), {n_: p.grad.float().clone() for n_, p in net.module.named_parameters()})
+        if net.module.fpn.stem0[0].stem_kernel != (stem == "1"):
+            raise AssertionError("MDT_STEM_PALLAS did not select the stem path")
+    loss_err = abs(ab["1"][0] - ab["0"][0]) / abs(ab["0"][0])
+    grad_err, worst = _grad_errors(torch, ab["1"][1], ab["0"][1])
+    loss_tol, grad_tol = (1e-4, 1e-2) if dtype == "float32" else (2e-2, 0.25)
+    print(f"  kernel stem vs cuDNN stem, same weights and draws: loss {ab['1'][0]:.6f} vs {ab['0'][0]:.6f} "
+          f"(relative {loss_err:.2e}, tol {loss_tol}); worst gradient {grad_err:.2e} of its tensor's max "
+          f"({worst}; tol {grad_tol})")
+    if not (loss_err <= loss_tol and grad_err <= grad_tol):
+        raise AssertionError("the kernel stem and cuDNN's stem give different losses or gradients")
+    del ab, inputs
+
+    # end-to-end A/B of K3/K4 against cuDNN's stem: steps in turns
+    ab_ms = {"1": [], "0": []}
+    for i, stem in enumerate(("1", "0", "0", "1", "1", "0")):
+        os.environ["MDT_STEM_PALLAS"] = stem
+        ab_ms[stem] += [t * 1e3 for t in common.train_steps(net, [batches[i % n]])[1]]
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    print(f"  step ms with K3/K4 {[round(t, 1) for t in ab_ms['1']]}, with cuDNN's stem "
+          f"{[round(t, 1) for t in ab_ms['0']]} (turns 1 0 0 1 1 0)")
+    return {"launches": launches, "ms": ms, "patches_per_s": cf.batch_size * n / sum(times), "peak_gib": peak,
+            "ab_ms": ab_ms}
+
+
+def _small_train(torch, np, make_config, make_batch, build_model, log, model):
+    """A small 3D train step (2 microbatches of 2, remat, the stem kernels)
+    on the card against the CPU run of the same weights and draws. Float32
+    with TF32 off: loss within 1e-5 relative, gradients within 1e-3 of each
+    tensor's max, updated params within 1e-6 where the gradient is clear of
+    zero and of one sign on both (Adam's first step is lr * sign(g)), else
+    2 lr."""
+    print(f"== phase 7b: small 3D {model} train step, card vs CPU plain path")
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    cf = make_config(model=model, dim=3, batch_size=4)
+    cf.grad_accum_steps = 2
+    batch = make_batch(cf, seed=5)
+    gpu = build_model(cf, log, device="cuda")
+    cpu = build_model(cf, log, device="cpu")
+    gpu.initialize(seed=1)
+    cpu.load_state_dict(gpu.state_dict())
+    draws = cpu.draws(2, 2)
+    out = {}
+    for net, d in ((gpu, [t.cuda() for t in draws]), (cpu, draws)):
+        net.current_lr = 1e-3
+        loss, aux = net._accumulate(net._prep(batch), d)
+        grads = {n: p.grad.float().cpu().clone() for n, p in net.module.named_parameters()}
+        net._update()
+        out[net.device.type] = (float(loss), grads, {n: p.detach().cpu() for n, p in net.module.named_parameters()})
+    stem = gpu.module.fpn.stem0[0] if cf.operate_stride1 else gpu.module.fpn.stem1
+    if not stem.stem_kernel:
+        raise AssertionError("the small net's stem did not take the stem kernels")
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_err, worst = _grad_errors(torch, out["cuda"][1], out["cpu"][1])
+    p_err = 0.0
+    for n, g in out["cpu"][1].items():
+        clear = (torch.sign(g) == torch.sign(out["cuda"][1][n])) & (g.abs() > 1e-3 * g.abs().max())
+        diff = (out["cuda"][2][n] - out["cpu"][2][n]).abs()
+        p_err = max(p_err, float(torch.where(clear, diff, 0.0).max()))
+        if float(diff.max()) > 2e-3 + 1e-6:
+            raise AssertionError(f"{n}: updated params differ by more than 2 lr")
+    print(f"  loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} (relative {loss_err:.2e}); worst gradient "
+          f"{grad_err:.2e} of its tensor's max ({worst}); updated params where the gradient is clear of zero: "
+          f"max|gpu-cpu| {p_err:.2e}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-3 and p_err <= 1e-6):
+        raise AssertionError(f"small {model} train step: the card differs from the CPU reference")
+
+
 def main() -> int:
     import torch
 
@@ -447,7 +705,7 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.models.mrcnn import roi_levels
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
-    from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda
+    from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
 
     t_start = time.perf_counter()
@@ -464,8 +722,8 @@ def main() -> int:
 
     print("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda)))
     print(f"  {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib_path in libs:
         log = lib_path.with_suffix(".log")
@@ -474,6 +732,7 @@ def main() -> int:
 
     nms_entry = _check_nms(torch, np, nms_ops, nms_cuda)
     roi_entry, roi_times = _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, _roi_cases(torch))
+    stem_entries, stem_times = _check_stem(torch, np, stem_conv, stem_conv_cuda, _stem_cases(torch))
 
     batches = common.slice_batches(3)
     runs = {}
@@ -496,6 +755,16 @@ def main() -> int:
     for model in ("mrcnn", "ufrcnn"):
         _small_two_stage(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
 
+    counters = {"stem_fwd": stem_conv_cuda.stem_conv3d, "stem_wgrad": stem_conv_cuda.stem_wgrad,
+                "nms": nms_cuda.batched_nms}
+    train_batches = common.slice_batches(3, "retina_unet_train")
+    truns = {}
+    for dtype in ("float32", "bfloat16"):
+        truns[dtype] = _drive_train(torch, np, dtype, train_batches, common, counters, card)
+        torch.cuda.empty_cache()
+    for model in ("retina_unet", "retina_net"):
+        _small_train(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
+
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for dtype, r in runs.items():
         print(f"  retina_unet {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
@@ -503,12 +772,21 @@ def main() -> int:
         print(f"  mrcnn {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
     for case, (k_ms, w_ms, p_ms) in roi_times.items():
         print(f"  roi_align {case}: kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms")
+    for case, timed in stem_times.items():
+        for kname, t in zip(("K3", "K4"), timed):
+            print(f"  stem {kname} {case}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for dtype, r in truns.items():
+        print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
+              f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
+              f"{sorted(r['ab_ms']['1'])[1]:.1f} vs {sorted(r['ab_ms']['0'])[1]:.1f} ms per step (medians of 3)")
     kernels = [{
         "name": "nms",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/nms.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
-        "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values()),
+        "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
+        + sum(r["launches"]["nms"] for r in truns.values()),
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -517,6 +795,20 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
         "launches": sum(r["launches"]["roi_align"] for r in mruns.values()),
         **roi_entry,
+    }, {
+        "name": "stem_fwd",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
+        "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
+        "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()),
+        **stem_entries["stem_fwd"],
+    }, {
+        "name": "stem_wgrad",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
+        "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
+        "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()),
+        **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,8 @@
 """Model zoo of the port: a registry keyed by ``cf.model``.
 
 Same names as ``medicaldetectiontoolkit_tpu/models/__init__.py:14-78``. The
-inference paths of the one-stage (``retina_net``, ``retina_unet``) and the
-two-stage detectors (``mrcnn``, ``ufrcnn``) are ported so far; training and
+one-stage detectors (``retina_net``, ``retina_unet``) infer and train; the
+two-stage ones (``mrcnn``, ``ufrcnn``) infer. Their training and
 ``detection_unet`` follow in the order of ROADMAP.md, Queue 1.
 """
 
@@ -20,8 +20,9 @@ def register(name):
 
 
 def build_model(cf, logger, device=None):
-    """Instantiate the detector named by ``cf.model`` on ``device`` (default:
-    the CUDA card when present, else the CPU)."""
+    """Instantiate the detector named by ``cf.model`` on ``device``: the
+    CUDA card by default, where the kernels run. Without a visible card this
+    raises; pass ``device="cpu"`` to run the plain PyTorch versions."""
     from medicaldetectiontoolkit_torch.models import mrcnn, retina_net  # noqa: F401  (registers)
 
     if cf.model not in _REGISTRY:

@@ -12,11 +12,18 @@ same topology and geometry:
     with (bi/tri)linear (2,2,1) up-sampling;
   * ``sixth_pooling`` appends C6/P6.
 
-Tensors are channel-first ``(b, c, y, x, (z))``. Every conv is a plain
-``Conv2d``/``Conv3d``: the JAX package's TPU-only conv rewrites
-(``_ZFoldedConv``, ``_ZBandedConv``, ``_ZBlockBandedConv``, the opt-in Pallas
-stem) exist only to avoid the TPU's 128-lane padding and hold the same
-logical kernel, so they have no counterpart here.
+Tensors are channel-first ``(b, c, y, x, (z))``. Every conv holds a plain
+``Conv2d``/``Conv3d``. The JAX package's XLA conv rewrites (``_ZFoldedConv``,
+``_ZBandedConv``, ``_ZBlockBandedConv``) exist only to avoid the TPU's
+128-lane padding and hold the same logical kernel, so they have no
+counterpart here. Its opt-in Pallas stem does: with ``MDT_STEM_PALLAS=1`` a
+3D conv that ``stem_viable`` admits runs the stem kernels K3 (forward) and
+K4 (weight gradient) through ``ops/stem_conv.py``, as in JAX
+(``backbone.py:344-362``); its parameters stay those of ``nn.Conv3d``.
+
+``remat`` (on by default in 3D, ``resolve_remat``) recomputes the stem
+convs, the ResBlocks and the full-resolution laterals in the backward pass
+(``torch.utils.checkpoint``), where JAX wraps them in ``maybe_remat``.
 
 ``dtype`` is the compute dtype: params stay float32 and are cast at each
 conv, as flax's ``nn.Conv(dtype=...)`` does.
@@ -25,11 +32,15 @@ conv, as flax's ``nn.Conv(dtype=...)`` does.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from medicaldetectiontoolkit_torch.ops.stem_conv import StemConv3dFunction, stem_viable
 
 # flax nn.GroupNorm's default epsilon (torch's default is 1e-5)
 GN_EPS = 1e-6
@@ -107,10 +118,16 @@ class ConvND(nn.Module):
     ``norm``: ``"batch_norm"`` is GroupNorm with one group (batch-statistics
     free, ``backbone.py:422-426``), ``"instance_norm"`` GroupNorm with one
     channel per group, both computed as flax does (``_flax_group_norm``).
+
+    With ``MDT_STEM_PALLAS=1`` a 3D conv that ``stem_viable`` admits for its
+    input runs ``StemConv3dFunction`` (K3, and K4 in the backward). The path
+    is chosen from the input's shape at each call, as JAX chooses it at each
+    trace; ``stem_kernel`` records the last choice. ``remat`` recomputes the
+    layer in the backward pass.
     """
 
     def __init__(self, dim: int, cin: int, cout: int, ks: int = 1, stride=1, pad: int = 0,
-                 norm: Optional[str] = None, relu: Optional[str] = "relu", dtype=torch.float32):
+                 norm: Optional[str] = None, relu: Optional[str] = "relu", dtype=torch.float32, remat: bool = False):
         super().__init__()
         conv = nn.Conv2d if dim == 2 else nn.Conv3d
         self.conv = conv(cin, cout, ks, stride=stride, padding=pad)
@@ -126,11 +143,30 @@ class ConvND(nn.Module):
             raise ValueError(f"unknown relu '{relu}'")
         self.relu = relu
         self.dtype = dtype
+        self.remat = remat
+        self.stem_kernel = False
+
+    def _takes_stem_kernel(self, x) -> bool:
+        """JAX's gate (``backbone.py:343-356``) on the logical shape of ``x``."""
+        c = self.conv
+        if not isinstance(c, nn.Conv3d) or os.environ.get("MDT_STEM_PALLAS") != "1":
+            return False
+        b, cin, y, xx, z = x.shape
+        return stem_viable((b, y, xx, z, cin), c.kernel_size[0], c.stride, c.padding[0])
 
     def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False)
+        return self._forward(x)
+
+    def _forward(self, x):
         c = self.conv
-        conv = F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d
-        x = conv(x.to(self.dtype), c.weight.to(self.dtype), c.bias.to(self.dtype), c.stride, c.padding)
+        x, w, b = x.to(self.dtype), c.weight.to(self.dtype), c.bias.to(self.dtype)
+        self.stem_kernel = self._takes_stem_kernel(x)
+        if self.stem_kernel:
+            x = StemConv3dFunction.apply(x, w, b, c.stride[0], c.stride[1])
+        else:
+            x = (F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d)(x, w, b, c.stride, c.padding)
         if self.norm is not None:
             x = _flax_group_norm(x, self.norm).to(self.dtype)
         if self.relu == "relu":
@@ -142,10 +178,10 @@ class ConvND(nn.Module):
 
 class ResBlock(nn.Module):
     """Bottleneck block: 1x1 (stride) -> 3x3 -> 1x1 x4 + residual
-    (``backbone.py:438-462``)."""
+    (``backbone.py:438-462``); ``remat`` recomputes it in the backward pass."""
 
     def __init__(self, dim, cin, planes, stride=1, downsample=False, norm=None, relu="relu",
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat=False):
         super().__init__()
         kw = dict(norm=norm, dtype=dtype)
         self.conv1 = ConvND(dim, cin, planes, ks=1, stride=stride, relu=relu, **kw)
@@ -155,22 +191,29 @@ class ResBlock(nn.Module):
             ConvND(dim, cin, planes * 4, ks=1, stride=stride, relu=None, **kw) if downsample else None
         )
         self.relu = relu
+        self.remat = remat
 
     def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False)
+        return self._forward(x)
+
+    def _forward(self, x):
         out = self.conv3(self.conv2(self.conv1(x)))
         out = out + (self.downsample(x) if self.downsample is not None else x)
         return F.relu(out) if self.relu == "relu" else F.leaky_relu(out, 0.01)
 
 
-def res_stage(dim, cin, planes, n_blocks, stride, norm, relu, dtype) -> nn.Sequential:
+def res_stage(dim, cin, planes, n_blocks, stride, norm, relu, dtype, remat=False) -> nn.Sequential:
     """First (strided, projected) block + identity blocks (``backbone.py:506-547``).
 
     The JAX package runs the identity blocks under ``nn.scan`` (stacked
     params) or a Python loop; here they are a plain ``nn.Sequential``, and
     ``utils/convert.py`` unstacks scanned params into it.
     """
-    blocks = [ResBlock(dim, cin, planes, stride, downsample=True, norm=norm, relu=relu, dtype=dtype)]
-    blocks += [ResBlock(dim, planes * 4, planes, norm=norm, relu=relu, dtype=dtype) for _ in range(n_blocks - 1)]
+    kw = dict(norm=norm, relu=relu, dtype=dtype, remat=remat)
+    blocks = [ResBlock(dim, cin, planes, stride, downsample=True, **kw)]
+    blocks += [ResBlock(dim, planes * 4, planes, **kw) for _ in range(n_blocks - 1)]
     return nn.Sequential(*blocks)
 
 
@@ -205,7 +248,7 @@ class FPN(nn.Module):
     the reference."""
 
     def __init__(self, dim, n_channels, start_filts, end_filts, res_architecture="resnet50", norm=None,
-                 relu="relu", sixth_pooling=False, operate_stride1=False, dtype=torch.float32):
+                 relu="relu", sixth_pooling=False, operate_stride1=False, dtype=torch.float32, remat=False):
         super().__init__()
         self.dim = dim
         self.operate_stride1 = operate_stride1
@@ -217,13 +260,13 @@ class FPN(nn.Module):
 
         if operate_stride1:
             self.stem0 = nn.Sequential(
-                ConvND(dim, n_channels, sf, ks=3, pad=1, **kw),
-                ConvND(dim, sf, sf, ks=3, pad=1, **kw),
+                ConvND(dim, n_channels, sf, ks=3, pad=1, remat=remat, **kw),
+                ConvND(dim, sf, sf, ks=3, pad=1, remat=remat, **kw),
             )
-            self.stem1 = ConvND(dim, sf, sf, ks=7, stride=stem_stride, pad=3, **kw)
+            self.stem1 = ConvND(dim, sf, sf, ks=7, stride=stem_stride, pad=3, remat=remat, **kw)
         else:
             self.stem0 = None
-            self.stem1 = ConvND(dim, n_channels, sf, ks=7, stride=stem_stride, pad=3, **kw)
+            self.stem1 = ConvND(dim, n_channels, sf, ks=7, stride=stem_stride, pad=3, remat=remat, **kw)
 
         # (cin, planes, stride) of C2..C5(, C6)
         stages = [(sf, sf, 1), (sf * 4, sf * 2, 2), (sf * 8, sf * 4, 2), (sf * 16, sf * 8, 2)]
@@ -232,7 +275,8 @@ class FPN(nn.Module):
             stages.append((sf * 32, sf * 16, 2))
             n_blocks.append(self.n_blocks[3])
         self.stages = nn.ModuleList(
-            res_stage(dim, cin, planes, nb, stride, **kw) for (cin, planes, stride), nb in zip(stages, n_blocks)
+            res_stage(dim, cin, planes, nb, stride, remat=remat, **kw)
+            for (cin, planes, stride), nb in zip(stages, n_blocks)
         )
 
         lat = dict(relu=None, dtype=dtype)
@@ -241,9 +285,10 @@ class FPN(nn.Module):
         self.lateral = nn.ModuleList(ConvND(dim, c, ef, ks=1, **lat) for c in c_out)
         self.out = nn.ModuleList(ConvND(dim, ef, ef, ks=3, pad=1, **lat) for _ in c_out)
         if operate_stride1:
-            self.lateral1 = ConvND(dim, sf, ef, ks=1, **lat)
-            self.lateral0 = ConvND(dim, sf, ef, ks=1, **lat)
-            self.out0 = ConvND(dim, ef, ef, ks=3, pad=1, **lat)
+            # the full-resolution levels are recomputed too (``backbone.py:655``)
+            self.lateral1 = ConvND(dim, sf, ef, ks=1, remat=remat, **lat)
+            self.lateral0 = ConvND(dim, sf, ef, ks=1, remat=remat, **lat)
+            self.out0 = ConvND(dim, ef, ef, ks=3, pad=1, remat=remat, **lat)
 
     def forward(self, x):
         d = self.dim

@@ -1,23 +1,26 @@
-"""Shared detector machinery of the port: batch upload, results assembly and
-the inference half of the ``Detector`` host API.
+"""Shared detector machinery of the port: batch upload, results assembly,
+the optimizer and gradient accumulation, and the ``Detector`` host API.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/models/base.py``. The outer
 contract is the JAX package's (and the reference's): batch dicts are NumPy,
 channel-first ``(b, c, y, x, (z))``; ``test_forward`` returns
-``{"boxes": [[box dicts]], "seg_preds": (b, 1, *spatial) uint8}``. Device
-tensors stay channel-first, as torch convolutions take them.
+``{"boxes": [[box dicts]], "seg_preds": (b, 1, *spatial) uint8}``;
+``train_forward`` adds ``loss``, ``monitor_values`` and ``logger_string``.
+Device tensors stay channel-first, as torch convolutions take them.
 
-``test_forward_dispatch`` only enqueues CUDA work and returns un-synchronised
-tensors; ``test_forward_convert`` does the device->host copy. That keeps the
+``*_forward_dispatch`` only enqueues CUDA work and returns un-synchronised
+tensors; ``*_forward_convert`` does the device->host copy. That keeps the
 Predictor's in-flight window of dispatched chunks (``predictor.py:374-417``)
-overlapping host work with device work. The handles are ``(with_masks, (det,
-det_mask, det_masks_raw, seg_preds))`` for every detector: the one-stage
-detectors (``retina_net.py``) leave ``det_masks_raw`` None, the two-stage
-ones (``mrcnn.py``) fill it when masks are asked for.
+and the trainer's pipelined steps overlapping host work with device work.
+The inference handles are ``(with_masks, (det, det_mask, det_masks_raw,
+seg_preds))`` for every detector: the one-stage detectors
+(``retina_net.py``) leave ``det_masks_raw`` None, the two-stage ones
+(``mrcnn.py``) fill it when masks are asked for.
 
-The training half (matching, losses, optimizer, gradient accumulation) is
-not ported yet for any detector; its entry points raise
-``NotImplementedError`` (see ROADMAP.md, Queue 1).
+Training is ported for the one-stage detectors (``retina_net.py``): Adam
+with the lr set per step, gradient accumulation over microbatches, and the
+optimizer state in ``state_dict``. The two-stage detectors' training entry
+points raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,27 +30,46 @@ from typing import Optional
 import numpy as np
 import torch
 
-_NOT_PORTED = "not ported to the PyTorch package yet; see ROADMAP.md, Queue 1"
+from medicaldetectiontoolkit_torch.ops.topk import top_k
 
 
 def default_device() -> torch.device:
-    """The CUDA card when one is present, else the CPU (which runs the plain
-    PyTorch versions of every kernel)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card. Without one this raises: the CPU, which runs the plain
+    PyTorch versions of every kernel, is taken only when asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
-def host_to_device(array, device: torch.device) -> torch.Tensor:
-    """numpy (e.g. a (b, c, *spatial) image batch) -> float32 tensor on
+def host_to_device(array, device: torch.device, dtype=np.float32) -> torch.Tensor:
+    """numpy (e.g. a (b, c, *spatial) image batch) -> tensor of ``dtype`` on
     ``device``, same layout.
 
     A CUDA upload goes through pinned memory with ``non_blocking=True``: a
     pageable copy would synchronise the stream, so dispatching a batch would
     wait for the previous batch's device work.
     """
-    t = torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
+    t = torch.from_numpy(np.ascontiguousarray(array, dtype=dtype))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def pad_gt_boxes(gt_boxes_list, gt_ids_list, batch_size: int, dim: int, max_gt: int, device: torch.device):
+    """Per-element GT box lists -> (b, max_gt, 2*dim) float32 boxes, (b,
+    max_gt) int32 ids and bool valid mask on ``device`` (``base.py:37-53``).
+    GTs beyond ``max_gt`` are dropped, as in JAX."""
+    boxes = np.zeros((batch_size, max_gt, 2 * dim), dtype=np.float32)
+    ids = np.zeros((batch_size, max_gt), dtype=np.int32)
+    valid = np.zeros((batch_size, max_gt), dtype=bool)
+    for b in range(batch_size):
+        g = np.asarray(gt_boxes_list[b], dtype=np.float32).reshape(-1, 2 * dim)
+        n = min(len(g), max_gt)
+        boxes[b, :n] = g[:n]
+        ids[b, :n] = np.asarray(gt_ids_list[b], dtype=np.int32).reshape(-1)[:n]
+        valid[b, :n] = True
+    return (host_to_device(boxes, device), host_to_device(ids, device, np.int32),
+            host_to_device(valid, device, bool))
 
 
 def detections_to_box_results(cf, detections, det_mask, box_results_list=None):
@@ -102,13 +124,111 @@ def unmold_mask(mask, bbox, image_shape):
     return full_mask
 
 
+def add_gt_boxes_to_results(batch, box_results_list):
+    """Append the GT boxes as monitoring box dicts (``base.py:86-98``)."""
+    for b in range(len(box_results_list)):
+        for ix in range(len(batch["bb_target"][b])):
+            box_results_list[b].append({
+                "box_coords": np.asarray(batch["bb_target"][b][ix]),
+                "box_label": np.asarray(batch["roi_labels"][b]).reshape(-1)[ix],
+                "box_type": "gt",
+            })
+    return box_results_list
+
+
+def compact_anchor_indices(matches, neg_sel, max_pos: int, max_neg: int):
+    """(b, A) positive matches and sampled negatives -> fixed small (idx,
+    valid) pairs on the device, so the per-step monitoring copy is
+    O(max_pos + max_neg) per element (``base.py:101-120``; exact top-k in
+    place of JAX's ``stochastic_top_k``)."""
+    pos_vals, pos_idx = top_k((matches > 0).to(torch.float32), max_pos, dim=1)
+    neg_vals, neg_idx = top_k(neg_sel.to(torch.float32), max_neg, dim=1)
+    return pos_idx, pos_vals > 0, neg_idx, neg_vals > 0
+
+
+def add_anchor_boxes_to_results(np_anchors, anchor_info, img_shape_spatial, box_results_list):
+    """Append the sampled positive and negative anchors, clipped to the
+    image, as monitoring box dicts (``base.py:123-145``). ``anchor_info`` is
+    ``compact_anchor_indices``' output, on the host."""
+    pos_idx, pos_valid, neg_idx, neg_valid = [np.asarray(a) for a in anchor_info]
+    hi = np.asarray(list(img_shape_spatial[:2]) * 2 + list(img_shape_spatial[2:3]) * 2, np.float32)
+    for b in range(pos_idx.shape[0]):
+        for kind, idx, valid in (("pos_anchor", pos_idx[b], pos_valid[b]), ("neg_anchor", neg_idx[b], neg_valid[b])):
+            for row in np.clip(np_anchors[idx[valid]], 0, hi):
+                box_results_list[b].append({"box_coords": row, "box_type": kind})
+    return box_results_list
+
+
+def resolve_remat(cf) -> bool:
+    """``cf.use_remat``, or when unset: on in 3D, off in 2D (``base.py:173-176``)."""
+    use = getattr(cf, "use_remat", None)
+    return bool(use) if use is not None else cf.dim == 3
+
+
+def resolve_grad_accum(cf, bsz: int) -> int:
+    """Microbatches per optimizer step (``base.py:194-206``):
+    ``cf.grad_accum_steps``, rounded down to a divisor of the batch size."""
+    n = max(min(int(getattr(cf, "grad_accum_steps", 1) or 1), bsz), 1)
+    while bsz % n:
+        n -= 1
+    return n
+
+
+def make_optimizer(cf, params):
+    """Adam with coupled weight decay, the update of JAX's optax chain
+    ``add_decayed_weights -> scale_by_adam -> scale(-1)`` times the lr
+    (``base.py:179-191``). The lr is set on the param group at each step."""
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=cf.weight_decay)
+
+
+def accum_backward(params, loss_fn, n_micro: int):
+    """Gradient accumulation (``base.py:209-249``) as a loop over
+    microbatches: ``loss_fn(i) -> (loss, aux)`` for microbatch ``i``, one
+    backward each, the gradients summed into ``.grad`` and divided by
+    ``n_micro``, as JAX sums then averages. Batch-global reductions inside
+    ``loss_fn`` see one microbatch, as in JAX. Returns (mean loss, [aux])."""
+    for p in params:
+        p.grad = None
+    losses, auxs = [], []
+    for i in range(n_micro):
+        loss, aux = loss_fn(i)
+        loss.backward()
+        losses.append(loss.detach())
+        auxs.append(aux)
+    if n_micro > 1:
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(n_micro)
+    return torch.stack(losses).mean(), auxs
+
+
+def merge_microbatch_aux(auxs):
+    """Per-microbatch aux -> full-batch layout (``base.py:252-266``): scalars
+    (monitor values) averaged, batch-leading tensors concatenated."""
+    first = auxs[0]
+    if isinstance(first, dict):
+        return {k: merge_microbatch_aux([a[k] for a in auxs]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(merge_microbatch_aux(list(parts)) for parts in zip(*auxs))
+    if first is None:
+        return None
+    if first.dim() == 0:
+        return torch.stack(auxs).mean()
+    return torch.cat(auxs, dim=0)
+
+
 class Detector:
-    """Base class: owns (cf, logger, device, module) and the host API.
+    """Base class: owns (cf, logger, device, module, optimizer) and the host
+    API.
 
     Subclasses implement ``build`` (set ``self.module``) and either
     ``_predict`` + ``_finalize_outputs`` (one-stage) or ``_forward`` +
-    ``_make_seg_preds`` (two-stage).
+    ``_make_seg_preds`` (two-stage); detectors that train implement
+    ``train_forward_dispatch`` + ``train_forward_convert``.
     """
+
+    # per-epoch lr, set by the trainer (reference exec.py:59-60)
+    current_lr = 1e-4
 
     def __init__(self, cf, logger, device: Optional[torch.device] = None):
         self.cf = cf
@@ -116,6 +236,7 @@ class Detector:
         self.device = torch.device(device) if device is not None else default_device()
         self.module = None
         self.build()
+        self.optimizer = make_optimizer(cf, self.module.parameters())
 
     # ---- subclass API -------------------------------------------------
     def build(self):
@@ -126,25 +247,35 @@ class Detector:
 
     # ---- state handling ------------------------------------------------
     def initialize(self, seed: Optional[int] = None):
-        """Draw fresh weights from ``torch.Generator().manual_seed(seed)``."""
+        """Draw fresh weights from ``torch.Generator().manual_seed(seed)``
+        and start a fresh optimizer state."""
         self.init_params(self.cf.seed if seed is None else seed)
+        self.optimizer = make_optimizer(self.cf, self.module.parameters())
         n_params = sum(p.numel() for p in self.module.parameters())
         if self.logger is not None:
             self.logger.info(f"initialized {type(self).__name__} with {n_params/1e6:.2f}M parameters")
 
     def state_dict(self):
-        """The port's own checkpoint: torch parameter tensors on the CPU."""
-        return {"params": {k: v.detach().cpu() for k, v in self.module.state_dict().items()}}
+        """The port's own checkpoint: parameter tensors on the CPU and the
+        optimizer's state."""
+        return {"params": {k: v.detach().cpu() for k, v in self.module.state_dict().items()},
+                "opt_state": self.optimizer.state_dict()}
 
     def load_state_dict(self, state):
         self.module.load_state_dict(state["params"])
+        if state.get("opt_state") is not None:
+            self.optimizer.load_state_dict(state["opt_state"])
 
-    def load_params(self, params):
+    def load_params(self, params, opt_state=None):
         """Load a JAX param tree (nested dicts of numpy arrays, as
-        ``Detector.state_dict()["params"]`` of the JAX package holds it)."""
+        ``Detector.state_dict()["params"]`` of the JAX package holds it) and,
+        when given, that package's optimizer state (``state_dict()
+        ["opt_state"]``), so a JAX run resumes here."""
         from medicaldetectiontoolkit_torch.utils import convert
 
         self.module.load_state_dict(convert.jax_to_torch(params, self.module))
+        if opt_state is not None:
+            self.optimizer.load_state_dict(convert.jax_adam_to_torch(opt_state, self.module, self.optimizer))
 
     # ---- inference -----------------------------------------------------
     def _predict(self, img):
@@ -186,13 +317,17 @@ class Detector:
         """Inference forward -> {boxes, seg_preds} (reference test_forward contract)."""
         return self.test_forward_convert(self.test_forward_dispatch(batch, **kwargs), batch, **kwargs)
 
-    # ---- not ported yet -------------------------------------------------
+    # ---- training ------------------------------------------------------
     def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
-        raise NotImplementedError(f"training is {_NOT_PORTED}")
+        raise NotImplementedError(f"training of {type(self).__name__} is not ported yet; see ROADMAP.md, Queue 1")
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
-        raise NotImplementedError(f"training is {_NOT_PORTED}")
+        raise NotImplementedError(f"training of {type(self).__name__} is not ported yet; see ROADMAP.md, Queue 1")
 
     def train_forward(self, batch, is_validation: bool = False, do_update: bool = True,
                       need_seg_preds: bool = True):
-        raise NotImplementedError(f"training is {_NOT_PORTED}")
+        """One step (with an optimizer update unless validating) -> the
+        reference results dict: boxes, seg_preds, loss, monitor_values,
+        logger_string (``base.py:288-309``)."""
+        return self.train_forward_convert(self.train_forward_dispatch(batch, is_validation, do_update), batch,
+                                          need_seg_preds=need_seg_preds)

@@ -37,11 +37,12 @@ import torch.nn.functional as F
 
 from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
-from medicaldetectiontoolkit_torch.models.retina_net import _softmax, _stable_topk
 from medicaldetectiontoolkit_torch.ops import anchors as anchor_ops
 from medicaldetectiontoolkit_torch.ops import boxes as box_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
+from medicaldetectiontoolkit_torch.ops.losses import softmax
+from medicaldetectiontoolkit_torch.ops.topk import top_k
 
 
 class RPNHead(nn.Module):
@@ -193,7 +194,7 @@ def proposal_layer(rpn_probs_fg, rpn_deltas, anchors, cf, proposal_count: int, n
     norm = base.host_to_device(np.asarray(cf.scale), dev)
     k = min(cf.pre_nms_limit, anchors.shape[0])
 
-    top_scores, order = _stable_topk(rpn_probs_fg, k, dim=1)  # (b, k), lax.top_k's tie order
+    top_scores, order = top_k(rpn_probs_fg, k, dim=1)  # (b, k), lax.top_k's tie order
     deltas = torch.take_along_dim(rpn_deltas, order[..., None], dim=1) * std
     boxes = box_ops.clip_boxes(box_ops.apply_box_deltas(anchors[order], deltas), window)
     keep_idx, keep_mask = nms_fn(boxes, top_scores, cf.rpn_nms_threshold, proposal_count)
@@ -246,7 +247,7 @@ def refine_detections(rois_norm, probs, deltas, batch_ix, cf, batch_size: int, n
     lane_mask = lane_mask.reshape(batch_size, n_fg * max_inst)
 
     merged_scores = torch.where(lane_mask, cand_scores[lane_idx.clamp(0, n - 1)], float("-inf"))
-    _, top_pos = _stable_topk(merged_scores, max_inst, dim=1)
+    _, top_pos = top_k(merged_scores, max_inst, dim=1)
     final_idx = torch.take_along_dim(lane_idx, top_pos, dim=1).clamp(0, n - 1)
     final_mask = torch.take_along_dim(lane_mask, top_pos, dim=1)
 
@@ -309,7 +310,7 @@ class MaskRCNNDetector(base.Detector):
     def _proposals(self, rpn_logits, rpn_deltas):
         """(normalised proposals (b, P, 2d), out_proposals, valid) of the
         RPN heads (``mrcnn.py:526-534``, inference)."""
-        rpn_probs_fg = _softmax(rpn_logits)[..., 1]
+        rpn_probs_fg = softmax(rpn_logits)[..., 1]
         return proposal_layer(rpn_probs_fg, rpn_deltas, self.anchors, self.cf, self.cf.post_nms_rois_inference,
                               nms_fn=self.nms_fn)
 
@@ -336,7 +337,7 @@ class MaskRCNNDetector(base.Detector):
 
     def _detections_and_masks(self, maps, flat_rois, batch_ix, logits, bbox, bsz, with_masks: bool):
         cf = self.cf
-        det, det_mask = refine_detections(flat_rois, _softmax(logits), bbox, batch_ix, cf, bsz, nms_fn=self.nms_fn)
+        det, det_mask = refine_detections(flat_rois, softmax(logits), bbox, batch_ix, cf, bsz, nms_fn=self.nms_fn)
         det_masks_raw = self._masks(maps, det) if with_masks and self.module.mask is not None else None
         return det, det_mask, det_masks_raw
 

@@ -1,4 +1,4 @@
-"""RetinaNet / Retina U-Net inference, 2D + 3D (torch).
+"""RetinaNet / Retina U-Net, 2D + 3D (torch): inference and training.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
   * ``DenseHead``: 4 conv3x3(+relu) -> conv3x3 with A*out channels, shared
@@ -9,9 +9,14 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
   * ``refine_detections``: batch-global exact top-``pre_nms_limit`` over
     foreground probabilities, delta decode, window clip, round, one NMS lane
     per (element, class) through the NMS dispatcher (the CUDA kernel for
-    CUDA tensors), then a per-element top-k merge.
+    CUDA tensors), then a per-element top-k merge;
+  * training (``retina_net.py:266-417``): anchor matching, SHEM, the CE and
+    smooth-L1 anchor losses (+ dice and CE on the seg head), backward per
+    microbatch, Adam, then detection refinement of the merged heads.
 
-Training (matching, SHEM, losses) is not ported yet (ROADMAP.md, Queue 1).
+The random draws of a step (matching and SHEM) come from ``self.generator``,
+a ``torch.Generator`` on the detector's device seeded from ``cf.seed``, and
+reach the loss as tensors, so a test can feed JAX's own draws.
 """
 
 from __future__ import annotations
@@ -26,7 +31,10 @@ from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
 from medicaldetectiontoolkit_torch.ops import anchors as anchor_ops
 from medicaldetectiontoolkit_torch.ops import boxes as box_ops
+from medicaldetectiontoolkit_torch.ops import losses as loss_ops
+from medicaldetectiontoolkit_torch.ops import matching as match_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
+from medicaldetectiontoolkit_torch.ops.topk import top_k
 
 
 class DenseHead(nn.Module):
@@ -54,14 +62,14 @@ class RetinaModule(nn.Module):
 
     def __init__(self, dim, n_channels, start_filts, end_filts, res_architecture, norm, relu, sixth_pooling,
                  operate_stride1, head_classes, n_rpn_features, n_anchors_per_pos, anchor_stride,
-                 pyramid_levels: Sequence[int], num_seg_classes=0, dtype=torch.float32):
+                 pyramid_levels: Sequence[int], num_seg_classes=0, dtype=torch.float32, remat=False):
         super().__init__()
         self.dtype = dtype
         self.pyramid_levels = tuple(pyramid_levels)
         # P0 is prepended with operate_stride1; detection heads read P2..
         self.level_offset = 1 if operate_stride1 else 0
         self.fpn = FPN(dim, n_channels, start_filts, end_filts, res_architecture, norm, relu, sixth_pooling,
-                       operate_stride1, dtype=dtype)
+                       operate_stride1, dtype=dtype, remat=remat)
         # the segmentation head runs in float32 whatever the compute dtype
         self.seg_head = (
             ConvND(dim, end_filts, num_seg_classes, ks=1, relu=None, dtype=torch.float32)
@@ -80,19 +88,6 @@ class RetinaModule(nn.Module):
         return class_logits, bb_deltas, seg_logits
 
 
-def _softmax(logits):
-    """softmax over the last axis in ``jax.nn.softmax``'s operation order."""
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
-
-
-def _stable_topk(x, k: int, dim: int = -1):
-    """Exact top-k with JAX's ``lax.top_k`` tie order (lower index first):
-    a stable descending sort, sliced. ``torch.topk`` promises no tie order."""
-    vals, idx = torch.sort(x, dim=dim, descending=True, stable=True)
-    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
-
-
 def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.batched_nms_auto):
     """Batch-global candidate selection + per-(element, class) NMS
     (``retina_net.py:142-209``).
@@ -109,10 +104,10 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     max_inst = cf.model_max_instances_per_batch_element
     k = min(cf.pre_nms_limit, bsz * A * n_fg)
 
-    flat = _softmax(class_logits)[..., 1:].reshape(-1)
+    flat = loss_ops.softmax(class_logits)[..., 1:].reshape(-1)
     # exact top-k: flat index order is (elem, anchor, class), so an
     # approximate selection would drop the weaker class of the same anchor
-    scores, flat_ix = _stable_topk(flat, k)
+    scores, flat_ix = top_k(flat, k)
     cand_elem = flat_ix // (A * n_fg)
     rem = flat_ix % (A * n_fg)
     cand_anchor = rem // n_fg
@@ -140,7 +135,7 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     lane_mask = lane_mask.reshape(bsz, n_fg * max_inst)
 
     merged_scores = torch.where(lane_mask, scores[lane_idx.clamp(0, k - 1)], float("-inf"))
-    _, top_pos = _stable_topk(merged_scores, max_inst, dim=1)
+    _, top_pos = top_k(merged_scores, max_inst, dim=1)
     final_idx = torch.take_along_dim(lane_idx, top_pos, dim=1).clamp(0, k - 1)
     final_mask = torch.take_along_dim(lane_mask, top_pos, dim=1)
 
@@ -153,7 +148,7 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
 
 @register("retina_net")
 class RetinaNetDetector(base.Detector):
-    """Host-facing RetinaNet with the reference's test_forward API."""
+    """Host-facing RetinaNet with the reference's train/test_forward API."""
 
     with_seg_head = False
 
@@ -163,6 +158,8 @@ class RetinaNetDetector(base.Detector):
         if h % 2**5 or w % 2**5:
             raise ValueError("patch size must be divisible by 2**5 (e.g. 256, 320, 384, ...)")
         self.anchors = anchor_ops.generate_pyramid_anchors(cf, self.logger).to(self.device, torch.float32)
+        self.np_anchors = self.anchors.cpu().numpy()
+        self.bbox_std = base.host_to_device(np.asarray(cf.rpn_bbox_std_dev), self.device)
         self.module = RetinaModule(
             dim=cf.dim,
             n_channels=cf.n_channels,
@@ -180,11 +177,14 @@ class RetinaNetDetector(base.Detector):
             pyramid_levels=cf.pyramid_levels,
             num_seg_classes=cf.num_seg_classes if self.with_seg_head else 0,
             dtype=torch.bfloat16 if cf.compute_dtype == "bfloat16" else torch.float32,
+            remat=base.resolve_remat(cf),
         ).to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(cf.seed)
 
     def init_params(self, seed: int = 0):
         init_weights(self.module, self.cf.weight_init, torch.Generator().manual_seed(seed))
 
+    # ---- inference ------------------------------------------------------
     def _predict(self, img):
         return self.module(img)
 
@@ -194,6 +194,119 @@ class RetinaNetDetector(base.Detector):
         if seg_logits is not None:
             seg_preds = torch.argmax(seg_logits, dim=1, keepdim=True).to(torch.uint8)  # (b, 1, *spatial)
         return det, det_mask, seg_preds
+
+    # ---- training -------------------------------------------------------
+    def _prep(self, batch):
+        """Upload one batch: image, padded GTs and (Retina U-Net) seg labels."""
+        cf, dev = self.cf, self.device
+        img = base.host_to_device(batch["data"], dev)
+        gt = base.pad_gt_boxes(batch["bb_target"], batch["roi_labels"], img.shape[0], cf.dim, cf.max_gt_boxes, dev)
+        seg = None
+        if self.with_seg_head:
+            labels = batch["seg"] if "seg" in batch else np.zeros((img.shape[0], 1, *img.shape[2:]), np.int32)
+            seg = base.host_to_device(labels, dev, np.int32)
+        return (img, *gt, seg)
+
+    def draws(self, n_micro: int, m: int):
+        """One step's uniform draws from ``self.generator``, per microbatch:
+        matching (n_micro, m, A) and SHEM (n_micro, m, k_pool)."""
+        cf = self.cf
+        A = self.anchors.shape[0]
+        k_pool = min(cf.shem_poolsize * (cf.rpn_train_anchors_per_image // 2), A)
+        kw = dict(generator=self.generator, device=self.device)
+        return torch.rand((n_micro, m, A), **kw), torch.rand((n_micro, m, k_pool), **kw)
+
+    def _losses_and_outputs(self, img, gt_boxes, gt_ids, gt_valid, seg, match_rand, shem_rand):
+        """Loss and aux of one microbatch (``retina_net.py:266-308``); the
+        draws are (m, A) for matching and (m, k_pool) for SHEM."""
+        cf = self.cf
+        class_logits, bb_deltas, seg_logits = self.module(img)
+        neg_iou = 0.1 if cf.dim == 2 else 0.01
+        matches, tdeltas = match_ops.gt_anchor_matching(
+            match_rand, self.anchors, gt_boxes, gt_ids, gt_valid, cf.anchor_matching_iou, neg_iou,
+            cf.rpn_train_anchors_per_image, self.bbox_std)
+        class_losses, neg_sel = loss_ops.anchor_class_loss(
+            shem_rand, matches, class_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
+        class_loss = class_losses.mean()
+        bbox_loss = loss_ops.anchor_bbox_loss(tdeltas, bb_deltas, matches).mean()
+        loss = class_loss + bbox_loss
+        monitor = {"class_loss": class_loss, "bbox_loss": bbox_loss}
+        if seg_logits is not None:
+            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes)
+            loss = loss + (seg_dice + seg_ce) / 2.0
+            monitor.update({"seg_dice_loss": seg_dice, "seg_ce_loss": seg_ce})
+        monitor["loss"] = loss
+        max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
+        aux = {
+            "heads": tuple(None if h is None else h.detach() for h in (class_logits, bb_deltas, seg_logits)),
+            "anchor_info": base.compact_anchor_indices(matches, neg_sel, max_half, max_half),
+            "monitor": {k: v.detach() for k, v in monitor.items()},
+        }
+        return loss, aux
+
+    def _accumulate(self, inputs, draws):
+        """Loss and gradients of one step: ``draws`` is ``self.draws``' pair,
+        one row per microbatch; grads land in the params' ``.grad``
+        (``retina_net.py:317-331``). Returns (mean loss, merged aux)."""
+        match_rand, shem_rand = draws
+        n_micro = match_rand.shape[0]
+        m = inputs[0].shape[0] // n_micro
+
+        def micro(i):
+            part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
+            return self._losses_and_outputs(*part, match_rand[i], shem_rand[i])
+
+        loss, auxs = base.accum_backward(list(self.module.parameters()), micro, n_micro)
+        return loss, base.merge_microbatch_aux(auxs)
+
+    def _update(self):
+        """One Adam step at ``current_lr``."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.current_lr
+        self.optimizer.step()
+
+    def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
+        """Enqueue one step (the update unless validating) and the detection
+        refinement of its heads; return un-synchronised handles."""
+        inputs = self._prep(batch)
+        bsz = inputs[0].shape[0]
+        if is_validation or not do_update:
+            match_rand, shem_rand = self.draws(1, bsz)
+            with torch.no_grad():
+                _, aux = self._losses_and_outputs(*inputs, match_rand[0], shem_rand[0])
+        else:
+            n_micro = base.resolve_grad_accum(self.cf, bsz)
+            _, aux = self._accumulate(inputs, self.draws(n_micro, bsz // n_micro))
+            self._update()
+        with torch.no_grad():
+            det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
+        return tuple(inputs[0].shape), aux["monitor"], aux["anchor_info"], det, det_mask, seg_preds
+
+    def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
+        """Host copies of one step's handles -> the reference results dict
+        (``retina_net.py:386-417``)."""
+        cf = self.cf
+        img_shape, monitor, anchor_info, det, det_mask, seg_preds = handles
+        boxes = [[] for _ in range(img_shape[0])]
+        base.add_gt_boxes_to_results(batch, boxes)
+        base.add_anchor_boxes_to_results(self.np_anchors, [t.cpu().numpy() for t in anchor_info], img_shape[2:], boxes)
+        base.detections_to_box_results(cf, det.cpu().numpy(), det_mask.cpu().numpy(), boxes)
+        monitor = {k: float(v) for k, v in monitor.items()}
+        logger_string = "loss: {0:.2f}, class: {1:.2f}, bbox: {2:.2f}".format(
+            monitor["loss"], monitor["class_loss"], monitor["bbox_loss"])
+        if "seg_dice_loss" in monitor:
+            logger_string += ", seg dice: {0:.3f}, seg ce: {1:.3f}".format(
+                monitor["seg_dice_loss"], monitor["seg_ce_loss"])
+        return {
+            "boxes": boxes,
+            # need_seg_preds=False skips the full-volume copy
+            "seg_preds": self._make_seg_preds(det, det_mask, None, seg_preds if need_seg_preds else None,
+                                              batch["data"].shape, True),
+            "loss": monitor["loss"],
+            "torch_loss": monitor["loss"],  # legacy key some callers expect
+            "monitor_values": {"loss": monitor["loss"], "class_loss": monitor["class_loss"]},
+            "logger_string": logger_string,
+        }
 
 
 @register("retina_unet")

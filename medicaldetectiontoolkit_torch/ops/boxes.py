@@ -47,7 +47,9 @@ def box_area(boxes, pixel_offset: float = 0.0):
 
 
 def pairwise_iou(boxes1, boxes2, pixel_offset: float = 0.0):
-    """IoU matrix between two box sets: (N, 2*dim), (M, 2*dim) -> (N, M).
+    """IoU matrix between two box sets: (..., N, 2*dim), (..., M, 2*dim) ->
+    (..., N, M), leading dims broadcast (anchors (A, 2*dim) against a batch
+    of GTs (b, G, 2*dim) gives (b, A, G)).
 
     Degenerate boxes give IoU 0 via the max(., 0) clamps; a 0/0 union is
     guarded to avoid NaN (``boxes.py:54-73``).
@@ -57,13 +59,14 @@ def pairwise_iou(boxes1, boxes2, pixel_offset: float = 0.0):
     inter = None
     for l1, h1, l2, h2 in zip(lo1, hi1, lo2, hi2):
         seg = torch.clamp_min(
-            torch.minimum(h1[:, None], h2[None, :]) - torch.maximum(l1[:, None], l2[None, :]) + pixel_offset,
+            torch.minimum(h1[..., :, None], h2[..., None, :]) - torch.maximum(l1[..., :, None], l2[..., None, :])
+            + pixel_offset,
             0.0,
         )
         inter = seg if inter is None else inter * seg
     area1 = box_area(boxes1, pixel_offset)
     area2 = box_area(boxes2, pixel_offset)
-    union = area1[:, None] + area2[None, :] - inter
+    union = area1[..., :, None] + area2[..., None, :] - inter
     pos = union > 0
     return torch.where(pos, inter / torch.where(pos, union, torch.ones_like(union)), torch.zeros_like(union))
 

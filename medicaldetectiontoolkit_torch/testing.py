@@ -1,7 +1,8 @@
 """Small synthetic configs and batches for the port's scripts and tests.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/testing.py``, cut to what the
-ported inference paths read (one-stage and two-stage detectors). ``make_config``
+ported paths read (inference of the one-stage and two-stage detectors,
+training of the one-stage ones). ``make_config``
 gives the same values as the JAX package's ``make_config``
 (``testing.py:10-95``) for every attribute it sets, and ``make_batch`` draws
 the same arrays from the same seed (``testing.py:98-131``);
@@ -19,7 +20,7 @@ import numpy as np
 
 def make_config(model="retina_net", dim=2, patch_size=None, start_filts=4, end_filts=8, batch_size=2,
                 retina_scales=True):
-    """Small but complete inference config (toy-experiment geometry scaled down)."""
+    """Small but complete detector config (toy-experiment geometry scaled down)."""
     if patch_size is None:
         patch_size = [64, 64] if dim == 2 else [64, 64, 8]
     ps = list(patch_size)
@@ -53,6 +54,14 @@ def make_config(model="retina_net", dim=2, patch_size=None, start_filts=4, end_f
         detection_nms_threshold=1e-5,
         model_min_confidence=0.1,
         operate_stride1=model in ("retina_unet", "ufrcnn", "detection_unet"),
+        # training (``testing.py:36-43``; ``config.py:46,111,139`` defaults)
+        anchor_matching_iou=0.5,
+        rpn_train_anchors_per_image=32,
+        shem_poolsize=10,
+        max_gt_boxes=8,
+        weight_decay=0.0,
+        use_remat=None,
+        grad_accum_steps=1,
         # mrcnn-family extras (``testing.py:65-77``, ``config.py:89-91``)
         rpn_nms_threshold=0.7,
         pool_size=(7, 7) if dim == 2 else (7, 7, 3),
@@ -99,6 +108,17 @@ def make_slice_config(compute_dtype="float32"):
     cf.pre_nms_limit = 50000
     cf.model_max_instances_per_batch_element = 30
     cf.compute_dtype = compute_dtype
+    return cf
+
+
+def make_train_slice_config(compute_dtype="float32"):
+    """The training slice: ``make_slice_config`` with the settings of
+    ``bench.py:161-177``, LIDC's 300 training anchors per image
+    (``experiments/lidc_exp/configs.py:257``) and an effective batch of 8
+    as 4 accumulated microbatches of 2; remat on (the 3D default)."""
+    cf = make_slice_config(compute_dtype)
+    cf.rpn_train_anchors_per_image = 300
+    cf.grad_accum_steps = 4
     return cf
 
 

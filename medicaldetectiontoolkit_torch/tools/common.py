@@ -1,5 +1,6 @@
 """Helpers shared by the measurement scripts: the card's identity, float32
-precision switches, the served slices, and one pipelined window of chunks."""
+precision switches, the served slices and the training slice, one pipelined
+window of chunks, and timed training steps."""
 
 from __future__ import annotations
 
@@ -9,10 +10,13 @@ import time
 import torch
 
 from medicaldetectiontoolkit_torch.models import build_model
-from medicaldetectiontoolkit_torch.testing import make_batch, make_mrcnn_slice_config, make_slice_config
+from medicaldetectiontoolkit_torch.testing import (make_batch, make_mrcnn_slice_config, make_slice_config,
+                                                   make_train_slice_config)
 
-# the served slices: 3D Retina U-Net and 3D Mask R-CNN at LIDC width, batch 8
-SLICE_CONFIGS = {"retina_unet": make_slice_config, "mrcnn": make_mrcnn_slice_config}
+# the served slices: 3D Retina U-Net and 3D Mask R-CNN at LIDC width, batch
+# 8; and the training slice: 3D Retina U-Net at LIDC width, batch 2 x 4
+SLICE_CONFIGS = {"retina_unet": make_slice_config, "mrcnn": make_mrcnn_slice_config,
+                 "retina_unet_train": make_train_slice_config}
 
 
 class QuietLog:
@@ -61,3 +65,17 @@ def run_window(net, batches):
     results = [net.test_forward_convert(h, b) for h, b in zip(handles, batches)]
     torch.cuda.synchronize()
     return handles, results, t_dispatch, time.perf_counter() - t0
+
+
+def train_steps(net, batches):
+    """One training step per batch (dispatch, then convert without the
+    full-volume seg copy, as per-step monitoring does), ending in a
+    synchronise. Returns (results, host seconds of each step)."""
+    results, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(net.train_forward_convert(net.train_forward_dispatch(b), b, need_seg_preds=False))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return results, times

@@ -1,6 +1,8 @@
-"""Where the time of a served slice goes on one CUDA card.
+"""Where the time of a served slice, or of the training slice, goes on one
+CUDA card.
 
     python3 -m medicaldetectiontoolkit_torch.tools.profile_slice [--model retina_unet|mrcnn] [--out-dir DIR]
+    python3 -m medicaldetectiontoolkit_torch.tools.profile_slice --train [--stem 0|1] [--out-dir DIR]
 
 For float32 and bfloat16, on the 3D Retina U-Net slice (``make_slice_config``)
 or the 3D Mask R-CNN slice (``make_mrcnn_slice_config``), batch 8, random
@@ -17,6 +19,14 @@ weights from seed 0:
     busy time (union of kernel, copy and set intervals), idle share, and
     device time per chunk by kernel class. With ``--out-dir`` the profiler's
     table of kernels goes to ``DIR/profile_<model>_<dtype>.txt``.
+
+With ``--train``, the training slice (``make_train_slice_config``: 3D Retina
+U-Net at LIDC width, batch 2 x 4, remat) with ``MDT_STEM_PALLAS`` set to
+``--stem`` (default 1: the stem kernels K3/K4): per-step CUDA-event stage
+times (upload, forward + loss and backward summed over the microbatches,
+optimizer, refine), the peak device memory of one step, and the profiler's
+view of three steps (host wall, device busy and idle share, device time per
+step by kernel class).
 """
 
 from __future__ import annotations
@@ -28,13 +38,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from medicaldetectiontoolkit_torch.models.base import host_to_device
-from medicaldetectiontoolkit_torch.models.mrcnn import _softmax, refine_detections
-from medicaldetectiontoolkit_torch.tools.common import run_window, setup_card, slice_batches, slice_net
+from medicaldetectiontoolkit_torch.models.base import host_to_device, merge_microbatch_aux, resolve_grad_accum
+from medicaldetectiontoolkit_torch.models.mrcnn import refine_detections
+from medicaldetectiontoolkit_torch.ops.losses import softmax
+from medicaldetectiontoolkit_torch.tools.common import (run_window, setup_card, slice_batches, slice_net,
+                                                         train_steps)
 
 # kernel-name substrings -> class, first match wins
 CLASSES = (
     ("nms", ("nms_kernel",)),
+    ("stem_conv", ("stem_fwd_kernel", "stem_wgrad")),
     ("roi_align", ("pyramid_roi_align_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("conv", ("conv", "fprop", "implicit_gemm", "xmma", "cudnn", "Nhwc", "nhwc", "Nchw", "nchw")),
@@ -102,7 +115,7 @@ def mrcnn_stage_times(net, batches):
             ev[3].record()
             logits, bbox, flat_rois, batch_ix = net._second_stage_all(maps, rois_norm)
             ev[4].record()
-            det, det_mask = refine_detections(flat_rois, _softmax(logits), bbox, batch_ix, cf, img.shape[0])
+            det, det_mask = refine_detections(flat_rois, softmax(logits), bbox, batch_ix, cf, img.shape[0])
             ev[5].record()
             masks = net._masks(maps, det)
             ev[6].record()
@@ -113,6 +126,69 @@ def mrcnn_stage_times(net, batches):
             net.test_forward_convert((True, (det, det_mask, masks, None)), b)
             convert += time.perf_counter() - t0
     return [s / len(batches) for s in sums], convert * 1e3 / len(batches)
+
+
+TRAIN_STAGES = ("upload", "forward + loss", "backward", "optimizer", "refine")
+
+
+def train_stage_times(net, batches):
+    """Mean CUDA-event ms per step of each training stage: the composition of
+    ``RetinaNetDetector.train_forward_dispatch`` with events between its
+    parts (forward + loss and backward summed over the microbatches)."""
+    sums = dict.fromkeys(TRAIN_STAGES, 0.0)
+    params = list(net.module.parameters())
+    for b in batches:
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        mark(None)
+        inputs = net._prep(b)
+        mark("upload")
+        bsz = inputs[0].shape[0]
+        n_micro = resolve_grad_accum(net.cf, bsz)
+        m = bsz // n_micro
+        match_rand, shem_rand = net.draws(n_micro, m)
+        for p in params:
+            p.grad = None
+        auxs = []
+        for i in range(n_micro):
+            part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
+            loss, aux = net._losses_and_outputs(*part, match_rand[i], shem_rand[i])
+            mark("forward + loss")
+            loss.backward()
+            mark("backward")
+            auxs.append(aux)
+        for p in params:
+            p.grad.div_(n_micro)
+        net._update()
+        mark("optimizer")
+        with torch.no_grad():
+            net._finalize_outputs(*merge_microbatch_aux(auxs)["heads"])
+        mark("refine")
+        torch.cuda.synchronize()
+        for (_, start), (stage, end) in zip(marks, marks[1:]):
+            sums[stage] += start.elapsed_time(end)
+    return {k: v / len(batches) for k, v in sums.items()}
+
+
+def train_peak_memory_gib(net, batch):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_steps(net, [batch])
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def profile_train(net, batches, table_path=None):
+    """The profiler's view of one training step per batch."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_steps(net, batches)
+        wall = time.perf_counter() - t0
+    return _device_summary(prof, wall, len(batches), table_path)
 
 
 def peak_memory_gib(net, batch):
@@ -134,6 +210,12 @@ def busy_union_us(intervals):
 def profile_window(net, batches, table_path=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, t_dispatch, wall = run_window(net, batches)
+    return dict(_device_summary(prof, wall, len(batches), table_path), dispatch_ms=t_dispatch * 1e3)
+
+
+def _device_summary(prof, wall, n, table_path):
+    """Device span, busy time (union of the device intervals), event count
+    and device ms per unit of work by kernel class, from a finished trace."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(RUNTIME)]
     if not dev:
@@ -148,8 +230,37 @@ def profile_window(net, batches, table_path=None):
     if table_path:
         with open(table_path, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    return {"wall_ms": wall * 1e3, "dispatch_ms": t_dispatch * 1e3, "span_ms": span / 1e3, "busy_ms": busy / 1e3,
-            "n_events": len(dev), "per_class_ms": {k: v / 1e3 / len(batches) for k, v in per_class.items()}}
+    return {"wall_ms": wall * 1e3, "span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "n_events": len(dev), "per_class_ms": {k: v / 1e3 / n for k, v in per_class.items()}}
+
+
+def print_classes(per_class_ms, unit):
+    total = sum(per_class_ms.values())
+    for cls, ms in sorted(per_class_ms.items(), key=lambda kv: -kv[1]):
+        print(f"    {cls:<20} {ms:9.2f} ms/{unit} {100 * ms / total:6.1f}%")
+
+
+def main_train(args):
+    os.environ["MDT_STEM_PALLAS"] = args.stem
+    batches = slice_batches(args.chunks, "retina_unet_train")
+    print(f"training slice: retina_unet 3D 128x128x64 sf18 ef36, batch 2 x 4, remat, MDT_STEM_PALLAS={args.stem}")
+    for dtype in ("float32", "bfloat16"):
+        net = slice_net(dtype, model="retina_unet_train")
+        net.current_lr = 1e-4
+        train_steps(net, batches[:1])  # warm-up: cuDNN plans, kernel build and load
+        stages = train_stage_times(net, batches)
+        print(f"[{dtype}] CUDA-event stage ms per step of 8: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; device total {sum(stages.values()):.2f}")
+        print(f"[{dtype}] peak device memory, one step: {train_peak_memory_gib(net, batches[0]):.2f} GiB")
+        table = os.path.join(args.out_dir, f"profile_train_stem{args.stem}_{dtype}.txt") if args.out_dir else None
+        p = profile_train(net, batches, table)
+        print(f"[{dtype}] profiled {len(batches)} steps: host wall {p['wall_ms']:.1f} ms, device span "
+              f"{p['span_ms']:.1f} ms, busy {p['busy_ms']:.1f} ms, idle share {1 - p['busy_ms'] / p['span_ms']:.4f} "
+              f"(of host wall: {1 - p['busy_ms'] / p['wall_ms']:.4f}); device events {p['n_events']}")
+        print_classes(p["per_class_ms"], "step")
+        del net
+        torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -157,11 +268,16 @@ def main() -> int:
     ap.add_argument("--model", choices=("retina_unet", "mrcnn"), default="retina_unet")
     ap.add_argument("--chunks", type=int, default=3)
     ap.add_argument("--out-dir", default=None, help="where the profiler's kernel tables go")
+    ap.add_argument("--train", action="store_true", help="profile the training slice instead")
+    ap.add_argument("--stem", choices=("0", "1"), default="1", help="MDT_STEM_PALLAS for --train")
     args = ap.parse_args()
     card = setup_card()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off; model {args.model}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
+    if args.train:
+        print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
+        return main_train(args)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off; model {args.model}")
     batches = slice_batches(args.chunks, args.model)
     for dtype in ("float32", "bfloat16"):
         net = slice_net(dtype, model=args.model)
@@ -184,9 +300,7 @@ def main() -> int:
               f"(dispatch {p['dispatch_ms']:.1f} ms), device span {p['span_ms']:.1f} ms, busy {p['busy_ms']:.1f} ms, "
               f"idle share {idle:.4f} (of host wall: {1 - p['busy_ms'] / p['wall_ms']:.4f}); "
               f"device events {p['n_events']}; profiling took {time.perf_counter() - t0:.1f} s")
-        total = sum(p["per_class_ms"].values())
-        for cls, ms in sorted(p["per_class_ms"].items(), key=lambda kv: -kv[1]):
-            print(f"    {cls:<20} {ms:9.2f} ms/chunk {100 * ms / total:6.1f}%")
+        print_classes(p["per_class_ms"], "chunk")
         del net
         torch.cuda.empty_cache()
     return 0

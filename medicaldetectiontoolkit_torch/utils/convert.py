@@ -1,5 +1,5 @@
 """JAX param tree <-> the port's ``state_dict``, for the one-stage and
-two-stage detectors.
+two-stage detectors, and optax's Adam state <-> torch Adam's.
 
 The JAX tree is what ``Detector.state_dict()["params"]`` of the JAX package
 and its ``params.pkl`` hold: nested dicts of numpy arrays keyed by flax's
@@ -22,6 +22,11 @@ ConvND_0, Dense_0, Dense_1}``, ``mask/{ConvND_0..4, ConvTranspose_0}``,
     with a stacked leading axis, which is unstacked into the port's
     ``nn.Sequential``; "loop" trees number every ResBlock in order and are not
     stacked.
+
+optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; ``mu`` and ``nu``
+are trees shaped like the params) maps onto torch Adam's per-parameter
+``step``, ``exp_avg`` and ``exp_avg_sq`` through the same name map, so a
+JAX run stopped mid-way resumes in the port with its moments.
 
 The flax names inside an FPN follow module creation order in
 ``FPN.__call__`` (``backbone.py:596-661``): stems, stage ResBlocks, laterals
@@ -193,3 +198,38 @@ def torch_to_jax(state_dict, module, stage_mode: str = "unroll"):
     for full, per_idx in stacked.items():
         flat[full] = np.stack([per_idx[i] for i in range(len(per_idx))])
     return _unflatten(flat)
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside an optax chain's state (a tuple of
+    the chained transforms' states), recognised by its fields."""
+    for state in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+            return state
+    raise ValueError("the optimizer state holds no Adam state (count, mu, nu)")
+
+
+def jax_adam_to_torch(opt_state, module, optimizer):
+    """optax Adam state (as ``Detector.state_dict()["opt_state"]`` of the
+    JAX package holds it) -> a ``state_dict`` for ``optimizer``, a torch Adam
+    over ``module.parameters()``."""
+    adam = _adam_state(opt_state)
+    mu, nu = jax_to_torch(adam.mu, module), jax_to_torch(adam.nu, module)
+    step = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, (name, _) in enumerate(module.named_parameters())
+    }
+    return sd
+
+
+def torch_adam_to_jax(optimizer_state, module, stage_mode: str = "unroll"):
+    """A torch Adam ``state_dict`` over ``module.parameters()`` -> (count,
+    mu, nu): optax's ``ScaleByAdamState`` fields, numpy, the trees in the
+    layout of ``stage_mode``."""
+    state = optimizer_state["state"]
+    names = [name for name, _ in module.named_parameters()]
+    moments = [torch_to_jax({n: state[i][key] for i, n in enumerate(names)}, module, stage_mode)
+               for key in ("exp_avg", "exp_avg_sq")]
+    return np.int32(float(state[0]["step"])), moments[0], moments[1]

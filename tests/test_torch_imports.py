@@ -1,6 +1,7 @@
 """The port and ``chip_smoke.py`` import without jax, flax, optax, pandas,
 sklearn or matplotlib and without any module of the JAX package, running
-the one-stage and two-stage detectors loads none of them either, and
+the one-stage and two-stage detectors (a training step of the one-stage
+ones with the opt-in stem path included) loads none of them either, and
 ``chip_smoke.py`` refuses to run without a GPU."""
 
 import os
@@ -24,6 +25,11 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.ops.nms",
     "medicaldetectiontoolkit_torch.ops.nms_cuda",
     "medicaldetectiontoolkit_torch.ops.cuda_build",
+    "medicaldetectiontoolkit_torch.ops.losses",
+    "medicaldetectiontoolkit_torch.ops.matching",
+    "medicaldetectiontoolkit_torch.ops.stem_conv",
+    "medicaldetectiontoolkit_torch.ops.stem_conv_cuda",
+    "medicaldetectiontoolkit_torch.ops.topk",
     "medicaldetectiontoolkit_torch.ops.roi_align",
     "medicaldetectiontoolkit_torch.ops.roi_align_cuda",
     "medicaldetectiontoolkit_torch.models",
@@ -57,6 +63,13 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "    net = build_model(cf, None, device='cpu')\n"
         "    net.initialize(seed=0)\n"
         "    net.test_forward(make_batch(cf, seed=0), return_masks=True)\n"
+        "import os\n"
+        "os.environ['MDT_STEM_PALLAS'] = '1'\n"
+        "cf = make_config(model='retina_unet', dim=3, batch_size=2)\n"
+        "net = build_model(cf, None, device='cpu')\n"
+        "net.initialize(seed=0)\n"
+        "net.train_forward(make_batch(cf, seed=0))\n"
+        "assert net.module.fpn.stem0[0].stem_kernel\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
         "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"

@@ -55,6 +55,24 @@ def test_slice_config_is_the_bench_geometry():
     assert ttesting.make_slice_config().compute_dtype == "float32"
 
 
+def test_train_slice_config_is_the_bench_workload():
+    """``bench.py:161-177``: the slice geometry, 300 training anchors per
+    image, batch 8 as 2 x 4 accumulated, remat by the 3D default."""
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum, resolve_remat
+
+    cf = ttesting.make_train_slice_config("bfloat16")
+    base = ttesting.make_slice_config("bfloat16")
+    for k, v in vars(base).items():
+        if k not in ("rpn_train_anchors_per_image", "grad_accum_steps"):
+            assert _equal(getattr(cf, k), v), k
+    assert (cf.rpn_train_anchors_per_image, cf.batch_size, resolve_grad_accum(cf, cf.batch_size)) == (300, 8, 4)
+    assert resolve_remat(cf) and cf.compute_dtype == "bfloat16"
+    jcf = jtesting.make_config(model="retina_unet", dim=3, patch_size=[128, 128, 64], start_filts=18, end_filts=36,
+                               batch_size=8)
+    assert (jcf.anchor_matching_iou, jcf.shem_poolsize, jcf.max_gt_boxes, jcf.weight_decay) == (
+        cf.anchor_matching_iou, cf.shem_poolsize, cf.max_gt_boxes, cf.weight_decay)
+
+
 def test_mrcnn_slice_config_is_lidc_mrcnn_on_the_bench_geometry():
     """LIDC's 3D Mask R-CNN (``experiments/lidc_exp/configs.py:164-211``) on
     the bench patch: 74,880 positions x 3 anchors per patch."""
