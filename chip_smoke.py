@@ -12,13 +12,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   2. build the three kernel sources in parallel, one nvcc each: NMS
      (``csrc/nms.cu``), pyramid RoIAlign (``csrc/roi_align.cu``) and the stem
      conv's forward and weight gradient (``csrc/stem_conv.cu``);
-  3. NMS kernel vs plain PyTorch NMS on the card: bit-identical keep lists on
-     random, tied, all-invalid, ragged and slice-shaped cases (the Mask
-     R-CNN proposal shape included), with times;
+  3. NMS kernel vs plain PyTorch NMS on the card (the cases of
+     ``tools/time_nms.py``): bit-identical keep lists on random, tied,
+     all-invalid, ragged, sorted (ties across the walk's tiles) and
+     over-capacity lanes (the global scratch, sorted and unsorted), and at
+     the three main-path shapes, timed beside their bounds: Retina U-Net's
+     refinement (16 broadcast lanes x 50,000), Mask R-CNN's proposals
+     (8 x 6,000, 500 kept) and its refinement (16 broadcast lanes x 8,000,
+     unsorted); the launch alone (the kernels line's ``ms``) and the whole
+     wrapper (``wrapper_ms``);
   3b. RoIAlign kernel vs plain PyTorch pyramid RoIAlign on the card:
      bit-identical float32 crops in 2D and 3D, every level, crop 1, clamped
      and zero-size boxes, bf16 and f16 maps, ragged RoI counts, and the Mask
-     R-CNN slice's two shapes on the LIDC pyramid, with times;
+     R-CNN slice's shapes on the LIDC pyramid (4,000 RoIs; the mask pass's
+     240; 600, the classify-all pass's launch shape), with times and bounds;
   3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
      PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
      stem at LIDC width, odd Y/X, cin 2, bfloat16; K4 run twice must be
@@ -65,119 +72,17 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 
-# the H100's device-memory rate and peak arithmetic rates by operand type
-# (NVIDIA's data sheet, SXM, dense): the bounds below are the larger of bytes
-# over the memory rate and operations over the peak rate
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-
-
-def _bound(bytes_moved, ops, dtype="float32"):
-    """(bound ms, what bounds it) for moving ``bytes_moved`` and doing ``ops``."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back launches."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _nms_cases(np):
-    """(name, boxes (L,N,2d), scores (L,N), valid (L,N)|None, thresh, max_out,
-    pixel_offset, broadcast lanes, timed) from a numpy seed."""
-    rng = np.random.RandomState(0)
-
-    def boxes(L, n, dim, integer=False, extent=80.0, size=30.0):
-        lo = rng.rand(L, n, dim) * extent
-        hi = lo + rng.rand(L, n, dim) * size + 1.0
-        if integer:
-            lo, hi = np.round(lo), np.round(hi)
-        cols = [lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]]
-        if dim == 3:
-            cols += [lo[..., 2], hi[..., 2]]
-        return np.stack(cols, -1).astype(np.float32)
-
-    cases = []
-    cases.append(("random_2d", boxes(3, 1000, 2), rng.rand(3, 1000).astype(np.float32),
-                  rng.rand(3, 1000) < 0.8, 0.4, 50, 1.0, False, False))
-    cases.append(("random_3d", boxes(4, 3000, 3), rng.rand(4, 3000).astype(np.float32), None, 0.3, 40, 0.0, False,
-                  False))
-    tie_scores = (rng.randint(0, 10, (2, 2000)) / 10.0).astype(np.float32)
-    cases.append(("ties_int_3d_off1", boxes(2, 2000, 3, integer=True, extent=20, size=5), tie_scores,
-                  None, 0.1, 100, 1.0, False, False))
-    cases.append(("ties_int_2d_off0", boxes(2, 2000, 2, integer=True, extent=20, size=5), tie_scores,
-                  None, 0.1, 100, 0.0, False, False))
-    valid = rng.rand(3, 500) < 0.5
-    valid[1] = False
-    cases.append(("all_invalid_lane", boxes(3, 500, 3), rng.rand(3, 500).astype(np.float32), valid, 0.5, 20, 1.0,
-                  False, False))
-    cases.append(("n37", boxes(2, 37, 2), rng.rand(2, 37).astype(np.float32), None, 0.5, 10, 1.0, False, False))
-    cases.append(("max_output_gt_survivors", boxes(2, 20, 3, extent=5), rng.rand(2, 20).astype(np.float32), None,
-                  0.0, 64, 1.0, False, False))
-    # Mask R-CNN's proposal shape: 8 lanes of 6,000 unrounded pixel boxes
-    # each (not broadcast), descending scores, IoU 0.7, 500 keep slots
-    prop_scores = -np.sort(-rng.rand(8, 6000), axis=1).astype(np.float32)
-    cases.append(("proposals_8x6000_3d", boxes(8, 6000, 3, extent=120, size=24), prop_scores, None, 0.7, 500, 1.0,
-                  False, True))
-    # Retina U-Net's refine shape: 16 lanes (8 elements x 2 fg classes) over
-    # one broadcast array of 50,000 rounded boxes, descending scores with ties
-    n, lanes = 50000, 16
-    scores = np.sort((rng.rand(n) * 1000).round() / 1000.0)[::-1].astype(np.float32)
-    lane_of = rng.randint(0, lanes, n)
-    cases.append(("slice_16x50000_3d", boxes(1, n, 3, integer=True, extent=120, size=20), scores[None],
-                  lane_of[None, :] == np.arange(lanes)[:, None], 1e-5, 30, 1.0, True, True))
-    return cases
-
-
-def _check_nms(torch, np, nms_ops, nms_cuda):
+def _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms):
+    """Phase 3: every case of ``tools/time_nms.py`` bit-identical to the
+    plain version; the timed cases (the three main-path shapes) with their
+    bounds. Returns the kernels-line entry (Retina U-Net's shape; ``ms`` the
+    launch alone, ``wrapper_ms`` the whole call) and the timings of every
+    timed case."""
     print("== phase 3: NMS kernel vs plain PyTorch (bit-identical idx and mask)")
-    dev = torch.device("cuda")
-    slice_entry = None
-    for name, b, s, v, thr, max_out, off, broadcast, timed in _nms_cases(np):
-        L = v.shape[0] if v is not None else b.shape[0]
-        tb, ts = torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
-        if broadcast:
-            tb, ts = tb.expand(L, *tb.shape[1:]), ts.expand(L, ts.shape[1])
-        tv = torch.from_numpy(v).to(dev) if v is not None else None
-        args = (tb, ts, thr, max_out)
-        k_idx, k_mask = nms_cuda.batched_nms(*args, valid=tv, pixel_offset=off)
-        p_idx, p_mask = nms_ops.batched_nms(*args, valid=tv, pixel_offset=off)
-        torch.cuda.synchronize()
-        same = torch.equal(k_idx, p_idx) and torch.equal(k_mask, p_mask)
-        err = float((k_idx.long() - p_idx.long()).abs().max())
-        kept = int(k_mask.sum())
-        print(f"  {name}: L={L} N={tb.shape[1]} dim={tb.shape[-1] // 2} max_out={max_out} off={off} "
-              f"kept={kept} identical={same}")
-        if not same:
-            raise AssertionError(f"NMS kernel disagrees with plain PyTorch on {name}")
-        if timed:
-            k_ms = _cuda_ms(torch, lambda: nms_cuda.batched_nms(*args, valid=tv, pixel_offset=off))
-            p_ms = _cuda_ms(torch, lambda: nms_ops.batched_nms(*args, valid=tv, pixel_offset=off), iters=5)
-            print(f"  {name}: kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms (CUDA events)")
-            if broadcast:
-                # the least work this lane data needs: each lane's valid
-                # candidates, min(max_out, valid) select-and-suppress steps,
-                # each an IoU against the winner (9 operations per axis, 5
-                # for the union and the test) and an argmax compare; the
-                # broadcast boxes and scores read once
-                dim = tb.shape[-1] // 2
-                n_valid = tv.sum(1).long()
-                ops = int((n_valid * n_valid.clamp(max=max_out)).sum()) * (9 * dim + 6)
-                bound_ms, bound_by = _bound(b.nbytes + s.nbytes + v.nbytes + L * max_out * 5, ops)
-                print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
-                slice_entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "library_ms": None}
-    return slice_entry
+    timings = time_nms.check_cases(torch, np, common, nms_ops, nms_cuda, time_nms.nms_cases(np))
+    t = timings["slice_16x50000_3d"]
+    entry = {k: t[k] for k in ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+    return dict(entry, library_ms=None), timings
 
 
 def _pyramid(torch, rng, dim, B, C, sizes, dtype):
@@ -221,10 +126,12 @@ def _roi_cases(torch):
         ("lidc_mask_240_f32", 3, 8, 36, lidc, f32, 240, (14, 14, 5), True),
         ("lidc_classify_4000_bf16", 3, 8, 36, lidc, bf16, 4000, (7, 7, 3), False),
         ("lidc_mask_240_bf16", 3, 8, 36, lidc, bf16, 240, (14, 14, 5), False),
+        # the classify-all pass's launch shape: one chunk of 600 RoIs
+        ("lidc_classify_600_f32", 3, 8, 36, lidc, f32, 600, (7, 7, 3), True),
     ]
 
 
-def _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, cases):
+def _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, cases):
     print("== phase 3b: RoIAlign kernel vs plain PyTorch pyramid RoIAlign (bit-identical float32 crops)")
     rng = np.random.RandomState(1)
     entry, timings = None, {}
@@ -248,27 +155,27 @@ def _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, cases):
             # the kernel alone, on rows prepared once; then the whole wrapper
             # (the rows' PyTorch ops included) and the plain version
             _, launch_args = roi_align_cuda.prepare(*args)
-            k_ms = _cuda_ms(torch, lambda: roi_align_cuda.launch(launch_args))
-            w_ms = _cuda_ms(torch, lambda: roi_align_cuda.pyramid_roi_align(*args))
-            p_ms = _cuda_ms(torch, lambda: roi_ops.pyramid_roi_align(*args), iters=3, warmup=1)
+            k_ms = common.cuda_ms(lambda: roi_align_cuda.launch(launch_args))
+            w_ms = common.cuda_ms(lambda: roi_align_cuda.pyramid_roi_align(*args))
+            p_ms = common.cuda_ms(lambda: roi_ops.pyramid_roi_align(*args), iters=3, warmup=1)
             print(f"  {name}: kernel {k_ms:.4f} ms, wrapper with its index rows {w_ms:.4f} ms, "
                   f"plain PyTorch {p_ms:.4f} ms (CUDA events)")
-            timings[name] = (k_ms, w_ms, p_ms)
-            if entry is None:
-                bound_ms, bound_by = _roi_bound(torch, got, launch_args, fms, dim)
-                print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
-                entry = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None}
+            bound_ms, bound_by = common.bound(*_roi_work(torch, got, launch_args, fms, dim))
+            print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
+            timings[name] = (k_ms, w_ms, p_ms, bound_ms, bound_by)
+            if name == "lidc_classify_600_f32":  # the main path's launch shape
+                entry = {"max_abs_err": err, "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         del fms, got, want
         torch.cuda.empty_cache()
     return entry, timings
 
 
-def _roi_bound(torch, out, launch_args, fms, dim):
-    """K2's bound on this call's data: the float32 output written, the map
-    voxels its corners touch read once (counted exactly from the index rows),
-    the boxes' indices; three operations per lerp (7 lerps a 3D sample, 3 in
-    2D)."""
+def _roi_work(torch, out, launch_args, fms, dim):
+    """(bytes, float32 operations) of K2 on this call's data: the float32
+    output written, the map voxels its corners touch read once (counted
+    exactly from the index rows), the boxes' indices; three operations per
+    lerp (7 lerps a 3D sample, 3 in 2D)."""
     levels_idx, box_idx, rows = launch_args[0][1], launch_args[0][2], launch_args[0][3]
     B, C, *sizes = fms[0].shape
     key = (levels_idx.long() * B + box_idx.long()).view(-1, *([1] * (2 * dim)))
@@ -279,7 +186,7 @@ def _roi_bound(torch, out, launch_args, fms, dim):
         key = key * sizes[ax] + corners.view(shape)
     voxels = torch.unique(key).numel()
     bytes_moved = out.numel() * 4 + voxels * C * fms[0].element_size() + levels_idx.numel() * (2 * dim * 4 + 8)
-    return _bound(bytes_moved, out.numel() * (7 if dim == 3 else 3) * 3)
+    return bytes_moved, out.numel() * (7 if dim == 3 else 3) * 3
 
 
 def _stem_cases(torch):
@@ -296,7 +203,7 @@ def _stem_cases(torch):
     ]
 
 
-def _check_stem(torch, np, stem_conv, stem_conv_cuda, cases):
+def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
     """K3 and K4 against their plain versions. Tolerances, relative to the
     plain version's max |value|: K3 float32 1e-5 and K4 1e-5 (float32 sums of
     the same products in another order; K4's over up to 2 M positions);
@@ -330,16 +237,18 @@ def _check_stem(torch, np, stem_conv, stem_conv_cuda, cases):
         if timed:
             item = x.element_size()
             ops = 2 * out.numel() * cin * k**3
-            k3 = {"ms": _cuda_ms(torch, lambda: stem_conv_cuda.stem_conv3d(x, w, b, sy, sx)),
-                  "plain_ms": _cuda_ms(torch, lambda: stem_conv.stem_conv3d_reference(x, w, b, sy, sx), 3, 1),
-                  "library_ms": _cuda_ms(torch, lambda: F.conv3d(x, w, b, (sy, sx, 1), k // 2))}
-            k4 = {"ms": _cuda_ms(torch, lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)),
-                  "plain_ms": _cuda_ms(torch, lambda: stem_conv.stem_wgrad_reference(x, g, k, sy, sx), 3, 1),
-                  "library_ms": _cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            ms = common.cuda_ms
+            k3 = {"ms": ms(lambda: stem_conv_cuda.stem_conv3d(x, w, b, sy, sx)),
+                  "plain_ms": ms(lambda: stem_conv.stem_conv3d_reference(x, w, b, sy, sx), 3, 1),
+                  "library_ms": ms(lambda: F.conv3d(x, w, b, (sy, sx, 1), k // 2))}
+            k4 = {"ms": ms(lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)),
+                  "plain_ms": ms(lambda: stem_conv.stem_wgrad_reference(x, g, k, sy, sx), 3, 1),
+                  "library_ms": ms(lambda: torch.nn.grad.conv3d_weight(
                       x, w.shape, g, (sy, sx, 1), k // 2), 3, 1)}
             dt = "float32" if dtype == torch.float32 else "bfloat16"
-            k3["bound_ms"], k3["bound_by"] = _bound((x.numel() + w.numel() + b.numel() + out.numel()) * item, ops, dt)
-            k4["bound_ms"], k4["bound_by"] = _bound((x.numel() + g.numel()) * item + dw.numel() * 4, ops, dt)
+            k3["bound_ms"], k3["bound_by"] = common.bound((x.numel() + w.numel() + b.numel() + out.numel()) * item,
+                                                          ops, dt)
+            k4["bound_ms"], k4["bound_by"] = common.bound((x.numel() + g.numel()) * item + dw.numel() * 4, ops, dt)
             for kname, t in (("K3", k3), ("K4", k4)):
                 print(f"  {name} {kname}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                       f"{t['library_ms']:.4f} ms ({'F.conv3d' if kname == 'K3' else 'conv3d_weight'}), bound "
@@ -707,6 +616,7 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
+    from medicaldetectiontoolkit_torch.tools import time_nms
 
     t_start = time.perf_counter()
     print("== phase 1: device")
@@ -730,9 +640,10 @@ def main() -> int:
         if log.exists():
             print("  " + log.read_text().strip().replace("\n", "\n  "))
 
-    nms_entry = _check_nms(torch, np, nms_ops, nms_cuda)
-    roi_entry, roi_times = _check_roi_align(torch, np, roi_ops, roi_align_cuda, roi_levels, _roi_cases(torch))
-    stem_entries, stem_times = _check_stem(torch, np, stem_conv, stem_conv_cuda, _stem_cases(torch))
+    nms_entry, nms_times = _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms)
+    roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels,
+                                            _roi_cases(torch))
+    stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, _stem_cases(torch))
 
     batches = common.slice_batches(3)
     runs = {}
@@ -770,8 +681,12 @@ def main() -> int:
         print(f"  retina_unet {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
     for dtype, r in mruns.items():
         print(f"  mrcnn {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
-    for case, (k_ms, w_ms, p_ms) in roi_times.items():
-        print(f"  roi_align {case}: kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms")
+    for case, t in nms_times.items():
+        print(f"  nms {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    for case, (k_ms, w_ms, p_ms, bound_ms, bound_by) in roi_times.items():
+        print(f"  roi_align {case}: kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
     for case, timed in stem_times.items():
         for kname, t in zip(("K3", "K4"), timed):
             print(f"  stem {kname} {case}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "

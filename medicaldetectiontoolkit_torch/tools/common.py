@@ -1,6 +1,7 @@
 """Helpers shared by the measurement scripts: the card's identity, float32
-precision switches, the served slices and the training slice, one pipelined
-window of chunks, and timed training steps."""
+precision switches, device timers, the least time of a piece of work on the
+card, the served slices and the training slice, one pipelined window of
+chunks, and timed training steps."""
 
 from __future__ import annotations
 
@@ -12,6 +13,12 @@ import torch
 from medicaldetectiontoolkit_torch.models import build_model
 from medicaldetectiontoolkit_torch.testing import (make_batch, make_mrcnn_slice_config, make_slice_config,
                                                    make_train_slice_config)
+
+# the H100's device-memory rate and peak arithmetic rates by operand type
+# (NVIDIA's data sheet, SXM, dense): a bound is the larger of bytes over the
+# memory rate and operations over the peak rate
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 # the served slices: 3D Retina U-Net and 3D Mask R-CNN at LIDC width, batch
 # 8; and the training slice: 3D Retina U-Net at LIDC width, batch 2 x 4
@@ -41,6 +48,59 @@ def setup_card() -> str:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return card_line()
+
+
+def bound(bytes_moved, ops, dtype="float32"):
+    """(bound ms, what bounds it) for moving ``bytes_moved`` and doing ``ops``
+    operations of ``dtype`` on the card."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls
+    (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20, warmup=3):
+    """Mean host time of ``fn`` in ms over ``iters`` calls issued back to
+    back, the device left running; then a synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
+def profiled_kernel_ms(fn, kernel, iters=20):
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    from ``torch.profiler`` over ``iters`` calls of ``fn``; None if the trace
+    holds no such launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def slice_net(compute_dtype: str, seed: int = 0, model: str = "retina_unet"):

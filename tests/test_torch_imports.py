@@ -43,6 +43,8 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.tools.common",
     "medicaldetectiontoolkit_torch.tools.profile_slice",
     "medicaldetectiontoolkit_torch.tools.ab_nms",
+    "medicaldetectiontoolkit_torch.tools.time_nms",
+    "medicaldetectiontoolkit_torch.tools.time_paths",
     "chip_smoke",
 ]
 
