@@ -21,11 +21,17 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      (8 x 6,000, 500 kept) and its refinement (16 broadcast lanes x 8,000,
      unsorted); the launch alone (the kernels line's ``ms``) and the whole
      wrapper (``wrapper_ms``);
-  3b. RoIAlign kernel vs plain PyTorch pyramid RoIAlign on the card:
-     bit-identical float32 crops in 2D and 3D, every level, crop 1, clamped
-     and zero-size boxes, bf16 and f16 maps, ragged RoI counts, and the Mask
-     R-CNN slice's shapes on the LIDC pyramid (4,000 RoIs; the mask pass's
-     240; 600, the classify-all pass's launch shape), with times and bounds;
+  3b. RoIAlign kernel vs plain PyTorch pyramid RoIAlign on the card (the
+     cases of ``tools/time_roi_align.py``): first a probe that the card
+     computes ``t / crop`` as the kernel's ``scale`` does (a product with the
+     reciprocal); then bit-identical float32 crops in 2D and 3D, every level,
+     crop 1, clamped and zero-size boxes, bf16 and f16 maps, ragged RoI
+     counts, boxes on which division and the reciprocal differ and boxes on
+     the integer lattice (ending on S - 1), level indices -1 and n_levels,
+     strided maps (channels-last, sliced), 20,000 RoIs (past one wave of
+     blocks), and the Mask R-CNN slice's shapes on the LIDC pyramid (600 RoIs,
+     the classify-all pass's launch shape; 4,000 in f32 and bf16; the mask
+     pass's 240), with times and bounds;
   3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
      PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
      stem at LIDC width, odd Y/X, cin 2, bfloat16; K4 run twice must be
@@ -85,108 +91,23 @@ def _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms):
     return dict(entry, library_ms=None), timings
 
 
-def _pyramid(torch, rng, dim, B, C, sizes, dtype):
-    """One random channel-first map (B, C, *size) per level on the card."""
-    return [torch.from_numpy(rng.randn(B, C, *s).astype("float32")).cuda().to(dtype) for s in sizes]
-
-
-def _roi_boxes(np, rng, dim, R, edge=True):
-    """R normalised boxes whose sizes span every FPN level, plus clamped
-    (beyond [0, 1]) and zero-size boxes."""
-    side = np.exp(rng.uniform(np.log(0.02), np.log(0.9), (R, dim)))
-    lo = rng.rand(R, dim) * (1 - side)
-    hi = lo + side
-    cols = [lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]] + ([lo[:, 2], hi[:, 2]] if dim == 3 else [])
-    boxes = np.stack(cols, -1).astype(np.float32)
-    if edge:
-        rows = [[-0.2, -0.3, 1.4, 1.2], [0.9, 0.9, 1.1, 1.3], [0.5, 0.5, 0.5, 0.5], [0.3, 0.7, 0.3, 0.9]]
-        z = [[-0.5, 1.5], [0.8, 1.2], [0.5, 0.5], [0.2, 0.2]]
-        extra = np.array([r + zz for r, zz in zip(rows, z)] if dim == 3 else rows, np.float32)
-        boxes = np.concatenate([boxes[: R - len(extra)], extra])
-    return boxes
-
-
-def _roi_cases(torch):
-    """(name, dim, B, C, level sizes, map dtype, R, crop, timed)."""
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    lidc = [(32, 32, 64), (16, 16, 32), (8, 8, 16), (4, 4, 8)]  # P2..P5 of the 128x128x64 patch
-    small3 = [(16, 16, 8), (8, 8, 4), (4, 4, 2), (2, 2, 1)]
-    small2 = [(32, 32), (16, 16), (8, 8), (4, 4)]
-    return [
-        ("2d_every_level", 2, 2, 5, small2, f32, 53, (7, 7), False),
-        ("2d_crop1", 2, 2, 5, small2, f32, 37, (1, 1), False),
-        ("2d_bf16", 2, 2, 5, small2, bf16, 41, (7, 7), False),
-        ("3d_every_level", 3, 3, 6, small3, f32, 61, (7, 7, 3), False),
-        ("3d_crop1", 3, 3, 6, small3, f32, 29, (1, 1, 1), False),
-        ("3d_crop_z1", 3, 3, 6, small3, f32, 29, (4, 4, 1), False),
-        ("3d_bf16", 3, 3, 6, small3, bf16, 67, (14, 14, 5), False),
-        ("3d_f16", 3, 3, 6, small3, f16, 67, (7, 7, 3), False),
-        ("3d_r1", 3, 3, 6, small3, f32, 1, (7, 7, 3), False),
-        ("lidc_classify_4000_f32", 3, 8, 36, lidc, f32, 4000, (7, 7, 3), True),
-        ("lidc_mask_240_f32", 3, 8, 36, lidc, f32, 240, (14, 14, 5), True),
-        ("lidc_classify_4000_bf16", 3, 8, 36, lidc, bf16, 4000, (7, 7, 3), False),
-        ("lidc_mask_240_bf16", 3, 8, 36, lidc, bf16, 240, (14, 14, 5), False),
-        # the classify-all pass's launch shape: one chunk of 600 RoIs
-        ("lidc_classify_600_f32", 3, 8, 36, lidc, f32, 600, (7, 7, 3), True),
-    ]
-
-
-def _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, cases):
+def _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align):
+    """Phase 3b: how the card divides by a Python number (the kernel copies
+    that form of ``scale``), then every case of ``tools/time_roi_align.py``
+    bit-identical to the plain version; the timed cases (600 and 4,000 RoIs
+    to (7,7,3), f32 and bf16; the mask pass's 240 to (14,14,5)) with their
+    bounds. Returns the kernels-line entry (the 600-RoI launch shape; ``ms``
+    the launch alone, ``wrapper_ms`` the whole call) and the timings."""
     print("== phase 3b: RoIAlign kernel vs plain PyTorch pyramid RoIAlign (bit-identical float32 crops)")
-    rng = np.random.RandomState(1)
-    entry, timings = None, {}
-    for name, dim, B, C, sizes, dtype, R, crop, timed in cases:
-        fms = _pyramid(torch, rng, dim, B, C, [s[:dim] for s in sizes], dtype)
-        boxes = torch.from_numpy(_roi_boxes(np, rng, dim, R, edge=R > 8)).cuda()
-        bix = torch.from_numpy(rng.randint(0, B, R).astype(np.int32)).cuda()
-        lvl = roi_levels(boxes, (0, 1, 2, 3))
-        args = (fms, boxes, bix, lvl, crop)
-        got = roi_align_cuda.pyramid_roi_align(*args)
-        want = roi_ops.pyramid_roi_align(*args)
-        torch.cuda.synchronize()
-        counts = torch.bincount(lvl.long(), minlength=4).tolist()
-        same = got.dtype == want.dtype == torch.float32 and got.shape == want.shape and torch.equal(got, want)
-        err = float((got - want).abs().max())
-        print(f"  {name}: R={R} crop={crop} C={C} maps {str(dtype)[6:]} RoIs per level {counts} "
-              f"max|err|={err:.3e} identical={same}")
-        if not same:
-            raise AssertionError(f"RoIAlign kernel disagrees with plain PyTorch on {name}")
-        if timed:
-            # the kernel alone, on rows prepared once; then the whole wrapper
-            # (the rows' PyTorch ops included) and the plain version
-            _, launch_args = roi_align_cuda.prepare(*args)
-            k_ms = common.cuda_ms(lambda: roi_align_cuda.launch(launch_args))
-            w_ms = common.cuda_ms(lambda: roi_align_cuda.pyramid_roi_align(*args))
-            p_ms = common.cuda_ms(lambda: roi_ops.pyramid_roi_align(*args), iters=3, warmup=1)
-            print(f"  {name}: kernel {k_ms:.4f} ms, wrapper with its index rows {w_ms:.4f} ms, "
-                  f"plain PyTorch {p_ms:.4f} ms (CUDA events)")
-            bound_ms, bound_by = common.bound(*_roi_work(torch, got, launch_args, fms, dim))
-            print(f"  {name}: bound {bound_ms:.4f} ms ({bound_by})")
-            timings[name] = (k_ms, w_ms, p_ms, bound_ms, bound_by)
-            if name == "lidc_classify_600_f32":  # the main path's launch shape
-                entry = {"max_abs_err": err, "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        del fms, got, want
-        torch.cuda.empty_cache()
-    return entry, timings
-
-
-def _roi_work(torch, out, launch_args, fms, dim):
-    """(bytes, float32 operations) of K2 on this call's data: the float32
-    output written, the map voxels its corners touch read once (counted
-    exactly from the index rows), the boxes' indices; three operations per
-    lerp (7 lerps a 3D sample, 3 in 2D)."""
-    levels_idx, box_idx, rows = launch_args[0][1], launch_args[0][2], launch_args[0][3]
-    B, C, *sizes = fms[0].shape
-    key = (levels_idx.long() * B + box_idx.long()).view(-1, *([1] * (2 * dim)))
-    for ax in range(dim):
-        corners = torch.stack([rows[3 * ax], rows[3 * ax + 1]], -1).long()  # (R, crop_ax, 2)
-        shape = [corners.shape[0]] + [1] * dim + [1] * dim
-        shape[1 + ax], shape[1 + dim + ax] = corners.shape[1], 2
-        key = key * sizes[ax] + corners.view(shape)
-    voxels = torch.unique(key).numel()
-    bytes_moved = out.numel() * 4 + voxels * C * fms[0].element_size() + levels_idx.numel() * (2 * dim * 4 + 8)
-    return bytes_moved, out.numel() * (7 if dim == 3 else 3) * 3
+    form = time_roi_align.division_probe(torch, np, roi_ops, roi_align_cuda)
+    if form != ("reciprocal" if roi_align_cuda.SCALE_BY_RECIPROCAL else "division"):
+        raise AssertionError(f"the card computes t / crop as {form}; the kernel's scale assumes "
+                             f"SCALE_BY_RECIPROCAL={roi_align_cuda.SCALE_BY_RECIPROCAL}")
+    timings = time_roi_align.check_cases(torch, np, common, roi_ops, roi_align_cuda, roi_levels,
+                                         time_roi_align.roi_cases(torch))
+    t = timings["lidc_classify_600_f32"]
+    entry = {k: t[k] for k in ("max_abs_err", "ms", "wrapper_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
+    return dict(entry, library_ms=None), timings
 
 
 def _stem_cases(torch):
@@ -616,7 +537,7 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
-    from medicaldetectiontoolkit_torch.tools import time_nms
+    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align
 
     t_start = time.perf_counter()
     print("== phase 1: device")
@@ -641,8 +562,7 @@ def main() -> int:
             print("  " + log.read_text().strip().replace("\n", "\n  "))
 
     nms_entry, nms_times = _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms)
-    roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels,
-                                            _roi_cases(torch))
+    roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align)
     stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, _stem_cases(torch))
 
     batches = common.slice_batches(3)
@@ -684,9 +604,9 @@ def main() -> int:
     for case, t in nms_times.items():
         print(f"  nms {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
-    for case, (k_ms, w_ms, p_ms, bound_ms, bound_by) in roi_times.items():
-        print(f"  roi_align {case}: kernel {k_ms:.4f} ms, wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+    for case, t in roi_times.items():
+        print(f"  roi_align {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms (host "
+              f"{t['host_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     for case, timed in stem_times.items():
         for kname, t in zip(("K3", "K4"), timed):
             print(f"  stem {kname} {case}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "

@@ -4,35 +4,75 @@
 // Replaces the Pallas TPU kernel medicaldetectiontoolkit_tpu/ops/
 // roi_align_pallas.py::pyramid_roi_align_pallas (launch _pyramid_call, body
 // _pyramid_kernel_factory). Same contract: every RoI reads only from its
-// assigned pyramid level; the per-axis (idx0, idx1, lerp) rows on that
-// level's grid come from the wrapper, computed by the same PyTorch helper as
-// the plain version (ops/roi_align.py::_level_axis_indices), so both see the
-// same indices and weights.
+// assigned pyramid level, and the function includes the per-axis
+// (idx0, idx1, lerp) rows on that level's grid (_level_axis_indices there,
+// ops/roi_align.py::_level_axis_indices in the port). The kernel takes the
+// boxes, the level and batch indices and each level's extents, and computes
+// the rows itself, in the float32 steps of ops/roi_align.py::_axis_coords and
+// _lerp_weights:
+//   scale = ((hi - lo) * S) * (1 / crop);
+//   coord = ((lo * S + i * scale) + scale * 0.5) - 0.5, or for crop 1
+//   (0.5 * (lo + hi)) * S; clamped to [0, S - 1];
+//   idx0 = floor(coord), lerp = coord - idx0, idx1 = min(idx0 + 1, S - 1).
+// The product with the float32 reciprocal of crop, and not a division, is
+// what PyTorch computes on the card: ATen's CUDA true division of a tensor by
+// a Python number multiplies by the number's reciprocal (div_true_kernel_cuda,
+// "compute a * reciprocal(b)"), while the CPU, and JAX, divide. For crop 7 the
+// two differ in the last bit for about half of all float32 inputs; the kernel
+// is held bit for bit against the plain version on the card, so it copies the
+// card's form (tools/time_roi_align.py probes it: on an H100 with torch
+// 2.11, every float32 value where the two forms differ came out as the
+// product; its division-adversarial cases are bit-identical). Every step is
+// an explicit _rn intrinsic and the build passes -fmad=false: no
+// multiply-add is contracted.
 //
 // A level index outside [0, n_levels) yields zeros, as the plain version's
 // masked sum over the levels does (JAX's P6 override can produce one).
 //
-// Design: one thread per output element of (R, C, ch, cw, (cz)), the layout
-// the classifier and mask convs take, in a grid-stride loop. A thread reads
-// its RoI's level, batch element and axis rows, gathers the 4 (2D) or 8 (3D)
-// corners straight from that level's channel-first map (a pointer, extents
-// and element strides per level, passed by value as a __grid_constant__
-// struct: no stacked or channels-last copy of the pyramid), converts bf16 and
-// f16 on load, and lerps y, then x, then z: the association of the plain
-// version (ops/roi_align.py, roi_align.py:89-95 and :110-127 in JAX). Built
-// with -fmad=false, each a*(1-l) + b*l rounds as PyTorch's separate mul,
-// mul and add do, so the output is bit-identical to the plain version.
-// Neighbouring threads take neighbouring z (then x) cells of one channel, so
-// a warp's loads fall on a few short runs of one map row.
+// Design: one block of 256 threads per RoI, in a loop over the RoIs with 4
+// blocks on each of the 132 SMs; each RoI fetches the next one's level,
+// batch element and box while it works.
+//  1. Warp a computes axis a's rows, one lane per output cell, and reduces
+//     the smallest idx0 and the largest idx1 of the axis. If that range holds
+//     at most 2 * crop indices, the axis's slab slots are the range;
+//     otherwise they are the 2 * crop corner indices themselves. A table maps
+//     each slot to its in-plane element offset (index * stride).
+//  2. The block copies the RoI's slab, slots_y x slots_x x slots_z per
+//     channel, for as many channels as fit in 40 KB of shared memory (all 36
+//     at the LIDC shapes), from the channel-first map (read in place through
+//     its strides, any layout), converting bf16 and f16 to float32. Threads
+//     walk the slab in slot order with z fastest, kLoadBatch loads in flight
+//     each before their stores, so a warp's loads fall on a few map rows and
+//     each line of the map is fetched once per block.
+//  3. A thread per output column (c, oy, ox) loads its y and x rows once and
+//     evaluates the column's cz outputs from the slab, each as
+//     lerp_z(lerp_x(lerp_y(corners))): for each z corner, y at the two x
+//     corners, then x; then z. That is the plain version's association
+//     (ops/roi_align.py, roi_align.py:89-95 and :110-127 in JAX) on the same
+//     operands, so the output is bit-identical. The z loop is unrolled for
+//     cz = 3 (the classifier's crop). A column's outputs are contiguous in
+//     out and a warp's 32 columns one contiguous run, written float by
+//     float (a 16-byte store would need 4 outputs of one column).
+// The slab and column walks advance by fixed strides with carries: no
+// division per element.
 //
-// What bounds it: device-memory traffic. At the classify-all shape (600 RoIs
-// per call, crop 7x7x3, 36 channels) it writes 18 MB and reads at most 8
-// corners per output, most of them from L2 because the corners of
-// neighbouring cells overlap; the plain version instead materialises
-// (R, ch, W_l, Z_l, C) row tensors for every level (about 1.2 GB each at P2
-// per 600 RoIs). Each thread decomposes its output index with 32-bit
-// divisions and loads its RoI's 11 index and weight values itself; one block
-// per RoI with those rows in shared memory is later work.
+// What bounds it (NVIDIA H100, 700 W; tools/time_roi_align.py): the
+// evaluation, 8 shared loads and 21 float operations per output, then the
+// slab copy's gather (runs of 12-24 bytes scattered over device memory) and
+// the three barriers per RoI: 0.022 ms at 600 RoIs to (7,7,3) x 36, 0.107
+// at 4,000, about 4 times the bound. The whole-card bound is the float32
+// output written once (12.7 MB per 600-RoI call: 3.8 us at 3.35 TB/s) plus
+// the map voxels the corners touch. The previous design (one thread per
+// output, rows from global memory, 0.047 and 0.285 ms) was, by a count of
+// its accesses, bound by L1 lookups: a warp's 32 outputs span about 11 map
+// rows, and each of its 8 corner loads touched as many lines.
+//
+// Limits (the wrapper checks them): each crop axis at most kMaxCrop; the
+// slab of one channel at its largest (2 crop slots per axis, the innermost
+// padded to an odd count) at most kSlabFloats; each level's largest in-plane
+// offset below 2^31; the output below kMaxOutputs elements.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -42,94 +82,252 @@
 // ops/roi_align_cuda.py::_Level)
 struct Level {
   const void* data;
-  long long sb, sc, sy, sx, sz;  // element strides of (B, C, H, W, (Z))
+  long long sb, sc;  // element strides of B and C
+  int size[3];       // extents (H, W, (Z)); Z = 1 in 2D
+  int stride[3];     // element strides of (H, W, (Z)); 0 where the extent is 1
 };
 
 namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr long long kMaxOutputs = 1LL << 30;  // 32-bit indexing with room for the grid stride
+constexpr int kSms = 132;
+constexpr int kBlocksPerSm = 4;
+constexpr int kMaxCrop = 64;
+constexpr int kSlabFloats = 10240;  // 40 KB of dynamic shared memory
+constexpr int kLoadBatch = 8;       // slab loads in flight per thread
+constexpr long long kMaxOutputs = 1LL << 30;  // 32-bit output indices
 
 struct Levels {
   Level l[kMaxLevels];
 };
 
-__device__ __forceinline__ float load(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
 __device__ __forceinline__ float load(const __half* p, long long i) { return __half2float(p[i]); }
 
-__device__ __forceinline__ float lerp(float a, float b, float w) { return a * (1.0f - w) + b * w; }
+// a * (1 - w) + b * w as PyTorch's separate multiplies and add round it
+__device__ __forceinline__ float lerp(float a, float b, int4 e) {
+  return __fadd_rn(__fmul_rn(a, __int_as_float(e.w)), __fmul_rn(b, __int_as_float(e.z)));
+}
 
-template <typename T, int DIM>
-__global__ void __launch_bounds__(kThreads) pyramid_roi_align_kernel(
-    const __grid_constant__ Levels lv, const int* __restrict__ level_idx, const int* __restrict__ box_idx,
-    const int* __restrict__ y0, const int* __restrict__ y1, const float* __restrict__ ly,
-    const int* __restrict__ x0, const int* __restrict__ x1, const float* __restrict__ lx,
-    const int* __restrict__ z0, const int* __restrict__ z1, const float* __restrict__ lz,
-    int n_levels, int n_rois, int channels, int ch, int cw, int cz, float* __restrict__ out) {
-  // 32-bit index arithmetic: the launcher caps the output below 2**30
-  // elements (64-bit division is emulated in many instructions)
-  const int total = n_rois * channels * ch * cw * cz;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    int t = i;
-    const int oz = t % cz;
-    t /= cz;
-    const int ox = t % cw;
-    t /= cw;
-    const int oy = t % ch;
-    t /= ch;
-    const int c = t % channels;
-    const int r = t / channels;
+// a position in a walk over (c, y, x, z), z fastest, and a fixed stride
+// decomposed in the same radix; advance() adds the stride with carries
+struct Walk {
+  int c, y, x, z;
+};
 
-    const int level = level_idx[r];
+__device__ __forceinline__ Walk decompose(int i, int ny, int nx, int nz) {
+  Walk w;
+  w.z = i % nz;
+  i /= nz;
+  w.x = i % nx;
+  i /= nx;
+  w.y = i % ny;
+  w.c = i / ny;
+  return w;
+}
+
+__device__ __forceinline__ void advance(Walk& w, const Walk& d, int ny, int nx, int nz) {
+  w.z += d.z;
+  int k = w.z >= nz;
+  w.z -= k ? nz : 0;
+  w.x += d.x + k;
+  k = w.x >= nx;
+  w.x -= k ? nx : 0;
+  w.y += d.y + k;
+  k = w.y >= ny;
+  w.y -= k ? ny : 0;
+  w.c += d.c + k;
+}
+
+// CZ: the z crop as a compile-time count (3), or 0 for cz at run time
+template <typename T, int DIM, int CZ>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) pyramid_roi_align_kernel(
+    const __grid_constant__ Levels lv, const float* __restrict__ boxes, const int* __restrict__ box_idx,
+    const int* __restrict__ level_idx, int n_levels, int n_rois, int channels, int ch, int cw, int cz,
+    float* __restrict__ out) {
+  extern __shared__ float slab[];
+  // per axis and output cell: slab offsets of idx0 and idx1, lerp, 1 - lerp
+  __shared__ int4 rows[3][kMaxCrop];
+  __shared__ int table[3][2 * kMaxCrop];  // slab slot -> in-plane element offset
+  __shared__ int n_slots[3];
+
+  const int crop[3] = {ch, cw, cz};
+  const int P = ch * cw * cz;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the output walk over columns (c, oy, ox): kThreads columns apart
+  const Walk col_start = decompose(tid, ch, cw, 1);
+  const Walk col_step = decompose(kThreads, ch, cw, 1);
+  // the block's first RoI's level, batch element and (warps < DIM) box
+  // edges; each RoI then fetches the next one's while it works
+  const int ax_lo = warp == 2 ? 4 : warp, ax_hi = warp == 2 ? 5 : warp + 2;
+  int next_level = 0, next_b = 0;
+  float next_lo = 0.0f, next_hi = 0.0f;
+  if (blockIdx.x < n_rois) {
+    next_level = level_idx[blockIdx.x];
+    next_b = box_idx[blockIdx.x];
+    if (warp < DIM) {
+      next_lo = boxes[blockIdx.x * 2 * DIM + ax_lo];
+      next_hi = boxes[blockIdx.x * 2 * DIM + ax_hi];
+    }
+  }
+
+  for (int r = blockIdx.x; r < n_rois; r += gridDim.x) {
+    const int level = next_level, b = next_b;
+    const float lo = next_lo, hi = next_hi;
+    if (r + gridDim.x < n_rois) {
+      const int rn = r + gridDim.x;
+      next_level = level_idx[rn];
+      next_b = box_idx[rn];
+      if (warp < DIM) {
+        next_lo = boxes[rn * 2 * DIM + ax_lo];
+        next_hi = boxes[rn * 2 * DIM + ax_hi];
+      }
+    }
+    float* const out_r = out + r * channels * P;
     if (level < 0 || level >= n_levels) {  // no level: zeros, as the plain version's masked sum
-      out[i] = 0.0f;
+      for (int j = tid; j < channels * P; j += kThreads) out_r[j] = 0.0f;
       continue;
     }
     const Level& L = lv.l[level];
-    const T* base = static_cast<const T*>(L.data) + box_idx[r] * L.sb + static_cast<long long>(c) * L.sc;
-    const int ry = r * ch + oy;
-    const int rx = r * cw + ox;
-    const long long oy0 = y0[ry] * L.sy, oy1 = y1[ry] * L.sy;
-    const long long ox0 = x0[rx] * L.sx, ox1 = x1[rx] * L.sx;
-    const float wy = ly[ry], wx = lx[rx];
-    if (DIM == 2) {
-      const float c0 = lerp(load(base, oy0 + ox0), load(base, oy1 + ox0), wy);
-      const float c1 = lerp(load(base, oy0 + ox1), load(base, oy1 + ox1), wy);
-      out[i] = lerp(c0, c1, wx);
-    } else {
-      const int rz = r * cz + oz;
-      const long long oz0 = z0[rz] * L.sz, oz1 = z1[rz] * L.sz;
-      const float wz = lz[rz];
-      float col[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const long long zo = k ? oz1 : oz0;
-        const float c0 = lerp(load(base, oy0 + ox0 + zo), load(base, oy1 + ox0 + zo), wy);
-        const float c1 = lerp(load(base, oy0 + ox1 + zo), load(base, oy1 + ox1 + zo), wy);
-        col[k] = lerp(c0, c1, wx);
+
+    // 1. rows: warp a computes axis a (columns (y1, x1, y2, x2, z1, z2))
+    if (warp < DIM) {
+      const int a = warp, n = crop[a], S = L.size[a];
+      const float Sf = static_cast<float>(S);
+      int lo_idx = INT_MAX, hi_idx = INT_MIN;
+      for (int i = lane; i < n; i += 32) {
+        float coord;
+        if (n > 1) {
+          const float scale = __fmul_rn(__fmul_rn(__fsub_rn(hi, lo), Sf), __frcp_rn(static_cast<float>(n)));
+          coord = __fsub_rn(
+              __fadd_rn(__fadd_rn(__fmul_rn(lo, Sf), __fmul_rn(static_cast<float>(i), scale)), __fmul_rn(scale, 0.5f)),
+              0.5f);
+        } else {
+          coord = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(lo, hi)), Sf);
+        }
+        coord = fminf(fmaxf(coord, 0.0f), Sf - 1.0f);
+        const float f = floorf(coord);
+        const int i0 = static_cast<int>(f);
+        const int i1 = min(i0 + 1, S - 1);
+        const float w = __fsub_rn(coord, f);
+        rows[a][i] = make_int4(i0, i1, __float_as_int(w), __float_as_int(__fsub_rn(1.0f, w)));
+        lo_idx = min(lo_idx, i0);
+        hi_idx = max(hi_idx, i1);
       }
-      out[i] = lerp(col[0], col[1], wz);
+      lo_idx = __reduce_min_sync(0xffffffffu, lo_idx);
+      hi_idx = __reduce_max_sync(0xffffffffu, hi_idx);
+      const bool range = hi_idx - lo_idx + 1 <= 2 * n;
+      const int stride = L.stride[a];
+      for (int i = lane; i < n; i += 32) {  // the lane's own cells: no barrier needed
+        int4 e = rows[a][i];
+        if (range) {
+          e.x -= lo_idx;
+          e.y -= lo_idx;
+        } else {
+          table[a][2 * i] = e.x * stride;
+          table[a][2 * i + 1] = e.y * stride;
+          e.x = 2 * i;
+          e.y = 2 * i + 1;
+        }
+        rows[a][i] = e;
+      }
+      if (range) {
+        for (int s = lane; s <= hi_idx - lo_idx; s += 32) table[a][s] = (lo_idx + s) * stride;
+      }
+      if (lane == 0) n_slots[a] = range ? hi_idx - lo_idx + 1 : 2 * n;
+    }
+    __syncthreads();
+
+    // slab layout (c, y slot, x slot, z slot); the innermost count padded to
+    // an odd number, so that neighbouring outer slots fall on other banks
+    const int ny = n_slots[0];
+    const int nx = n_slots[1];
+    const int nz = DIM == 3 ? n_slots[2] : 1;
+    const int x_pitch = DIM == 3 ? (nz | 1) : 1;
+    const int y_pitch = DIM == 3 ? nx * x_pitch : (nx | 1);
+    const int c_pitch = ny * y_pitch;
+    const int group = min(channels, kSlabFloats / c_pitch);
+    // row slots -> slab offsets (read after the slab barrier below)
+    if (tid < ch + cw + (DIM == 3 ? cz : 0)) {
+      const int a = tid < ch ? 0 : (tid < ch + cw ? 1 : 2);
+      const int i = tid - (a == 0 ? 0 : (a == 1 ? ch : ch + cw));
+      const int pitch = a == 0 ? y_pitch : (a == 1 ? x_pitch : 1);
+      rows[a][i].x *= pitch;
+      rows[a][i].y *= pitch;
+    }
+    const T* const map = static_cast<const T*>(L.data) + b * L.sb;
+    const Walk load_step = decompose(kThreads, ny, nx, nz);
+
+    for (int c0 = 0; c0 < channels; c0 += group) {
+      const int g = min(group, channels - c0);
+      // 2. the slab of channels c0 .. c0 + g - 1, kLoadBatch loads in flight
+      // per thread before their stores
+      for (Walk s = decompose(tid, ny, nx, nz); s.c < g;) {
+        float v[kLoadBatch];
+        int dst[kLoadBatch];
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          dst[u] = -1;
+          if (s.c < g) {
+            const long long off = (c0 + s.c) * L.sc + table[0][s.y] + table[1][s.x] + (DIM == 3 ? table[2][s.z] : 0);
+            v[u] = load(map, off);
+            dst[u] = s.c * c_pitch + s.y * y_pitch + s.x * x_pitch + s.z;
+          }
+          advance(s, load_step, ny, nx, nz);
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          if (dst[u] >= 0) slab[dst[u]] = v[u];
+        }
+      }
+      __syncthreads();
+
+      // 3. outputs c0 * P .. (c0 + g) * P of the RoI: a thread per column
+      // (c, oy, ox), its cz outputs along z. Column j's outputs are
+      // out_g[j * cz .. j * cz + cz), so a warp writes one contiguous run
+      float* const out_g = out_r + c0 * P;
+      Walk o = col_start;
+      for (int j = tid; j < g * ch * cw; j += kThreads, advance(o, col_step, ch, cw, 1)) {
+        const int4 ey = rows[0][o.y], ex = rows[1][o.x];
+        const float* sl = slab + o.c * c_pitch;
+        const int a00 = ey.x + ex.x, a10 = ey.y + ex.x, a01 = ey.x + ex.y, a11 = ey.y + ex.y;
+        if (DIM == 2) {
+          out_g[j] = lerp(lerp(sl[a00], sl[a10], ey), lerp(sl[a01], sl[a11], ey), ex);
+          continue;
+        }
+        float* const col_out = out_g + j * cz;
+#pragma unroll 4
+        for (int oz = 0; oz < (CZ ? CZ : cz); ++oz) {
+          const int4 ez = rows[2][oz];  // one address for the whole warp
+          const float* z0 = sl + ez.x;
+          const float* z1 = sl + ez.y;
+          const float col0 = lerp(lerp(z0[a00], z0[a10], ey), lerp(z0[a01], z0[a11], ey), ex);
+          const float col1 = lerp(lerp(z1[a00], z1[a10], ey), lerp(z1[a01], z1[a11], ey), ex);
+          col_out[oz] = lerp(col0, col1, ez);
+        }
+      }
+      __syncthreads();  // the slab and rows are read no more
     }
   }
 }
 
 template <typename T>
-cudaError_t launch(const Levels& lv, int n_levels, int dim, const int* level_idx, const int* box_idx, const int* y0,
-                   const int* y1, const float* ly, const int* x0, const int* x1, const float* lx,
-                   const int* z0, const int* z1, const float* lz, int n_rois, int channels, int ch, int cw,
-                   int cz, float* out, cudaStream_t s) {
-  const long long total = static_cast<long long>(n_rois) * channels * ch * cw * cz;
-  // enough blocks to fill 132 SMs many times over; the loop covers the rest
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132LL * 64 ? want : 132LL * 64);
+cudaError_t launch(const Levels& lv, int n_levels, int dim, const float* boxes, const int* box_idx,
+                   const int* level_idx, int n_rois, int channels, int ch, int cw, int cz, float* out,
+                   cudaStream_t s) {
+  const int blocks = n_rois < kSms * kBlocksPerSm ? n_rois : kSms * kBlocksPerSm;
+  const size_t smem = kSlabFloats * sizeof(float);
   if (dim == 2) {
-    pyramid_roi_align_kernel<T, 2><<<blocks, kThreads, 0, s>>>(
-        lv, level_idx, box_idx, y0, y1, ly, x0, x1, lx, z0, z1, lz, n_levels, n_rois, channels, ch, cw, 1, out);
+    pyramid_roi_align_kernel<T, 2, 1><<<blocks, kThreads, smem, s>>>(lv, boxes, box_idx, level_idx, n_levels,
+                                                                     n_rois, channels, ch, cw, 1, out);
+  } else if (cz == 3) {
+    pyramid_roi_align_kernel<T, 3, 3><<<blocks, kThreads, smem, s>>>(lv, boxes, box_idx, level_idx, n_levels,
+                                                                     n_rois, channels, ch, cw, cz, out);
   } else {
-    pyramid_roi_align_kernel<T, 3><<<blocks, kThreads, 0, s>>>(
-        lv, level_idx, box_idx, y0, y1, ly, x0, x1, lx, z0, z1, lz, n_levels, n_rois, channels, ch, cw, cz, out);
+    pyramid_roi_align_kernel<T, 3, 0><<<blocks, kThreads, smem, s>>>(lv, boxes, box_idx, level_idx, n_levels,
+                                                                     n_rois, channels, ch, cw, cz, out);
   }
   return cudaGetLastError();
 }
@@ -137,14 +335,16 @@ cudaError_t launch(const Levels& lv, int n_levels, int dim, const int* level_idx
 }  // namespace
 
 // levels: host array of n_levels Level descriptors; dtype 0 float32,
-// 1 bfloat16, 2 float16. z0/z1/lz are ignored (may be null) in 2D.
-extern "C" int mdt_roi_align_launch(const Level* levels, int n_levels, int dtype, int dim,
-                                    const int* level_idx, const int* box_idx, const int* y0, const int* y1,
-                                    const float* ly, const int* x0, const int* x1, const float* lx,
-                                    const int* z0, const int* z1, const float* lz, int n_rois, int channels,
-                                    int ch, int cw, int cz, float* out, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || (dim != 2 && dim != 3) || n_rois < 1 || channels < 1 ||
-      ch < 1 || cw < 1 || cz < 1 ||
+// 1 bfloat16, 2 float16; boxes (n_rois, 2 * dim) float32; box_idx and
+// level_idx (n_rois,) int32; out (n_rois, channels, ch, cw, (cz)) float32.
+// cz is ignored in 2D.
+extern "C" int mdt_roi_align_launch(const Level* levels, int n_levels, int dtype, int dim, const float* boxes,
+                                    const int* box_idx, const int* level_idx, int n_rois, int channels, int ch,
+                                    int cw, int cz, float* out, void* stream) {
+  if (dim == 2) cz = 1;
+  const long long slab = 2LL * ch * (dim == 3 ? 2LL * cw * (2 * cz + 1) : 2 * cw + 1);
+  if (n_levels < 1 || n_levels > kMaxLevels || (dim != 2 && dim != 3) || n_rois < 1 || channels < 1 || ch < 1 ||
+      cw < 1 || cz < 1 || ch > kMaxCrop || cw > kMaxCrop || cz > kMaxCrop || slab > kSlabFloats ||
       static_cast<long long>(n_rois) * channels * ch * cw * cz >= kMaxOutputs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -154,16 +354,13 @@ extern "C" int mdt_roi_align_launch(const Level* levels, int n_levels, int dtype
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch<float>(lv, n_levels, dim, level_idx, box_idx, y0, y1, ly, x0, x1, lx, z0, z1, lz, n_rois, channels,
-                          ch, cw, cz, out, s);
+      err = launch<float>(lv, n_levels, dim, boxes, box_idx, level_idx, n_rois, channels, ch, cw, cz, out, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(lv, n_levels, dim, level_idx, box_idx, y0, y1, ly, x0, x1, lx, z0, z1, lz, n_rois,
-                                  channels, ch, cw, cz, out, s);
+      err = launch<__nv_bfloat16>(lv, n_levels, dim, boxes, box_idx, level_idx, n_rois, channels, ch, cw, cz, out, s);
       break;
     case 2:
-      err = launch<__half>(lv, n_levels, dim, level_idx, box_idx, y0, y1, ly, x0, x1, lx, z0, z1, lz, n_rois, channels,
-                           ch, cw, cz, out, s);
+      err = launch<__half>(lv, n_levels, dim, boxes, box_idx, level_idx, n_rois, channels, ch, cw, cz, out, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,36 +1,58 @@
 """Build, binding and launch of the hand-written CUDA pyramid RoIAlign kernel
-(``csrc/roi_align.cu``, kernel K2).
+(``csrc/roi_align.cu``, kernel K2), and a float32 model of its row
+arithmetic.
 
 Replaces ``medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py::
 pyramid_roi_align_pallas`` on the GPU. The source is compiled at first use by
 ``ops/cuda_build.py`` (nvcc for ``sm_90a``, a plain C entry point) and loaded
 through ``ctypes``.
 
-The wrapper takes CUDA tensors only. ``prepare`` computes each RoI's per-axis
-``(idx0, idx1, lerp)`` rows on its assigned level with the plain version's
-helper (``ops/roi_align.py::_level_axis_indices``), on the device, passes
-every level as one pointer plus element strides (the maps are read in place,
-in any layout: no stacked or channels-last copy) and allocates the float32
-output ``(R, C, *crop)`` with ``torch.empty``; ``launch`` enqueues the
-kernel on the current stream without synchronising. A refused launch raises; there is no fallback.
-``box_indices`` must lie in ``[0, B)``: the kernel does not check them. A
-``levels_idx`` outside ``[0, len(feature_maps))`` pools zeros, as in the
-plain version.
+The kernel takes the inputs of the TPU kernel's function: the maps, each
+level as one pointer, its extents and its element strides (read in place, in
+any layout: no stacked or channels-last copy), the normalised boxes, the
+batch and level index of each RoI, and the crop size. One block per RoI
+computes the RoI's per-axis ``(idx0, idx1, lerp)`` rows on its level in the
+plain version's float32 steps, copies the map voxels its corners need into
+shared memory and evaluates the outputs from there in the plain version's
+association, so its output is bit-identical to ``ops/roi_align.py::
+pyramid_roi_align`` on the card. It is bound by that evaluation (8 shared
+loads and 21 float operations per output) and then by the slab's gather from
+device memory, against a whole-card bound of the float32 output written once
+(see the source's note).
+
+The wrapper takes CUDA tensors only. ``prepare`` validates the inputs,
+allocates the float32 output ``(R, C, *crop)`` with ``torch.empty`` and
+packs the level descriptors: no PyTorch op per level or axis; ``launch``
+enqueues the kernel on the current stream without synchronising. A refused
+launch raises; there is no fallback. ``box_indices`` must lie in ``[0, B)``:
+the kernel does not check them. A ``levels_idx`` outside
+``[0, len(feature_maps))`` pools zeros, as in the plain version.
+
+``axis_rows`` and ``level_axis_rows`` model the kernel's row arithmetic in
+numpy float32, step by step; the CPU tests hold them against
+``_level_axis_indices`` and JAX's.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from medicaldetectiontoolkit_torch.ops import cuda_build
-from medicaldetectiontoolkit_torch.ops.roi_align import _AXIS_COLS, _level_axis_indices
 
 SOURCE = cuda_build.CSRC / "roi_align.cu"
 MAX_LEVELS = 8  # kMaxLevels in the source
 MAX_OUTPUTS = 2**30  # kMaxOutputs in the source
+MAX_CROP = 64  # kMaxCrop: cells per crop axis
+SLAB_FLOATS = 10240  # kSlabFloats: shared-memory slab of one block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# How the kernel forms scale = (hi - lo) * S / crop: as a product with the
+# float32 reciprocal of crop, because that is what the plain version computes
+# on the card (ATen's CUDA true division by a Python number multiplies by its
+# reciprocal); on the CPU, and in JAX, it divides.
+SCALE_BY_RECIPROCAL = True
 
 _lib = None
 
@@ -38,7 +60,47 @@ _lib = None
 class _Level(ctypes.Structure):
     """Mirror of ``struct Level`` in ``csrc/roi_align.cu``."""
 
-    _fields_ = [("data", ctypes.c_void_p)] + [(f"s{ax}", ctypes.c_longlong) for ax in "bcyxz"]
+    _fields_ = [("data", ctypes.c_void_p), ("sb", ctypes.c_longlong), ("sc", ctypes.c_longlong),
+                ("size", ctypes.c_int * 3), ("stride", ctypes.c_int * 3)]
+
+
+def axis_rows(lo, hi, crop: int, size: int, reciprocal: bool = SCALE_BY_RECIPROCAL):
+    """The kernel's rows of one axis on a level of extent ``size``, in numpy
+    float32, one operation per step as the source rounds it: lo, hi (N,)
+    normalised box edges. Returns idx0, idx1 int32 (N, crop) and lerp float32
+    (N, crop). ``reciprocal`` selects the card's form of ``scale``
+    (``SCALE_BY_RECIPROCAL``); False gives the CPU's division."""
+    f32 = np.float32
+    lo, hi = np.asarray(lo, f32), np.asarray(hi, f32)
+    s = f32(size)
+    if crop > 1:
+        span = (hi - lo) * s
+        scale = span * (f32(1.0) / f32(crop)) if reciprocal else span / f32(crop)
+        cells = np.arange(crop, dtype=f32)
+        coord = ((lo[:, None] * s + cells[None, :] * scale[:, None]) + scale[:, None] * f32(0.5)) - f32(0.5)
+    else:
+        coord = ((f32(0.5) * (lo + hi)) * s)[:, None]
+    coord = np.minimum(np.maximum(coord, f32(0.0)), f32(size - 1))
+    floor = np.floor(coord)
+    idx0 = floor.astype(np.int32)
+    return idx0, np.minimum(idx0 + 1, size - 1).astype(np.int32), coord - floor
+
+
+def level_axis_rows(boxes, levels_idx, crop: int, sizes, lo_col: int, hi_col: int,
+                    reciprocal: bool = SCALE_BY_RECIPROCAL):
+    """``axis_rows`` of each RoI on its own level (numpy): boxes (R, 2*dim),
+    levels_idx (R,), sizes the levels' extents along the axis. The contract of
+    ``ops/roi_align.py::_level_axis_indices``: zeros for a level outside
+    ``[0, len(sizes))``."""
+    boxes, levels_idx = np.asarray(boxes, np.float32), np.asarray(levels_idx)
+    R = boxes.shape[0]
+    idx0, idx1 = np.zeros((R, crop), np.int32), np.zeros((R, crop), np.int32)
+    lerp = np.zeros((R, crop), np.float32)
+    for lvl, size in enumerate(sizes):
+        sel = levels_idx == lvl
+        idx0[sel], idx1[sel], lerp[sel] = axis_rows(boxes[sel, lo_col], boxes[sel, hi_col], crop, int(size),
+                                                    reciprocal)
+    return idx0, idx1, lerp
 
 
 def build():
@@ -52,7 +114,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mdt_roi_align_launch.argtypes = [vp, i32, i32, i32] + [vp] * 11 + [i32] * 5 + [vp, vp]
+        lib.mdt_roi_align_launch.argtypes = [vp, i32, i32, i32, vp, vp, vp] + [i32] * 5 + [vp, vp]
         lib.mdt_roi_align_launch.restype = i32
         lib.mdt_roi_align_error_string.argtypes = [i32]
         lib.mdt_roi_align_error_string.restype = ctypes.c_char_p
@@ -61,14 +123,18 @@ def _load():
 
 
 def prepare(feature_maps, boxes, box_indices, levels_idx, crop_size):
-    """Validate the inputs and build one launch: the per-axis index and
-    weight rows on each RoI's level (PyTorch ops on the device), the level
-    descriptors, and the float32 output ``(R, C, *crop_size)``. Returns
-    ``(out, launch_args)``; ``launch_args`` is None when there is nothing to
-    compute."""
+    """Validate the inputs and build one launch: the level descriptors
+    (pointer, extents, strides) and the float32 output ``(R, C,
+    *crop_size)``. Returns ``(out, launch_args)``; ``launch_args`` is None
+    when there is nothing to compute."""
     dim = len(crop_size)
     if dim not in (2, 3):
         raise ValueError(f"crop_size must be rank 2 or 3, got {crop_size}")
+    ch, cw, cz = (*crop_size, 1)[:3]
+    slab = 2 * ch * (2 * cw * (2 * cz + 1) if dim == 3 else 2 * cw + 1)
+    if not all(1 <= c <= MAX_CROP for c in crop_size) or slab > SLAB_FLOATS:
+        raise ValueError(f"crop_size {tuple(crop_size)}: the kernel takes 1 to {MAX_CROP} cells per axis and a "
+                         f"slab of at most {SLAB_FLOATS} floats per channel (this crop's largest: {slab})")
     if not 1 <= len(feature_maps) <= MAX_LEVELS:
         raise ValueError(f"expected 1 to {MAX_LEVELS} pyramid levels, got {len(feature_maps)}")
     f0 = feature_maps[0]
@@ -78,9 +144,10 @@ def prepare(feature_maps, boxes, box_indices, levels_idx, crop_size):
     B, C = f0.shape[:2]
     for fm in feature_maps:
         if fm.device.type != "cuda" or fm.device != dev or fm.dtype != dtype or fm.dim() != dim + 2 \
-                or tuple(fm.shape[:2]) != (B, C):
+                or tuple(fm.shape[:2]) != (B, C) or min(fm.shape[2:]) < 1:
             raise ValueError(f"feature maps must be (B, C, *spatial) CUDA tensors of one dtype on {dev}, "
-                             f"(B, C) = {(B, C)}; got {fm.dtype} {tuple(fm.shape)} on {fm.device}")
+                             f"(B, C) = {(B, C)}, spatial extents >= 1; got {fm.dtype} {tuple(fm.shape)} on "
+                             f"{fm.device}")
     R = boxes.shape[0]
     if boxes.dim() != 2 or boxes.shape[1] != 2 * dim or box_indices.shape != (R,) or levels_idx.shape != (R,):
         raise ValueError(f"expected boxes (R, {2 * dim}), box_indices and levels_idx (R,); got "
@@ -94,22 +161,24 @@ def prepare(feature_maps, boxes, box_indices, levels_idx, crop_size):
     if out.numel() >= MAX_OUTPUTS:
         raise ValueError(f"{out.numel()} output elements; the kernel indexes at most {MAX_OUTPUTS - 1}")
 
-    levels_idx = levels_idx.to(torch.int32).contiguous()
-    rows = []
-    for ax, ((lo, hi), crop) in enumerate(zip(_AXIS_COLS, crop_size)):
-        sizes = [fm.shape[2 + ax] for fm in feature_maps]
-        rows += [t.contiguous() for t in _level_axis_indices(boxes, levels_idx, crop, sizes, lo, hi)]
-    if dim == 2:
-        rows += [None] * 3
-    box_indices = box_indices.to(torch.int32).contiguous()
     levels = (_Level * len(feature_maps))()
     for k, fm in enumerate(feature_maps):
-        levels[k] = _Level(fm.data_ptr(), *fm.stride(), *([0] if dim == 2 else []))
+        # (H, W, Z) extents and strides; 2D has Z = 1, and an axis of extent
+        # 1 gets stride 0 (its only index is 0)
+        sizes = (*fm.shape[2:], 1, 1)[:3]
+        strides = [st if n > 1 else 0 for n, st in zip(sizes, (*fm.stride()[2:], 0))]
+        if sum((n - 1) * st for n, st in zip(sizes, strides)) >= 2**31:
+            raise ValueError(f"level {k}: in-plane offsets of {tuple(fm.shape)} strides {fm.stride()} exceed int32")
+        levels[k] = _Level(fm.data_ptr(), fm.stride(0), fm.stride(1), (ctypes.c_int * 3)(*sizes),
+                           (ctypes.c_int * 3)(*strides))
+    boxes = boxes.to(torch.float32).contiguous()
+    box_indices = box_indices.to(torch.int32).contiguous()
+    levels_idx = levels_idx.to(torch.int32).contiguous()
     # the tensors stay referenced here until the launch is enqueued
-    tensors = (feature_maps, levels_idx, box_indices, rows, out)
+    tensors = (feature_maps, boxes, box_indices, levels_idx, out)
     return out, (tensors, levels, len(feature_maps), _DTYPES[dtype], dim,
-                 [levels_idx.data_ptr(), box_indices.data_ptr()] + [None if t is None else t.data_ptr() for t in rows],
-                 [R, C, *crop_size, *([1] if dim == 2 else [])], out.data_ptr(), dev)
+                 [boxes.data_ptr(), box_indices.data_ptr(), levels_idx.data_ptr()],
+                 [R, C, ch, cw, cz], out.data_ptr(), dev)
 
 
 def launch(launch_args):
