@@ -34,7 +34,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      pass's 240), with times and bounds;
   3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
      PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
-     stem at LIDC width, odd Y/X, cin 2, bfloat16; K4 run twice must be
+     stem at LIDC width, odd Y/X, cin 2, bfloat16, and K4's grid with fewer
+     chunks than blocks and with chunks no multiple of it (each case prints
+     K4's grid G and its partials' bytes); K4 run twice must be
      bit-identical; times beside F.conv3d and conv3d_weight;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
@@ -111,16 +113,20 @@ def _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, tim
 
 
 def _stem_cases(torch):
-    """(name, (B, cin, Y, X, Z), k, sy, sx, cout, dtype, timed)."""
+    """(name, (B, cin, Y, X, Z), k, sy, sx, cout, dtype, timed, chunks): with
+    ``chunks`` "ragged", K4's chunks must outnumber its grid G and not be a
+    multiple of it (2,039 chunks, a prime); with "fewer", every block of the
+    grid takes one chunk (14 chunks)."""
     f32, bf16 = torch.float32, torch.bfloat16
     lidc = (128, 128, 64)
     return [
-        ("conv0_2x1x128x128x64_k3", (2, 1, *lidc), 3, 1, 1, 18, f32, True),
-        ("c1_8x1x128x128x64_k7_s2", (8, 1, *lidc), 7, 2, 2, 18, f32, True),
-        ("odd_13x11x6_k7_s2", (2, 1, 13, 11, 6), 7, 2, 2, 6, f32, False),
-        ("cin2_64x64x32_k5_s2", (2, 2, 64, 64, 32), 5, 2, 2, 18, f32, False),
-        ("conv0_bf16", (2, 1, *lidc), 3, 1, 1, 18, bf16, True),
-        ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, False),
+        ("conv0_2x1x128x128x64_k3", (2, 1, *lidc), 3, 1, 1, 18, f32, True, None),
+        ("c1_8x1x128x128x64_k7_s2", (8, 1, *lidc), 7, 2, 2, 18, f32, True, None),
+        ("odd_13x11x6_k7_s2", (2, 1, 13, 11, 6), 7, 2, 2, 6, f32, False, "fewer"),
+        ("cin2_64x64x32_k5_s2", (2, 2, 64, 64, 32), 5, 2, 2, 18, f32, False, None),
+        ("ragged_cin2_4077x13x16_k5_s2", (1, 2, 4077, 13, 16), 5, 2, 2, 18, f32, False, "ragged"),
+        ("conv0_bf16", (2, 1, *lidc), 3, 1, 1, 18, bf16, True, None),
+        ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, False, None),
     ]
 
 
@@ -134,7 +140,7 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
     F = torch.nn.functional
     rng = np.random.RandomState(2)
     entries, timings = {}, {}
-    for name, shape, k, sy, sx, cout, dtype, timed in cases:
+    for name, shape, k, sy, sx, cout, dtype, timed, chunks in cases:
         cin = shape[1]
         x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda().to(dtype)
         w = torch.from_numpy((rng.randn(cout, cin, k, k, k) * 0.2).astype(np.float32)).cuda().to(dtype)
@@ -145,6 +151,12 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
         dw, dw2 = stem_conv_cuda.stem_wgrad(x, g, k, sy, sx), stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)
         dw_ref = stem_conv.stem_wgrad_reference(x, g, k, sy, sx)
         torch.cuda.synchronize()
+        xt, n_chunks, grid = stem_conv_cuda.wgrad_plan(x, cout, k, sy, sx)
+        print(f"  {name}: K4 plan: {n_chunks} chunks of {xt} xo columns, grid G {grid}, partials "
+              f"{grid * dw.numel() * 4} bytes")
+        if (chunks == "ragged" and not (n_chunks > grid and n_chunks % grid)) or \
+                (chunks == "fewer" and grid != n_chunks):
+            raise AssertionError(f"{name}: K4's grid {grid} for {n_chunks} chunks is not the {chunks} case")
         err3 = float((out.float() - ref.float()).abs().max())
         err4 = float((dw - dw_ref).abs().max())
         tol3 = (1e-5 if dtype == torch.float32 else 1e-2) * float(ref.float().abs().max())
@@ -166,6 +178,7 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
                   "plain_ms": ms(lambda: stem_conv.stem_wgrad_reference(x, g, k, sy, sx), 3, 1),
                   "library_ms": ms(lambda: torch.nn.grad.conv3d_weight(
                       x, w.shape, g, (sy, sx, 1), k // 2), 3, 1)}
+            host4 = common.host_ms(lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx))
             dt = "float32" if dtype == torch.float32 else "bfloat16"
             k3["bound_ms"], k3["bound_by"] = common.bound((x.numel() + w.numel() + b.numel() + out.numel()) * item,
                                                           ops, dt)
@@ -173,7 +186,8 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
             for kname, t in (("K3", k3), ("K4", k4)):
                 print(f"  {name} {kname}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                       f"{t['library_ms']:.4f} ms ({'F.conv3d' if kname == 'K3' else 'conv3d_weight'}), bound "
-                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (CUDA events)")
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (CUDA events)"
+                      + (f"; host {host4:.4f} ms per wrapper call" if kname == "K4" else ""))
             timings[name] = (k3, k4)
             if name.startswith("conv0") and dtype == torch.float32:  # the training slice's shape
                 entries = {"stem_fwd": dict(k3, max_abs_err=err3), "stem_wgrad": dict(k4, max_abs_err=err4)}

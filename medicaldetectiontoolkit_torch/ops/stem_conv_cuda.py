@@ -12,11 +12,19 @@ dtypes (float32 or bfloat16, one for all), shapes, ``k`` in {3, 5, 7},
 ``cout <= 32`` and that the kernel's shared memory fits, allocate outputs and
 K4's partial sums with ``torch.empty``, and launch on the current stream
 without synchronising. A refused launch raises; there is no fallback.
+
+K4 is two launches: a persistent partial pass of ``G`` blocks (``G`` the
+smaller of the number of chunks and the blocks that fit on the card at
+once, which ``mdt_stem_wgrad_capacity`` reports), each summing chunks
+``i, i + G, ...`` into its own float32 row of dw, then a reduce of the ``G``
+rows in a fixed order. ``wgrad_grid`` and ``wgrad_chunks`` give that
+schedule; ``wgrad_plan`` the one a launch takes on its card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,8 +52,10 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mdt_stem_fwd_launch.argtypes = [vp] * 4 + [i32] * 10 + [vp]
         lib.mdt_stem_fwd_launch.restype = i32
-        lib.mdt_stem_wgrad_launch.argtypes = [vp] * 4 + [i32] * 11 + [vp]
+        lib.mdt_stem_wgrad_launch.argtypes = [vp] * 4 + [i32] * 12 + [vp]
         lib.mdt_stem_wgrad_launch.restype = i32
+        lib.mdt_stem_wgrad_capacity.argtypes = [i32] * 7
+        lib.mdt_stem_wgrad_capacity.restype = i32
         lib.mdt_stem_fwd_smem.argtypes = [i32] * 3
         lib.mdt_stem_fwd_smem.restype = i32
         lib.mdt_stem_wgrad_smem.argtypes = [i32] * 7
@@ -99,27 +109,67 @@ def stem_conv3d(x, w, b, sy: int, sx: int):
     return out
 
 
-def stem_wgrad(x, g, k: int, sy: int, sx: int):
-    """K4: dw (cout, cin, k, k, k) float32 of the K3 conv, from x (B, cin, Y,
-    X, Z) and the output gradient g (B, cout, Yo, Xo, Z) of x's dtype.
-    Deterministic: partial sums per chunk, summed in a fixed order."""
-    B, cin, Y, X, Z = x.shape
-    cout = g.shape[1]
-    Yo, Xo = -(-Y // sy), -(-X // sx)
-    _check(x, k, cout, sy, sx, g=(g, (B, cout, Yo, Xo, Z)))
+def wgrad_grid(B: int, Yo: int, Xo: int, xt: int, capacity: int):
+    """K4's (number of chunks, G): a chunk is (b, yo, xt columns of xo) of
+    a (B, cout, Yo, Xo, Z) gradient, and G, the partial pass's grid and the
+    rows of its float32 scratch, is the smaller of the chunks and
+    ``capacity``, the blocks resident on the card at once."""
+    n_chunks = B * Yo * -(-Xo // xt)
+    return n_chunks, min(n_chunks, capacity)
+
+
+def wgrad_chunks(block: int, grid: int, B: int, Yo: int, Xo: int, xt: int):
+    """The chunks that block ``block`` of K4's partial pass (of ``grid``
+    blocks) sums into its row, in its order, each as (b, yo, first xo): the
+    chunk numbered c = (b * Yo + yo) * ceil(Xo / xt) + xo // xt, block i
+    taking c = i, i + G, i + 2G, ... (the kernel's chunk loop)."""
+    n_xt = -(-Xo // xt)
+    return [(c // n_xt // Yo, c // n_xt % Yo, c % n_xt * xt) for c in range(block, B * Yo * n_xt, grid)]
+
+
+@functools.lru_cache(maxsize=64)
+def _wgrad_plan(device: int, dtype: int, B: int, cin: int, Y: int, X: int, Z: int, cout: int, k: int, sy: int,
+                sx: int):
     lib = _load()
     # chunk columns: 8 unless the tiles do not fit in shared memory
     xt = next((t for t in (8, 4, 2, 1) if lib.mdt_stem_wgrad_smem(cin, X, Z, cout, k, sx, t) <= SMEM_MAX), None)
     if xt is None:
         raise ValueError(f"one column of g and x takes more than {SMEM_MAX} bytes of shared memory (Z={Z})")
+    with torch.cuda.device(device):
+        capacity = lib.mdt_stem_wgrad_capacity(dtype, cin, Z, cout, k, sx, xt)
+    if capacity < 0:
+        _raise(lib, -capacity, "stem conv weight gradient (K4) occupancy query")
+    return (xt,) + wgrad_grid(B, -(-Y // sy), -(-X // sx), xt, capacity)
+
+
+def wgrad_plan(x, cout: int, k: int, sy: int, sx: int):
+    """K4's launch plan for x (B, cin, Y, X, Z) on its card: (xt, number of
+    chunks, G), as ``wgrad_grid``. Kept per card and shape: G depends on
+    nothing else, so the occupancy query runs once for each."""
+    return _wgrad_plan(x.device.index, _DTYPES[x.dtype], *x.shape, cout, k, sy, sx)
+
+
+def stem_wgrad(x, g, k: int, sy: int, sx: int):
+    """K4: dw (cout, cin, k, k, k) float32 of the K3 conv, from x (B, cin, Y,
+    X, Z) and the output gradient g (B, cout, Yo, Xo, Z) of x's dtype.
+    Deterministic: a persistent grid of G blocks, block i summing chunks
+    i, i + G, ... into its own row, then the G rows summed in a fixed order
+    (``wgrad_plan``, ``wgrad_chunks``). The partial pass is bound by latency
+    (a block's warps wait while its chunk's tiles load, with 2 or 3 blocks
+    per SM); the reduce reads the G rows from L2."""
+    B, cin, Y, X, Z = x.shape
+    cout = g.shape[1]
+    Yo, Xo = -(-Y // sy), -(-X // sx)
+    _check(x, k, cout, sy, sx, g=(g, (B, cout, Yo, Xo, Z)))
+    lib = _load()
+    xt, _, grid = wgrad_plan(x, cout, k, sy, sx)
     x, g = x.contiguous(), g.contiguous()
-    n_chunks = B * Yo * -(-Xo // xt)
-    partials = torch.empty((n_chunks, cout * cin * k**3), dtype=torch.float32, device=x.device)
+    partials = torch.empty((grid, cout * cin * k**3), dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, cin, k, k, k), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mdt_stem_wgrad_launch(x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-                                        _DTYPES[x.dtype], B, cin, Y, X, Z, cout, k, sy, sx, xt, stream)
+                                        _DTYPES[x.dtype], B, cin, Y, X, Z, cout, k, sy, sx, xt, grid, stream)
     _raise(lib, err, "stem conv weight gradient (K4)")
     stem_wgrad.launches += 1
     return dw

@@ -17,7 +17,8 @@ weights from seed 0:
   * a ``torch.profiler`` trace of one pipelined window (every chunk
     dispatched, then converted): host wall and dispatch time, device span,
     busy time (union of kernel, copy and set intervals), idle share, and
-    device time per chunk by kernel class. With ``--out-dir`` the profiler's
+    device time per chunk by kernel class (each hand-written kernel a class
+    of its own, K4's two launches apart). With ``--out-dir`` the profiler's
     table of kernels goes to ``DIR/profile_<model>_<dtype>.txt``.
 
 With ``--train``, the training slice (``make_train_slice_config``: 3D Retina
@@ -47,7 +48,9 @@ from medicaldetectiontoolkit_torch.tools.common import (run_window, setup_card, 
 # kernel-name substrings -> class, first match wins
 CLASSES = (
     ("nms", ("nms_kernel",)),
-    ("stem_conv", ("stem_fwd_kernel", "stem_wgrad")),
+    ("K3 stem_fwd", ("stem_fwd_kernel",)),
+    ("K4 partial pass", ("stem_wgrad_partial_kernel",)),
+    ("K4 reduce", ("stem_wgrad_reduce_kernel",)),
     ("roi_align", ("pyramid_roi_align_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("conv", ("conv", "fprop", "implicit_gemm", "xmma", "cudnn", "Nhwc", "nhwc", "Nchw", "nchw")),

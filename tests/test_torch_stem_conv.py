@@ -16,7 +16,10 @@ Tolerances:
   * dw in bfloat16: 3e-2 relative to max|dw|: JAX casts each band entry of
     dT to bf16 and sums the band's diagonals in bf16 (``:329-331``), the port
     sums in float32 and casts once;
-  * the gate: exactly ``stem_pallas_viable``.
+  * the gate: exactly ``stem_pallas_viable``;
+  * K4's summation order (``k4_model``): 1e-5 of max|dw| against the plain
+    K4 (the same float32 products summed in another order), 3e-4 against
+    JAX's dw as above.
 """
 
 import itertools
@@ -32,7 +35,7 @@ from medicaldetectiontoolkit_tpu.models import backbone as jbb  # noqa: E402
 from medicaldetectiontoolkit_tpu.ops.stem_conv_pallas import stem_conv3d as jstem  # noqa: E402
 from medicaldetectiontoolkit_tpu.ops.stem_conv_pallas import stem_pallas_viable  # noqa: E402
 from medicaldetectiontoolkit_torch.models import backbone as tbb  # noqa: E402
-from medicaldetectiontoolkit_torch.ops import stem_conv  # noqa: E402
+from medicaldetectiontoolkit_torch.ops import stem_conv, stem_conv_cuda  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -165,3 +168,121 @@ def test_convnd_routing_matches_jax(monkeypatch, cin, ks, stride, pad, routed):
     with torch.no_grad():
         tmod(torch.from_numpy(np.moveaxis(x, -1, 1).copy()))
     assert tmod.stem_kernel is False
+
+
+# --------------------------------------------------------------------- #
+#  K4's summation order: a persistent grid of G blocks, block i summing   #
+#  chunks i, i + G, ... into its own row, then the rows reduced by one    #
+#  warp per output (csrc/stem_conv.cu)                                    #
+# --------------------------------------------------------------------- #
+
+
+def chunk_partials(x, g, k, sy, sx, xt):
+    """(B, Yo, ceil(Xo / xt), cout * cin * k^3) float32: each chunk's sum of
+    dw, a chunk being (b, yo, xt columns of xo). Each column's sum over z
+    first, then the columns summed by the kernel's shuffle tree (column j +=
+    column j + off for off = xt/2, ..., 1); the columns past Xo count zero,
+    as the kernel's zero-filled g tile does."""
+    B, cin = x.shape[:2]
+    cout, Yo, Xo, Z = g.shape[1:]
+    n_xt = -(-Xo // xt)
+    pad = (0, 0, 0, n_xt * xt - Xo)
+    gp = torch.nn.functional.pad(g.float(), pad).view(B, cout, Yo, n_xt, xt, Z)
+    cols = torch.empty((xt, B, Yo, n_xt, cout, cin, k, k, k))
+    for ky, kx, kz, tap in stem_conv._taps(x, k, sy, sx):
+        tp = torch.nn.functional.pad(tap, pad).view(B, cin, Yo, n_xt, xt, Z)
+        cols[..., ky, kx, kz] = torch.einsum("bcytjz,bdytjz->jbytcd", gp, tp)
+    off = xt // 2
+    while off:
+        cols = cols[:off] + cols[off:2 * off]
+        off //= 2
+    return cols[0].reshape(B, Yo, n_xt, -1)
+
+
+def k4_model(x, g, k, sy, sx, xt, capacity):
+    """dw (cout, cin, k, k, k) float32 summed in the kernel's order, on the
+    port's schedule (``stem_conv_cuda.wgrad_grid`` and ``wgrad_chunks``):
+    each chunk's float32 sum added into its block's row in the block's chunk
+    order; per output, lane l of a warp sums rows l, l + 32, ... in order
+    from 0, then the shuffle tree adds lane l + off into lane l for off =
+    16, 8, 4, 2, 1; lane 0 holds dw."""
+    parts = chunk_partials(x, g, k, sy, sx, xt)
+    B, Yo, n_xt, n_out = parts.shape
+    Xo = g.shape[3]
+    _, grid = stem_conv_cuda.wgrad_grid(B, Yo, Xo, xt, capacity)
+    order = [stem_conv_cuda.wgrad_chunks(i, grid, B, Yo, Xo, xt) for i in range(grid)]
+    rows = torch.zeros((grid, n_out))
+    for step in range(len(order[0])):  # every block's step-th chunk, blocks side by side
+        idx = [i for i, chunks in enumerate(order) if step < len(chunks)]
+        b, yo, xo = (torch.tensor(v) for v in zip(*(order[i][step] for i in idx)))
+        rows[idx] = rows[idx] + parts[b, yo, xo // xt]
+    lanes = torch.zeros((32, n_out))
+    for r0 in range(0, grid, 32):
+        blk = rows[r0:r0 + 32]
+        lanes[:len(blk)] = lanes[:len(blk)] + blk
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes[:off] + lanes[off:2 * off]
+    return lanes[0].view(g.shape[1], x.shape[1], k, k, k)
+
+
+K4_CASES = [  # (B, Y, X, Z, cin), k, sy, sx, xt, capacity
+    ((2, 9, 11, 6, 1), 3, 1, 1, 8, 1),       # one block takes every chunk
+    ((2, 9, 11, 6, 1), 3, 1, 1, 8, 5),       # 36 chunks, G 5: no multiple
+    ((2, 9, 11, 6, 1), 3, 1, 1, 8, 1000),    # G past the chunks: one chunk each
+    ((1, 13, 11, 6, 2), 3, 2, 2, 4, 3),
+    ((2, 7, 9, 5, 1), 5, 1, 1, 8, 4),
+    ((1, 11, 13, 7, 2), 5, 2, 2, 2, 7),
+    ((1, 12, 10, 5, 1), 5, 2, 1, 8, 100),
+    ((2, 13, 11, 6, 1), 7, 2, 2, 8, 3),
+    ((1, 9, 15, 8, 2), 7, 1, 1, 4, 11),
+    ((1, 9, 15, 8, 2), 7, 1, 1, 8, 64),      # G 18: fewer rows than lanes
+    ((1, 15, 9, 4, 1), 7, 1, 2, 1, 40),      # G 40 rows: two per lane for the first 8
+    ((2, 10, 10, 8, 2), 5, 2, 2, 8, 6),
+]
+
+
+@pytest.mark.parametrize("shape,k,sy,sx,xt,capacity", K4_CASES)
+def test_k4_order_matches_reference(shape, k, sy, sx, xt, capacity):
+    """The kernel's summation order against the plain K4 (another order of
+    the same float32 products): within 1e-5 of max|dw|."""
+    x, _, _ = _to_torch(*_inputs(shape, k, seed=8))
+    B, Y, X, Z, _ = shape
+    g = torch.from_numpy(np.random.RandomState(9).randn(B, 6, -(-Y // sy), -(-X // sx), Z).astype(np.float32))
+    want = stem_conv.stem_wgrad_reference(x, g, k, sy, sx)
+    got = k4_model(x, g, k, sy, sx, xt, capacity)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape,k,sy,sx,xt,capacity", [SHAPES[0] + (8, 5), SHAPES[2] + (4, 3), SHAPES[3] + (8, 2)])
+def test_k4_order_matches_jax_vjp(shape, k, sy, sx, xt, capacity):
+    """The kernel's summation order against JAX's dw: ``jax.grad`` through
+    ``stem_conv3d``, whose custom VJP runs the wgrad kernel in interpret mode
+    (it returns the banded dT; the VJP turns it into dw). 3e-4, as
+    ``test_gradients_match_jax_vjp``."""
+    x, w, b = _inputs(shape, k, seed=10)
+    B, Y, X, Z, _ = shape
+    g = np.random.RandomState(11).randn(B, -(-Y // sy), -(-X // sx), Z, 6).astype(np.float32)
+    want = jax.grad(lambda w_: jnp.vdot(jstem(x, w_, b, sy, sx, True), g))(w)
+    xt_, _, _ = _to_torch(x, w, b)
+    got = k4_model(xt_, torch.from_numpy(np.moveaxis(g, -1, 1).copy()), k, sy, sx, xt, capacity)
+    np.testing.assert_allclose(np.transpose(got.numpy(), (2, 3, 4, 1, 0)), np.asarray(want), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.parametrize("B,Yo,Xo,xt,capacity", [
+    (2, 7, 11, 8, 1000),   # fewer chunks (28) than the card's blocks: one each
+    (2, 64, 64, 8, 16),    # 1,024 chunks, G 16 divides them
+    (1, 2039, 7, 8, 264),  # 2,039 chunks (a prime), G 264: no multiple
+])
+def test_k4_visits_every_chunk_once(B, Yo, Xo, xt, capacity):
+    """The port's schedule: G = min(chunks, capacity) blocks, none idle;
+    over the grid every (b, yo, first xo) exactly once, each block's in the
+    kernel's numbering order, the blocks' loads one apart at most."""
+    n_chunks, grid = stem_conv_cuda.wgrad_grid(B, Yo, Xo, xt, capacity)
+    assert n_chunks == B * Yo * -(-Xo // xt) and grid == min(n_chunks, capacity)
+    order = [stem_conv_cuda.wgrad_chunks(i, grid, B, Yo, Xo, xt) for i in range(grid)]
+    flat = [c for chunks in order for c in chunks]
+    assert sorted(flat) == list(itertools.product(range(B), range(Yo), range(0, Xo, xt)))
+    assert all(chunks and chunks == sorted(chunks) for chunks in order)
+    assert [chunks[0] for chunks in order] == sorted(flat)[:grid]
+    assert max(map(len, order)) - min(map(len, order)) <= 1
