@@ -34,10 +34,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      pass's 240), with times and bounds;
   3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
      PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
-     stem at LIDC width, odd Y/X, cin 2, bfloat16, and K4's grid with fewer
-     chunks than blocks and with chunks no multiple of it (each case prints
-     K4's grid G and its partials' bytes); K4 run twice must be
-     bit-identical; times beside F.conv3d and conv3d_weight;
+     stem at LIDC width in float32 and bfloat16 (timed), odd Y/X and cin 2
+     in both dtypes, cout 32 with Z 61 (K3's widest instance and its store
+     tails), and K4's
+     grid with fewer chunks than blocks and with chunks no multiple of it;
+     each case prints K4's grid G and its partials' bytes and K3's plan, whose
+     shared-memory bytes must equal the library's; K4 run twice must be
+     bit-identical; K3's launch alone, wrapper and host time per call, K4's
+     wrapper and host time, beside F.conv3d and conv3d_weight;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
@@ -126,18 +130,22 @@ def _stem_cases(torch):
         ("cin2_64x64x32_k5_s2", (2, 2, 64, 64, 32), 5, 2, 2, 18, f32, False, None),
         ("ragged_cin2_4077x13x16_k5_s2", (1, 2, 4077, 13, 16), 5, 2, 2, 18, f32, False, "ragged"),
         ("conv0_bf16", (2, 1, *lidc), 3, 1, 1, 18, bf16, True, None),
-        ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, False, None),
+        ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, True, None),
+        # K3's widest instance and its scalar store tails (Z % 4 != 0)
+        ("cout32_z61_bf16", (2, 1, 33, 47, 61), 3, 1, 1, 32, bf16, False, None),
+        # bf16 at a small odd Z (one z tile of 2 blocks) and at cin 2
+        ("odd_13x11x6_k7_s2_bf16", (2, 1, 13, 11, 6), 7, 2, 2, 6, bf16, False, None),
+        ("cin2_64x64x32_k5_s2_bf16", (2, 2, 64, 64, 32), 5, 2, 2, 18, bf16, False, None),
     ]
 
 
-def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
+def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem, cases):
     """K3 and K4 against their plain versions. Tolerances, relative to the
     plain version's max |value|: K3 float32 1e-5 and K4 1e-5 (float32 sums of
     the same products in another order; K4's over up to 2 M positions);
     K3 bfloat16 1e-2 (both round the float32 sum, then the bias add, to
     bf16: a sum near a rounding boundary lands one bf16 ulp, 2^-8, apart)."""
     print("== phase 3c: stem conv kernels K3 / K4 vs plain PyTorch; K4 twice bit-identical")
-    F = torch.nn.functional
     rng = np.random.RandomState(2)
     entries, timings = {}, {}
     for name, shape, k, sy, sx, cout, dtype, timed, chunks in cases:
@@ -154,6 +162,14 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
         xt, n_chunks, grid = stem_conv_cuda.wgrad_plan(x, cout, k, sy, sx)
         print(f"  {name}: K4 plan: {n_chunks} chunks of {xt} xo columns, grid G {grid}, partials "
               f"{grid * dw.numel() * 4} bytes")
+        plan = stem_conv_cuda.fwd_launch_plan(x, cout, k, sy, sx)
+        lib_smem = stem_conv_cuda._load().mdt_stem_fwd_smem(cin, cout, k, sy, sx, plan["zt"], plan["tx"], plan["ty"],
+                                                            x.element_size(), plan["nbuf"])
+        print(f"  {name}: K3 plan: {plan['n_tiles']} tiles of {plan['zt']} z blocks x {plan['tx']} xo x "
+              f"{plan['ty']} yo, grid G {plan['grid']}, {plan['threads']} threads, {plan['co']} channels summed, "
+              f"{plan['nbuf']} tile buffers, shared memory {plan['smem']} bytes (library: {lib_smem})")
+        if lib_smem != plan["smem"]:
+            raise AssertionError(f"{name}: K3's shared memory in the library ({lib_smem}) is not the plan's")
         if (chunks == "ragged" and not (n_chunks > grid and n_chunks % grid)) or \
                 (chunks == "fewer" and grid != n_chunks):
             raise AssertionError(f"{name}: K4's grid {grid} for {n_chunks} chunks is not the {chunks} case")
@@ -171,23 +187,21 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, cases):
             item = x.element_size()
             ops = 2 * out.numel() * cin * k**3
             ms = common.cuda_ms
-            k3 = {"ms": ms(lambda: stem_conv_cuda.stem_conv3d(x, w, b, sy, sx)),
-                  "plain_ms": ms(lambda: stem_conv.stem_conv3d_reference(x, w, b, sy, sx), 3, 1),
-                  "library_ms": ms(lambda: F.conv3d(x, w, b, (sy, sx, 1), k // 2))}
+            k3 = time_stem.k3_times(torch, common, stem_conv, stem_conv_cuda, x, w, b, sy, sx)
             k4 = {"ms": ms(lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx)),
                   "plain_ms": ms(lambda: stem_conv.stem_wgrad_reference(x, g, k, sy, sx), 3, 1),
                   "library_ms": ms(lambda: torch.nn.grad.conv3d_weight(
                       x, w.shape, g, (sy, sx, 1), k // 2), 3, 1)}
             host4 = common.host_ms(lambda: stem_conv_cuda.stem_wgrad(x, g, k, sy, sx))
             dt = "float32" if dtype == torch.float32 else "bfloat16"
-            k3["bound_ms"], k3["bound_by"] = common.bound((x.numel() + w.numel() + b.numel() + out.numel()) * item,
-                                                          ops, dt)
             k4["bound_ms"], k4["bound_by"] = common.bound((x.numel() + g.numel()) * item + dw.numel() * 4, ops, dt)
-            for kname, t in (("K3", k3), ("K4", k4)):
-                print(f"  {name} {kname}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                      f"{t['library_ms']:.4f} ms ({'F.conv3d' if kname == 'K3' else 'conv3d_weight'}), bound "
-                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (CUDA events)"
-                      + (f"; host {host4:.4f} ms per wrapper call" if kname == "K4" else ""))
+            print(f"  {name} K3: launch alone {k3['ms']:.4f} ms, wrapper {k3['wrapper_ms']:.4f} ms (host "
+                  f"{k3['host_ms']:.4f} ms per call), plain {k3['plain_ms']:.4f} ms, library "
+                  f"{k3['library_ms']:.4f} ms (F.conv3d), bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}) "
+                  f"(CUDA events)")
+            print(f"  {name} K4: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, library "
+                  f"{k4['library_ms']:.4f} ms (conv3d_weight), bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}) "
+                  f"(CUDA events); host {host4:.4f} ms per wrapper call")
             timings[name] = (k3, k4)
             if name.startswith("conv0") and dtype == torch.float32:  # the training slice's shape
                 entries = {"stem_fwd": dict(k3, max_abs_err=err3), "stem_wgrad": dict(k4, max_abs_err=err4)}
@@ -551,7 +565,7 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
-    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align
+    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align, time_stem
 
     t_start = time.perf_counter()
     print("== phase 1: device")
@@ -577,7 +591,8 @@ def main() -> int:
 
     nms_entry, nms_times = _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms)
     roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align)
-    stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, _stem_cases(torch))
+    stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem,
+                                           _stem_cases(torch))
 
     batches = common.slice_batches(3)
     runs = {}
@@ -621,10 +636,12 @@ def main() -> int:
     for case, t in roi_times.items():
         print(f"  roi_align {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms (host "
               f"{t['host_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    for case, timed in stem_times.items():
-        for kname, t in zip(("K3", "K4"), timed):
-            print(f"  stem {kname} {case}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for case, (k3, k4) in stem_times.items():
+        print(f"  stem K3 {case}: launch alone {k3['ms']:.4f} ms, wrapper {k3['wrapper_ms']:.4f} ms (host "
+              f"{k3['host_ms']:.4f} ms), plain {k3['plain_ms']:.4f} ms, library {k3['library_ms']:.4f} ms, bound "
+              f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+        print(f"  stem K4 {case}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, library "
+              f"{k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "

@@ -286,3 +286,158 @@ def test_k4_visits_every_chunk_once(B, Yo, Xo, xt, capacity):
     assert all(chunks and chunks == sorted(chunks) for chunks in order)
     assert [chunks[0] for chunks in order] == sorted(flat)[:grid]
     assert max(map(len, order)) - min(map(len, order)) <= 1
+
+
+# --------------------------------------------------------------------- #
+#  K3's schedule: tiles of (b, ty yo rows, tx xo columns, zt blocks of 4  #
+#  z values) taken by a persistent grid, each staged with the zero-       #
+#  padded input it reads (csrc/stem_conv.cu; stem_conv_cuda.fwd_plan,     #
+#  fwd_tiles, fwd_thread, fwd_block_tiles)                                #
+# --------------------------------------------------------------------- #
+
+K3_CASES = [  # (B, cin, Y, X, Z), k, sy, sx, cout
+    ((2, 1, 9, 11, 6), 3, 1, 1, 6),       # Z 6: 2 z blocks, the last half full; 11 columns in a tile
+    ((1, 2, 13, 11, 6), 7, 2, 2, 6),      # odd Y/X at stride 2, cin 2
+    ((2, 1, 7, 9, 5), 5, 1, 1, 18),       # Z 5, the 18-channel instance
+    ((1, 2, 11, 13, 7), 5, 2, 2, 18),
+    ((1, 1, 12, 10, 61), 3, 1, 1, 32),    # Z 61 (16 blocks, the last of 1 value), Xo 10 in tiles of 8
+    ((1, 1, 6, 5, 150), 3, 1, 2, 8),      # 38 z blocks: two z tiles (32 + 6), stride (1, 2)
+    ((2, 1, 13, 11, 64), 7, 2, 2, 18),    # the C1 stem's tile (16 z blocks x 8 columns)
+    ((1, 2, 3, 300, 4), 7, 2, 2, 32),     # one z block: 128 columns would not fit, halved to 64
+]
+
+
+def _k3_plan(shape, k, sy, sx, cout):
+    plan = stem_conv_cuda.fwd_plan(shape, k, sy, sx, cout)
+    return plan, stem_conv_cuda.fwd_tiles(shape, k, sy, sx, plan)
+
+
+@pytest.mark.parametrize("shape,k,sy,sx,cout", K3_CASES)
+def test_k3_writes_every_output_once(shape, k, sy, sx, cout):
+    """Over the persistent grid (``fwd_block_tiles`` of G = 5 blocks, or one
+    per tile where there are fewer), each block's tiles (``fwd_tiles``) and
+    each tile's threads (``fwd_thread``), every output (b, co, yo, xo, z) is
+    written exactly once; a block has at most 256 threads, whole warps."""
+    B, cin, Y, X, Z = shape
+    Yo, Xo = -(-Y // sy), -(-X // sx)
+    plan, tiles = _k3_plan(shape, k, sy, sx, cout)
+    assert len(tiles) == plan["n_tiles"] and plan["threads"] % 32 == 0 and plan["threads"] <= 256
+    assert plan["zt"] * plan["tx"] * plan["ty"] <= plan["threads"] and plan["smem"] <= stem_conv_cuda.SMEM_MAX
+    grid = min(plan["n_tiles"], 5)
+    count = np.zeros((B, cout, Yo, Xo, Z), np.int64)
+    for tile in (i for blk in range(grid) for i in stem_conv_cuda.fwd_block_tiles(blk, grid, plan["n_tiles"])):
+        b, (yo0, yo1), (xo0, xo1), (z0, z1), _ = tiles[tile]
+        for t in range(plan["threads"]):
+            zl, xl, yl = stem_conv_cuda.fwd_thread(t, plan)
+            yo, xo, z = yo0 + yl, xo0 + xl, z0 + 4 * zl
+            if yl >= plan["ty"] or yo >= yo1 or xo >= xo1 or z >= z1:  # the kernel's early return
+                continue
+            count[b, :, yo, xo, z:min(z + 4, Z)] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape,k,sy,sx,cout", K3_CASES)
+def test_k3_window_covers_every_read(shape, k, sy, sx, cout):
+    """Each block's staged tile (rows x cols x 4 nq values from its first
+    input coordinate) holds every padded input its outputs read: rows
+    yo * sy - p .. + k - 1, columns likewise, z - p .. z + p; and a thread's
+    three float4s, from value 4 * its z block, lie in the row."""
+    p = k // 2
+    plan, tiles = _k3_plan(shape, k, sy, sx, cout)
+    rows, cols, nz = plan["rows"], plan["cols"], 4 * plan["nq"]
+    assert rows == (plan["ty"] - 1) * sy + k and cols == (plan["tx"] - 1) * sx + k
+    assert 4 * (plan["zt"] - 1) + 12 <= nz
+    for b, (yo0, yo1), (xo0, xo1), (z0, z1), (ylo, xlo, zlo) in tiles:
+        assert ylo <= yo0 * sy - p and (yo1 - 1) * sy + p < ylo + rows
+        assert xlo <= xo0 * sx - p and (xo1 - 1) * sx + p < xlo + cols
+        assert zlo <= z0 - p and z1 - 1 + p < zlo + nz
+        # a thread's strip: input z = 4 * zb - p + i, at row value 4 * zl + 4 - p + i, within its 12
+        assert z0 - zlo == 4 and 0 <= 4 - p and 4 - p + 3 + k - 1 < 12
+
+
+@pytest.mark.parametrize("n_tiles,capacity", [(7, 528), (4096, 528), (4096, 396), (2039, 264)])
+def test_k3_blocks_take_every_tile_once(n_tiles, capacity):
+    """K3's persistent grid: G = min(tiles, capacity) blocks, none idle;
+    every tile taken once, each block's in increasing order, the blocks'
+    counts one apart at most."""
+    grid = min(n_tiles, capacity)
+    order = [stem_conv_cuda.fwd_block_tiles(i, grid, n_tiles) for i in range(grid)]
+    assert sorted(t for tiles in order for t in tiles) == list(range(n_tiles))
+    assert all(tiles and tiles == sorted(tiles) for tiles in order)
+    assert max(map(len, order)) - min(map(len, order)) <= 1
+
+
+@pytest.mark.parametrize("item", [4, 2])
+@pytest.mark.parametrize("shape,k,sy,sx,cout", [K3_CASES[0], K3_CASES[6], K3_CASES[7],
+                                                ((8, 1, 128, 128, 64), 7, 2, 2, 18),
+                                                ((2, 1, 128, 128, 64), 3, 1, 1, 18)])
+def test_k3_shared_memory(shape, k, sy, sx, cout, item):
+    """K3's shared memory: the float32 filter (channels rounded up to 4)
+    and ``nbuf`` staged tiles of ``item``-byte values; two buffers only
+    where two blocks of them fit on an SM, and at most what a block has."""
+    plan = stem_conv_cuda.fwd_plan(shape, k, sy, sx, cout, item)
+    cin = shape[1]
+    tile = cin * plan["rows"] * plan["cols"] * 4 * plan["nq"] * item
+    filt = cin * k**3 * plan["cs"] * 4
+    assert plan["smem"] == filt + plan["nbuf"] * tile <= stem_conv_cuda.SMEM_MAX
+    assert (plan["nbuf"] == 2) == (2 * (filt + 2 * tile + 1024) <= stem_conv_cuda.SM_SMEM)
+
+
+def k3_model(x, w, b, sy, sx):
+    """K3's output computed tile by tile as the kernel reads it: each
+    block's staged tile (zeros outside x), then for output (yl, xl, 4 zl +
+    e) of the tile the float32 sum over (ci, ky, kx, kz), in that order, of
+    tile[ci, yl * sy + ky, xl * sx + kx, 4 zl + e + 4 - p + kz] times the
+    filter; cast to x's dtype, then the bias added in that dtype."""
+    B, cin, Y, X, Z = x.shape
+    cout, k = w.shape[0], w.shape[-1]
+    Yo, Xo = -(-Y // sy), -(-X // sx)
+    p = k // 2
+    plan, tiles = _k3_plan(tuple(x.shape), k, sy, sx, cout)  # the tiles in any order: each is written once
+    rows, cols, nz, zt, tx, ty = plan["rows"], plan["cols"], 4 * plan["nq"], plan["zt"], plan["tx"], plan["ty"]
+    m = max(rows, cols, nz)  # room for every tile past the edges
+    xp = torch.nn.functional.pad(x.float(), (m, m, m, m, m, m))
+    wf = w.float()
+    acc = torch.empty((B, cout, Yo, Xo, Z))
+    for bb, (yo0, yo1), (xo0, xo1), (z0, z1), (ylo, xlo, zlo) in tiles:
+        tile = xp[bb, :, m + ylo:m + ylo + rows, m + xlo:m + xlo + cols, m + zlo:m + zlo + nz]
+        s = torch.zeros((cout, ty, tx, 4 * zt))
+        for ci in range(cin):
+            for ky in range(k):
+                for kx in range(k):
+                    for kz in range(k):
+                        v = tile[ci, ky:ky + sy * (ty - 1) + 1:sy, kx:kx + sx * (tx - 1) + 1:sx,
+                                 4 - p + kz:4 - p + kz + 4 * zt]
+                        s += v[None] * wf[:, ci, ky, kx, kz].view(cout, 1, 1, 1)
+        acc[bb, :, yo0:yo1, xo0:xo1, z0:z1] = s[:, :yo1 - yo0, :xo1 - xo0, :z1 - z0]
+    return acc.to(x.dtype) + b.to(x.dtype).view(1, cout, 1, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k,sy,sx,cout", K3_CASES)
+def test_k3_model_matches_reference(shape, k, sy, sx, cout, dtype):
+    """The kernel's tiles and indexing against the plain K3: float32 within
+    1e-5 of max|ref| (the same products summed in another order); bfloat16
+    within 1e-2 (a sum near a rounding boundary lands one bf16 ulp apart),
+    phase 3c's tolerances."""
+    B, cin, Y, X, Z = shape
+    rng = np.random.RandomState(12)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dt)
+    w = torch.from_numpy((rng.randn(cout, cin, k, k, k) * 0.2).astype(np.float32)).to(dt)
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(dt)
+    want = stem_conv.stem_conv3d_reference(x, w, b, sy, sx)
+    got = k3_model(x, w, b, sy, sx)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = (1e-5 if dtype == "float32" else 1e-2) * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("shape,k,sy,sx", [SHAPES[0], SHAPES[2], SHAPES[3]])
+def test_k3_model_matches_jax_kernel(shape, k, sy, sx):
+    """The kernel's tiles and indexing against JAX's stem kernel in
+    interpret mode, float32, 2e-5 as ``test_forward_matches_jax_kernel``."""
+    x, w, b = _inputs(shape, k, seed=13)
+    want = np.asarray(jstem(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), sy, sx, True))
+    got = np.moveaxis(k3_model(*_to_torch(x, w, b), sy, sx).numpy(), 1, -1)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
