@@ -7,8 +7,8 @@ Run from the repository root with no arguments:
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
   1. device: require CUDA, print the card (``nvidia-smi`` name and power
-     limit) and the float32 precision switches (TF32 off for convs and
-     matmuls);
+     limit), the float32 precision switches (TF32 off for convs and
+     matmuls) and which of pandas, sklearn and matplotlib import there;
   2. build the three kernel sources in parallel, one nvcc each: NMS
      (``csrc/nms.cu``), pyramid RoIAlign (``csrc/roi_align.cu``) and the stem
      conv's forward and weight gradient (``csrc/stem_conv.cu``);
@@ -64,7 +64,27 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      from the same weights and draws the cuDNN stem (the opt-in unset) gives
      the same loss and gradients within the stated tolerance, and both
      step times are printed; small 3D retina_unet and retina_net train steps
-     on the card agree with the CPU run of the same weights and draws.
+     on the card agree with the CPU run of the same weights and draws;
+  8. whole-patient test inference through ``medicaldetectiontoolkit_torch.exec``
+     (``--mode test``) on synthetic LIDC patients, each experiment directory
+     prepared as a training run leaves one (config snapshot, hold-out split,
+     ``epoch_ranking.npy``, two ranked checkpoints of random weights written by
+     ``save_checkpoint``; random weights already score detections above
+     ``min_det_thresh``): 3D Retina U-Net at LIDC width on a patient of z 128 x
+     y 256 x x 256 (27 patches x 4 mirrors x 2 checkpoints) in float32 and
+     bfloat16, K1 counted once per chunk, and every chunk's NMS inputs run
+     through the plain NMS on the same card after the timed run, giving the
+     same keep lists (so the same consolidated boxes); 3D Mask R-CNN at LIDC width in
+     float32 with K1 (2 per chunk) and K2 (the classify-all chunks) counted; 2D
+     LIDC Retina U-Net (patch 288, start_filts 48, batch 20, one slice of 3D
+     context, 2D->3D merging) on z 16 x 288 x 288; and two small 3D
+     patients on the card against the CPU: raw detections of each patch
+     forward as phase 4b holds them (as a set), a forward that differs only as a proven
+     near tie in the NMS order (one flipped pair of overlapping boxes of one
+     class, their scores within 1e-5; at most 1% of the forwards), the
+     consolidated ones within 1e-5 in score and 1e-3 voxels, the same AP.
+     ms per patient, its split and patches/s are printed; no module of
+     pandas, sklearn, matplotlib or jax is loaded.
 
 The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
@@ -76,10 +96,13 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -548,6 +571,320 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
         raise AssertionError(f"small {model} train step: the card differs from the CPU reference")
 
 
+PATIENT_3D = (128, 256, 256)  # z, y, x: 27 patches of 128 x 128 x 64
+PATIENT_2D = (16, 288, 288)  # one patch of 288 x 288 per slice
+BANNED = ("pandas", "sklearn", "matplotlib", "jax", "jaxlib", "flax", "optax")
+
+
+def _host_packages():
+    """Which of pandas, sklearn and matplotlib import on this machine (in a
+    child process: this one must not load them)."""
+    code = ("import importlib\nfor m in ('pandas', 'sklearn', 'matplotlib'):\n    try:\n        "
+            "importlib.import_module(m); print(m, 'imports')\n    except ImportError as e:\n        "
+            "print(m, 'does not import:', e)")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120).stdout.strip()
+
+
+def _quietly(log_path, fn, *args, **kwargs):
+    """``fn`` with the experiment loggers' console lines sent to ``log_path``
+    (each fold's ``exec.log`` keeps them too)."""
+    with open(log_path, "a") as handle, contextlib.redirect_stdout(handle):
+        return fn(*args, **kwargs)
+
+
+def _timed_test(torch, run_lidc_test, cf, log_path, device="cuda"):
+    """``exec --mode test`` of ``cf``'s experiment; (result, host seconds
+    ending in a synchronise)."""
+    t0 = time.perf_counter()
+    out = _quietly(log_path, run_lidc_test, cf, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _patient_line(name, out, wall, forwards, card):
+    t = out["predictor"].times
+    stitch = t["patient"] - t["forward"]
+    n_det = sum(b["box_type"] == "det" for r in out["results"] for bl in r[0] for b in bl)
+    print(f"  {name}: {wall * 1e3:.1f} ms per patient (forward {t['forward'] * 1e3:.1f}, stitching "
+          f"{stitch * 1e3:.1f}, consolidation {t['consolidation'] * 1e3:.1f}, evaluation "
+          f"{out['evaluation_s'] * 1e3:.1f} ms); {forwards} patch forwards, {forwards / wall:.2f} patches/s "
+          f"({forwards / t['forward']:.2f} over the forward); {n_det} consolidated detections ({card})")
+    if not n_det:
+        raise AssertionError(f"{name}: no detection survived consolidation")
+    return {"ms": wall * 1e3, "forward_ms": t["forward"] * 1e3, "stitching_ms": stitch * 1e3,
+            "consolidation_ms": t["consolidation"] * 1e3, "evaluation_ms": out["evaluation_s"] * 1e3,
+            "patches_per_s": forwards / wall}
+
+
+def _same_consolidated(np, a, b, score_tol=0.0, coord_tol=0.0):
+    """Two consolidated results lists: the same patients, boxes, classes and
+    labels in the same order; scores and (score-weighted mean) coords within
+    the tolerances. Returns the largest differences (score, coords)."""
+    worst = [0.0, 0.0]
+    if [r[1] for r in a] != [r[1] for r in b]:
+        raise AssertionError("consolidated results: the patients differ")
+    for (ba, _), (bb, _) in zip(a, b):
+        for la, lb in zip(ba, bb):
+            if len(la) != len(lb):
+                raise AssertionError(f"consolidated results: {len(la)} boxes against {len(lb)}")
+            for x, y in zip(la, lb):
+                if x["box_type"] != y["box_type"] or x.get("box_pred_class_id") != y.get("box_pred_class_id") \
+                        or x.get("box_label") != y.get("box_label"):
+                    raise AssertionError(f"consolidated results: {x} against {y}")
+                worst[1] = max(worst[1], float(np.abs(np.asarray(x["box_coords"], float)
+                                                      - np.asarray(y["box_coords"], float)).max()))
+                if x["box_type"] == "det":
+                    worst[0] = max(worst[0], abs(float(x["box_score"]) - float(y["box_score"])))
+    if worst[0] > score_tol or worst[1] > coord_tol:
+        raise AssertionError(f"consolidated results differ: max|score| {worst[0]:.3e} (tol {score_tol}), "
+                             f"max|coords| {worst[1]:.3e} (tol {coord_tol})")
+    return worst
+
+
+def _box_iou(np, a, b):
+    """IoU of two boxes (y1, x1, y2, x2[, z1, z2]) as the NMS computes it
+    (``ops/nms.py::_iou_rows``, pixel offset 1)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    inter, area_a, area_b = 1.0, 1.0, 1.0
+    for lo, hi in ((0, 2), (1, 3), (4, 5))[: len(a) // 2]:
+        inter *= max(min(a[hi], b[hi]) - max(a[lo], b[lo]) + 1.0, 0.0)
+        area_a *= a[hi] - a[lo] + 1.0
+        area_b *= b[hi] - b[lo] + 1.0
+    return inter / (area_a + area_b - inter)
+
+
+def _near_tie_forwards(np, raw_a, raw_b, iou_threshold, score_tol=1e-5):
+    """Raw detections of two runs, per patient and patch forward (rank,
+    mirror, patch): equal as phase 4b holds them (coords and classes equal,
+    scores within ``score_tol``), matched as a set, since two boxes whose
+    scores lie within the error may leave the top-k in either order (seen on
+    the card: one forward in 432). A forward that differs passes only as a
+    proven near tie in the NMS order: every box matched but one on each side,
+    the two of one class, overlapping (IoU above the NMS threshold, so the
+    NMS keeps one of them) and within ``score_tol`` in score (the card-vs-CPU
+    error bounds the gap between the two kept scores of a flipped pair). At
+    most 1% of a patient's forwards may be such near ties. Returns {pid:
+    number of near-tie forwards}."""
+    out = {}
+    for (ba, pid), (bb, pid_b) in zip(raw_a, raw_b):
+        if pid != pid_b:
+            raise AssertionError("raw predictions: the patients differ")
+        forwards = {}
+        for side, boxes in ((0, ba[0]), (1, bb[0])):
+            for b in boxes:
+                if b["box_type"] == "det":
+                    forwards.setdefault(b["patch_id"], ([], []))[side].append(b)
+        ties = 0
+        for patch_id, (da, db) in forwards.items():
+            rest_b = list(db)
+            rest_a = []
+            for x in da:
+                hit = next((j for j, y in enumerate(rest_b)
+                            if np.array_equal(x["box_coords"], y["box_coords"])
+                            and x["box_pred_class_id"] == y["box_pred_class_id"]
+                            and abs(x["box_score"] - y["box_score"]) < score_tol), None)
+                if hit is None:
+                    rest_a.append(x)
+                else:
+                    rest_b.pop(hit)
+            if not rest_a and not rest_b:
+                continue
+            desc = [[([round(float(v), 3) for v in x["box_coords"]], x["box_pred_class_id"],
+                      float(x["box_score"])) for x in r] for r in (rest_a, rest_b)]
+            if len(rest_a) != 1 or len(rest_b) != 1:
+                raise AssertionError(f"{pid} forward {patch_id}: unmatched boxes card {desc[0]}, CPU {desc[1]}: "
+                                     f"not one flipped pair")
+            x, y = rest_a[0], rest_b[0]
+            iou = _box_iou(np, x["box_coords"], y["box_coords"])
+            gap = abs(float(x["box_score"]) - float(y["box_score"]))
+            print(f"  {pid} forward {patch_id}: near tie, card keeps {desc[0][0]}, CPU keeps {desc[1][0]}; IoU "
+                  f"{iou:.3f} (NMS threshold {iou_threshold}), score gap {gap:.3e} (tol {score_tol})")
+            if x["box_pred_class_id"] != y["box_pred_class_id"] or not iou > iou_threshold or not gap < score_tol:
+                raise AssertionError(f"{pid} forward {patch_id}: the card and the CPU keep different boxes that "
+                                     f"are not a near tie in the NMS order")
+            ties += 1
+        print(f"  {pid}: raw detections {sum(len(f[0]) for f in forwards.values())} / "
+              f"{sum(len(f[1]) for f in forwards.values())}; {ties} of {len(forwards)} patch forwards keep other "
+              f"boxes, each a proven near tie in the NMS order")
+        if ties > 0.01 * len(forwards):
+            raise AssertionError(f"{pid}: {ties} of {len(forwards)} patch forwards differ from the CPU reference")
+        out[pid] = ties
+    return out
+
+
+class _RecordedNMS:
+    """An NMS entry point that keeps every call's inputs and outputs (device
+    tensors, no copies) for a check after the timed run."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+    def check_plain(self, torch, plain):
+        """Every recorded call through ``plain``: keep indices and mask equal.
+        Returns the number of boxes kept."""
+        kept = 0
+        for args, kwargs, (idx, mask) in self.calls:
+            p_idx, p_mask = plain(*args, **kwargs)
+            if not (torch.equal(idx, p_idx) and torch.equal(mask, p_mask)):
+                raise AssertionError("the kernel NMS and the plain NMS differ on a chunk of the whole patient")
+            kept += int(mask.sum())
+        self.calls = []
+        return kept
+
+
+@contextlib.contextmanager
+def _class_attr(cls, name, value):
+    saved = vars(cls)[name]
+    setattr(cls, name, value)
+    try:
+        yield
+    finally:
+        setattr(cls, name, saved)
+
+
+def _raw_boxes(cf):
+    """The raw (pre-consolidation) predictions the last test run pickled."""
+    import pickle
+
+    name = "raw_pred_boxes_hold_out_list" if cf.hold_out_test_set else "raw_pred_boxes_list"
+    with open(os.path.join(cf.exp_dir, "fold_0", f"{name}.pickle"), "rb") as handle:
+        return pickle.load(handle)
+
+
+def _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root):
+    """Phase 8: whole patients through the port's test mode. Returns the
+    main-path launch counts and the per-patient times."""
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
+    from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
+    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
+    from medicaldetectiontoolkit_torch.testing import make_lidc_experiment, run_lidc_test
+
+    log_path = os.path.join(root, "exec_console.log")
+    data3d, data2d = os.path.join(root, "data3d"), os.path.join(root, "data2d")
+    t0 = time.perf_counter()
+    generate_synthetic_lidc(data3d, n_patients=1, shape=PATIENT_3D)
+    generate_synthetic_lidc(data2d, n_patients=1, shape=PATIENT_2D)
+    print(f"== phase 8: whole patients through exec --mode test (synthetic patients {PATIENT_3D} and {PATIENT_2D}, "
+          f"z y x, made in {time.perf_counter() - t0:.1f} s)")
+
+    def experiment(name, env, data_dir, overrides=None, device="cuda", n_patients=1):
+        """Two ranked checkpoints of random weights, every patient tested."""
+        t0 = time.perf_counter()
+        cf = _quietly(log_path, make_lidc_experiment, root, env, dict(overrides or {}, test_n_epochs=2),
+                      n_patients=n_patients, seeds=(0, 1), epochs=(3, 1), device=device, hold_out=True,
+                      data_dir=data_dir, exp_name=name)
+        print(f"  experiment directory (config snapshot, 2 checkpoints) in {time.perf_counter() - t0:.1f} s")
+        return cf
+
+    def chunks_of(cf, shape_zyx):
+        z, y, x = shape_zyx
+        ps = list(cf.patch_size) + ([1] if cf.dim == 2 else [])
+        n = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), ps))
+        return n, math.ceil(n / cf.batch_size) * 4 * 2  # x 4 mirror variants x 2 checkpoints
+
+    launches = {"nms": 0, "roi_align": 0}
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        name = f"retina_unet 3D {dtype}"
+        print(f"== phase 8: {name} at LIDC width (patch 128x128x64, sf 18, ef 36, batch 8), {PATIENT_3D}, "
+              f"4 mirrors x 2 checkpoints, WBC")
+        cf = experiment(f"exp_retina_{dtype}", {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_DTYPE": dtype},
+                        data3d)
+        n_patches, n_chunks = chunks_of(cf, PATIENT_3D)
+        recorder = _RecordedNMS(nms_ops.batched_nms_auto)
+        nms_cuda.batched_nms.launches = 0
+        with _class_attr(RetinaNetDetector, "nms_fn", recorder):
+            out, wall = _timed_test(torch, run_lidc_test, cf, log_path)
+        counted = nms_cuda.batched_nms.launches
+        print(f"  {n_patches} patches, {n_chunks} chunks of {cf.batch_size}: K1 launches {counted} (1 per chunk)")
+        if counted != n_chunks or len(recorder.calls) != n_chunks:
+            raise AssertionError(f"{name}: expected {n_chunks} NMS kernel launches, counted {counted}")
+        launches["nms"] += counted
+        times[name] = _patient_line(name, out, wall, n_patches * 8, card)
+
+        # every chunk's NMS again through the plain version, on the same
+        # inputs (the same heads, as phase 4): equal keep lists everywhere
+        # give the same raw boxes, so the same consolidated boxes
+        n_kept = recorder.check_plain(torch, nms_ops.batched_nms)
+        print(f"  kernel NMS == plain NMS on all {n_chunks} chunks of the patient ({n_kept} boxes kept), so the "
+              f"{sum(len(bl) for r in out['results'] for bl in r[0])} consolidated boxes are the plain path's")
+        del out, recorder
+        torch.cuda.empty_cache()
+
+    name = "mrcnn 3D float32"
+    print(f"== phase 8: {name} at LIDC width, {PATIENT_3D}, 4 mirrors x 2 checkpoints, WBC")
+    cf = experiment("exp_mrcnn", {"MDT_DIM": "3", "MDT_MODEL": "mrcnn"}, data3d)
+    n_patches, n_chunks = chunks_of(cf, PATIENT_3D)
+    n_classify = math.ceil(cf.batch_size * cf.post_nms_rois_inference / cf.roi_chunk_size)
+    nms_cuda.batched_nms.launches = roi_align_cuda.pyramid_roi_align.launches = 0
+    out, wall = _timed_test(torch, run_lidc_test, cf, log_path)
+    counted = {"nms": nms_cuda.batched_nms.launches, "roi_align": roi_align_cuda.pyramid_roi_align.launches}
+    expect = {"nms": 2 * n_chunks, "roi_align": n_classify * n_chunks}
+    print(f"  {n_patches} patches, {n_chunks} chunks: launches {counted} (expected {expect}: K1 2 per chunk, K2 "
+          f"{n_classify} classify-all launches per chunk, no mask pass as return_masks_in_test is "
+          f"{cf.return_masks_in_test})")
+    if counted != expect:
+        raise AssertionError(f"{name}: expected kernel launches {expect}, counted {counted}")
+    for k in launches:
+        launches[k] += counted[k]
+    times[name] = _patient_line(name, out, wall, n_patches * 8, card)
+    del out
+    torch.cuda.empty_cache()
+
+    name = "retina_unet 2D float32"
+    print(f"== phase 8: {name}, LIDC 2D (patch 288x288, sf 48, batch 20, 1 slice of 3D context, 2D->3D merge), "
+          f"{PATIENT_2D}")
+    cf = experiment("exp_2d", {"MDT_DIM": "2", "MDT_MODEL": "retina_unet"}, data2d,
+                    {"n_3D_context": 1, "n_channels": 3})
+    n_patches, n_chunks = chunks_of(cf, PATIENT_2D)
+    nms_cuda.batched_nms.launches = 0
+    out, wall = _timed_test(torch, run_lidc_test, cf, log_path)
+    counted = nms_cuda.batched_nms.launches
+    print(f"  {n_patches} slice patches, {n_chunks} chunks of {cf.batch_size}: K1 launches {counted} (1 per chunk)")
+    if counted != n_chunks:
+        raise AssertionError(f"{name}: expected {n_chunks} NMS kernel launches, counted {counted}")
+    launches["nms"] += counted
+    if not all(len(b["box_coords"]) == 6 for r in out["results"] for bl in r[0] for b in bl):
+        raise AssertionError("2D->3D merging left boxes without z extents")
+    times[name] = _patient_line(name, out, wall, n_patches * 8, card)
+    del out
+    torch.cuda.empty_cache()
+
+    print("== phase 8b: small 3D patients (2 of 16x48x48, patch 32x32x8, sf 8), exec --mode test on the card and "
+          "the CPU")
+    small = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_PATCH": "32,32,8", "MDT_LIDC_BS": "4"}
+    cf = experiment("exp_small", small, os.path.join(root, "data_small"),
+                    {"start_filts": 8, "end_filts": 16, "n_rpn_features": 16, "pre_nms_limit": 2000}, device="cpu",
+                    n_patients=2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out, wall = _timed_test(torch, run_lidc_test, cf, log_path, device=device)
+        runs[device] = (out, _raw_boxes(cf))
+        print(f"  exec --mode test on the {device}: {wall:.1f} s")
+    (og, rg), (oc, rc) = runs["cuda"], runs["cpu"]
+    _near_tie_forwards(np, rg, rc, cf.detection_nms_threshold)
+    for (bg, pid), (bc, _) in zip(og["results"], oc["results"]):
+        worst = _same_consolidated(np, [[bg, pid]], [[bc, pid]], score_tol=1e-5, coord_tol=1e-3)
+        print(f"  {pid}: {sum(b['box_type'] == 'det' for b in bg[0])} consolidated detections, max|score| "
+              f"{worst[0]:.3e} (tol 1e-05), max|coords| {worst[1]:.3e} voxels (tol 0.001)")
+    ap = [[float(s["ap"]) for s in o["evaluator"].return_metrics()[0]] for o in (og, oc)]
+    print(f"  AP per class and level: card {ap[0]}, CPU {ap[1]}")
+    if not np.array_equal(ap[0], ap[1], equal_nan=True):
+        raise AssertionError("small patient: the evaluator's AP differs between the card and the CPU")
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    print(f"  modules of {', '.join(BANNED)} loaded: {loaded}")
+    if loaded:
+        raise AssertionError(f"the port's test mode loaded {loaded}")
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -578,6 +915,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"  cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    print("  " + _host_packages().replace("\n", "\n  "))
 
     print("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
@@ -625,7 +963,14 @@ def main() -> int:
     for model in ("retina_unet", "retina_net"):
         _small_train(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
 
+    with tempfile.TemporaryDirectory() as root:
+        patients = _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root)
+
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
+    for pname, t in patients["times"].items():
+        print(f"  whole patient {pname}: {t['ms']:.1f} ms per patient (forward {t['forward_ms']:.1f}, stitching "
+              f"{t['stitching_ms']:.1f}, consolidation {t['consolidation_ms']:.1f}, evaluation "
+              f"{t['evaluation_ms']:.1f}), {t['patches_per_s']:.2f} patches/s")
     for dtype, r in runs.items():
         print(f"  retina_unet {dtype}: {r['per_chunk_ms']:.1f} ms per chunk of 8 patches")
     for dtype, r in mruns.items():
@@ -652,14 +997,14 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/nms.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
-        + sum(r["launches"]["nms"] for r in truns.values()),
+        + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
-        "launches": sum(r["launches"]["roi_align"] for r in mruns.values()),
+        "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"],
         **roi_entry,
     }, {
         "name": "stem_fwd",

@@ -1,0 +1,135 @@
+"""Data-loading utilities of the port's test path: CV folds, patch grids,
+padding.
+
+Counterpart of the test-time half of
+``medicaldetectiontoolkit_tpu/data/dataloader_utils.py`` (same contracts,
+the port's own copy): ``fold_generator`` (the same (seed, n_splits, len_data)
+give the same fold memberships), ``get_patch_crop_coords`` with its
+``_axis_intervals`` (overlapping patch grid with a minimum overlap, per-slice
+z-tiling for patch z == 1) and ``pad_nd_image``. The training half
+(class-balanced sampling, npz packing) comes with the training drivers.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+
+
+def _rotation_splits(n_items, n_splits):
+    """Yield (train, val, test) position lists for each of n_splits folds.
+
+    The scheme is a block rotation over the (already shuffled) positions
+    0..n_items-1: three leading chunks of size ceil(n/k) seed test/val/train;
+    each fold then retires the test block into the train pool, promotes val to
+    test, and draws a fresh val chunk off the train front. The first
+    ``(-n) mod k`` drawn chunks are one element short so sizes balance, and
+    when n mod k == 1 the second-to-last fold donates val's last element to
+    the retiring block to even out the final fold.
+    """
+    size = int(np.ceil(n_items / n_splits))
+    shortfall = (-n_items) % n_splits  # number of one-smaller val chunks
+    positions = list(range(n_items))
+    test, val, train = positions[:size], positions[size : 2 * size], positions[2 * size :]
+    for fold in range(n_splits):
+        yield train, val, test
+        retired = list(test)
+        if fold == n_splits - 2 and n_items % n_splits == 1:
+            retired.append(val[-1])
+            val = val[:-1]
+        take = size - 1 if fold < shortfall else size
+        test, val, train = val, train[:take], train[take:] + retired
+
+
+class fold_generator:
+    """n-fold CV splitter with inner-loop test set.
+
+    Same (seed, n_splits, len_data) -> same fold memberships as the
+    reference's splitter — that mapping is the compatibility contract for
+    resuming / comparing experiments (pinned by exact parity tests).
+    """
+
+    def __init__(self, seed, n_splits, len_data):
+        self.myseed = seed
+        self.n_splits = n_splits
+        self.len_data = len_data
+
+    def get_fold_names(self):
+        rgen = np.random.RandomState(self.myseed)
+        names = np.arange(self.len_data)
+        rgen.shuffle(names)
+        return [
+            [names[tr], names[val], names[te], fold]
+            for fold, (tr, val, te) in enumerate(_rotation_splits(self.len_data, self.n_splits))
+        ]
+
+
+def _axis_intervals(extent, psize, min_overlap):
+    """(start, end) float intervals tiling one axis with >= min_overlap."""
+    n = int(np.ceil(extent / psize))
+    if n == 1:
+        return [(0, extent)]
+    stride = (extent - psize) / (n - 1)
+    if psize - stride < min_overlap:
+        n += 1
+        stride = (extent - psize) / (n - 1)
+    centers = np.round(psize / 2 + stride * np.arange(n))
+    half = psize / 2
+    return [(c - half, c + half) for c in centers]
+
+
+def get_patch_crop_coords(img, patch_size, min_overlap=30):
+    """Overlapping patch grid over an image; (n_patches, 2*dim) int coords.
+
+    Outer patches pinned at the borders, inner centers evenly spaced; an
+    extra patch is inserted per axis when overlap would fall below
+    ``min_overlap``. patch_size z == 1 emits one patch per slice
+    (2D-on-3D mode). Order: y-major, then x, then z.
+    """
+    intervals = [_axis_intervals(e, p, min_overlap) for e, p in zip(img.shape, patch_size)]
+    is_3d = len(intervals) == 3
+    boxes = []
+    for (y0, y1), (x0, x1) in itertools.product(intervals[0], intervals[1]):
+        if not is_3d:
+            boxes.append((y0, y1, x0, x1))
+        elif patch_size[2] == 1:
+            boxes.extend((y0, y1, x0, x1, z, z + 1) for z in range(img.shape[2]))
+        else:
+            boxes.extend((y0, y1, x0, x1, z0, z1) for z0, z1 in intervals[2])
+    return np.array(boxes).astype(int)
+
+
+def pad_nd_image(image, new_shape=None, mode="edge", kwargs=None, return_slicer=False, shape_must_be_divisible_by=None):
+    """Pad trailing axes to a minimum shape and/or divisibility constraint.
+
+    new_shape applies to the LAST len(new_shape) axes; axes are never cropped
+    (new_shape is a minimum). Padding splits evenly, extra pixel above. With
+    return_slicer, also returns slices that crop the result back to the
+    original shape.
+    """
+    kwargs = kwargs or {}
+    div = shape_must_be_divisible_by
+    if new_shape is None:
+        assert div is not None
+        assert isinstance(div, (list, tuple, np.ndarray))
+        new_shape = image.shape[-len(div) :]
+
+    tail = np.asarray(image.shape[-len(new_shape) :], dtype=np.int64)
+    target = np.maximum(np.asarray(new_shape, dtype=np.int64), tail)
+    if div is not None:
+        if not isinstance(div, (list, tuple, np.ndarray)):
+            div = [div] * len(target)
+        assert len(div) == len(target)
+        div = np.asarray(div, dtype=np.int64)
+        target = -(-target // div) * div  # round up; exact multiples unchanged
+
+    lead = image.ndim - len(target)
+    diff = target - tail
+    below = diff // 2
+    pad_widths = [(0, 0)] * lead + [(int(b), int(d - b)) for b, d in zip(below, diff)]
+    padded = np.pad(image, pad_widths, mode, **kwargs)
+    if not return_slicer:
+        return padded
+    slicer = [slice(lo, size - hi) for (lo, hi), size in zip(pad_widths, padded.shape)]
+    return padded, slicer

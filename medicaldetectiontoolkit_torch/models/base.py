@@ -266,6 +266,14 @@ class Detector:
         if state.get("opt_state") is not None:
             self.optimizer.load_state_dict(state["opt_state"])
 
+    def jax_params(self):
+        """The parameters as a JAX param tree (nested dicts of numpy arrays
+        in flax's names, the layout of ``cf.stage_mode``): what a best
+        checkpoint's ``params.pkl`` holds in both packages."""
+        from medicaldetectiontoolkit_torch.utils import convert
+
+        return convert.torch_to_jax(self.module.state_dict(), self.module, getattr(self.cf, "stage_mode", "unroll"))
+
     def load_params(self, params, opt_state=None):
         """Load a JAX param tree (nested dicts of numpy arrays, as
         ``Detector.state_dict()["params"]`` of the JAX package holds it) and,

@@ -151,6 +151,9 @@ class RetinaNetDetector(base.Detector):
     """Host-facing RetinaNet with the reference's train/test_forward API."""
 
     with_seg_head = False
+    # the NMS kernel's entry point: the device-keyed dispatcher; a check
+    # swaps in another (the plain version, or one that records its calls)
+    nms_fn = staticmethod(nms_ops.batched_nms_auto)
 
     def build(self):
         cf = self.cf
@@ -189,7 +192,7 @@ class RetinaNetDetector(base.Detector):
         return self.module(img)
 
     def _finalize_outputs(self, class_logits, bb_deltas, seg_logits):
-        det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf)
+        det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf, nms_fn=self.nms_fn)
         seg_preds = None
         if seg_logits is not None:
             seg_preds = torch.argmax(seg_logits, dim=1, keepdim=True).to(torch.uint8)  # (b, 1, *spatial)

@@ -9,10 +9,16 @@ the same arrays from the same seed (``testing.py:98-131``);
 ``tests/test_torch_testing.py`` holds them equal.
 The config is a plain attribute bag, so an experiment's own config object
 (e.g. the JAX package's ``DefaultConfigs`` subclass) serves the port as well.
+
+``make_lidc_experiment`` and ``run_lidc_test`` set up and run the port's
+whole-patient test mode on synthetic LIDC patients (the tests, the smoke
+script's phase 8 and ``tools/time_patient.py``); ``assert_same`` is the
+tests' exact comparison of two results.
 """
 
 from __future__ import annotations
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -172,3 +178,109 @@ def make_batch(cf, seed=42):
         "pid": [str(i) for i in range(bsz)],
         "class_target": np.array([[lab[0] - 1] for lab in labels]),
     }
+
+
+def assert_same(a, b, path="value"):
+    """Recursive exact equality of two results: the same containers, keys
+    and key order, arrays of the same dtype, shape and values (NaN equal to
+    NaN), scalars of the same type and value."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and list(a) == list(b), (path, list(a), list(b))
+        for k in a:
+            assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), (path, type(a), type(b), len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype)
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), path
+    else:
+        assert type(a) is type(b) and (a == b or (a != a and b != b)), (path, a, b)
+
+
+_PINNED_CONFIGS = '''"""LIDC configs pinned to one setting (written by testing.make_lidc_experiment)."""
+
+import os
+
+from medicaldetectiontoolkit_torch.experiments.lidc_exp.configs import configs as _lidc_configs
+
+ENV = {env!r}
+OVERRIDES = {overrides!r}
+
+
+class configs(_lidc_configs):
+    def __init__(self, server_env=None):
+        saved = {{k: os.environ.get(k) for k in ENV}}
+        os.environ.update(ENV)
+        try:
+            _lidc_configs.__init__(self, server_env)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        for k, v in OVERRIDES.items():
+            setattr(self, k, v)
+'''
+
+
+def make_lidc_experiment(root, env, overrides=None, n_patients=4, shape=(16, 48, 48), seeds=(0, 1), epochs=(3, 1),
+                         device="cpu", hold_out=False, data_dir=None, exp_name="exp"):
+    """An experiment directory as a LIDC training run leaves one, on
+    synthetic patients, for the port's test mode (``exec --mode test``).
+
+    ``data_dir`` (default ``root/data``) gets ``n_patients`` synthetic
+    patients of ``shape`` (z, y, x) unless it holds some already;
+    ``root/exp_name`` is made by ``exec --mode create_exp`` from the port's
+    LIDC experiment, and its ``configs.py``
+    snapshot is then pinned to the ``MDT_*`` settings in ``env`` (read while
+    the config is built; ``MDT_LIDC_PP`` is set to the data) and to the
+    attribute ``overrides``. Fold 0 gets one best checkpoint per entry of
+    ``seeds`` (random weights drawn from it, saved by ``save_checkpoint`` as
+    epoch ``epochs[i]``) and ``epoch_ranking.npy``; the CV split is
+    ``fold_ids.pickle`` from ``fold_generator``, or with ``hold_out`` every
+    patient is tested (``hold_out_test_set``). Returns the exp dir's config.
+    """
+    import pickle
+
+    from medicaldetectiontoolkit_torch import exec as port_exec
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import fold_generator
+    from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.utils import exp_utils
+
+    data_dir, exp_dir = data_dir or os.path.join(root, "data"), os.path.join(root, exp_name)
+    if not (os.path.isdir(data_dir) and any("meta_info" in f for f in os.listdir(data_dir))):
+        generate_synthetic_lidc(data_dir, n_patients=n_patients, shape=tuple(shape))
+    n_patients = sum("meta_info" in f for f in os.listdir(data_dir))
+    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
+    port_exec.main(["--mode", "create_exp", "--exp_source", exp_source, "--exp_dir", exp_dir])
+    overrides = dict(overrides or {}, hold_out_test_set=bool(hold_out))
+    with open(os.path.join(exp_dir, "configs.py"), "w") as handle:
+        handle.write(_PINNED_CONFIGS.format(env=dict(env, MDT_LIDC_PP=data_dir), overrides=overrides))
+    cf = exp_utils.prep_exp(exp_source, exp_dir, is_training=False)
+    if not hold_out:
+        with open(os.path.join(exp_dir, "fold_ids.pickle"), "wb") as handle:
+            pickle.dump(fold_generator(cf.seed, cf.n_cv_splits, n_patients).get_fold_names(), handle)
+    fold_dir = os.path.join(exp_dir, "fold_0")
+    for seed, epoch in zip(seeds, epochs):
+        net = build_model(cf, None, device=device)
+        net.initialize(seed=seed)
+        exp_utils.save_checkpoint(os.path.join(fold_dir, f"{epoch}_best_checkpoint"),
+                                  {"params": net.jax_params(), "epoch": epoch})
+        del net
+    if len(epochs):
+        np.save(os.path.join(fold_dir, "epoch_ranking.npy"), np.asarray(epochs))
+    return cf
+
+
+def run_lidc_test(cf, device="cpu", folds=(0,)):
+    """``exec --mode test`` on the experiment of ``make_lidc_experiment``;
+    returns ``exec.main``'s result for fold ``folds[0]``."""
+    from medicaldetectiontoolkit_torch import exec as port_exec
+
+    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
+    argv = ["--mode", "test", "--exp_source", exp_source, "--exp_dir", cf.exp_dir, "--folds", *map(str, folds)]
+    return port_exec.main(argv, device=device)[folds[0]]

@@ -1,8 +1,10 @@
 """The port and ``chip_smoke.py`` import without jax, flax, optax, pandas,
 sklearn or matplotlib and without any module of the JAX package, running
 the one-stage and two-stage detectors (a training step of the one-stage
-ones with the opt-in stem path included) loads none of them either, and
-``chip_smoke.py`` refuses to run without a GPU."""
+ones with the opt-in stem path included) and the port's test mode
+(``exec --mode test``, then ``--mode analysis``) on a tiny synthetic LIDC
+set loads none of them either, and ``chip_smoke.py`` refuses to run without
+a GPU."""
 
 import os
 import shutil
@@ -45,6 +47,20 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.tools.ab_nms",
     "medicaldetectiontoolkit_torch.tools.time_nms",
     "medicaldetectiontoolkit_torch.tools.time_paths",
+    "medicaldetectiontoolkit_torch.tools.time_patient",
+    "medicaldetectiontoolkit_torch.config",
+    "medicaldetectiontoolkit_torch.data",
+    "medicaldetectiontoolkit_torch.data.dataloader_utils",
+    "medicaldetectiontoolkit_torch.data.seg_to_boxes",
+    "medicaldetectiontoolkit_torch.experiments",
+    "medicaldetectiontoolkit_torch.experiments.lidc_exp",
+    "medicaldetectiontoolkit_torch.experiments.lidc_exp.configs",
+    "medicaldetectiontoolkit_torch.experiments.lidc_exp.data_loader",
+    "medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing",
+    "medicaldetectiontoolkit_torch.utils.exp_utils",
+    "medicaldetectiontoolkit_torch.predictor",
+    "medicaldetectiontoolkit_torch.evaluator",
+    "medicaldetectiontoolkit_torch.exec",
     "chip_smoke",
 ]
 
@@ -72,6 +88,18 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "net.initialize(seed=0)\n"
         "net.train_forward(make_batch(cf, seed=0))\n"
         "assert net.module.fpn.stem0[0].stem_kernel\n"
+        "import tempfile\n"
+        "from medicaldetectiontoolkit_torch import exec as port_exec\n"
+        "from medicaldetectiontoolkit_torch.testing import make_lidc_experiment, run_lidc_test\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cf = make_lidc_experiment(root, {'MDT_DIM': '3', 'MDT_MODEL': 'retina_unet', 'MDT_LIDC_PATCH': '32,32,8',\n"
+        "                                     'MDT_LIDC_BS': '4'},\n"
+        "                              {'start_filts': 4, 'end_filts': 8, 'n_rpn_features': 8, 'pre_nms_limit': 500,\n"
+        "                               'n_cv_splits': 4})\n"
+        "    out = run_lidc_test(cf, device='cpu')\n"
+        "    assert any(b['box_type'] == 'det' for r in out['results'] for bl in r[0] for b in bl)\n"
+        "    port_exec.main(['--mode', 'analysis', '--exp_source', os.path.join('medicaldetectiontoolkit_torch',\n"
+        "                   'experiments', 'lidc_exp'), '--exp_dir', cf.exp_dir, '--folds', '0'])\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
         "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"
