@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      matmuls) and which of pandas, sklearn and matplotlib import there;
   2. build the three kernel sources in parallel, one nvcc each: NMS
      (``csrc/nms.cu``), pyramid RoIAlign (``csrc/roi_align.cu``) and the stem
-     conv's forward and weight gradient (``csrc/stem_conv.cu``);
+     conv's forward and weight gradient (``csrc/stem_conv.cu``); beside them
+     the native host library (``native/``, g++) that phases 8 and 9 use;
   3. NMS kernel vs plain PyTorch NMS on the card (the cases of
      ``tools/time_nms.py``): bit-identical keep lists on random, tied,
      all-invalid, ragged, sorted (ties across the walk's tiles) and
@@ -84,7 +85,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      class, their scores within 1e-5; at most 1% of the forwards), the
      consolidated ones within 1e-5 in score and 1e-3 voxels, the same AP.
      ms per patient, its split and patches/s are printed; no module of
-     pandas, sklearn, matplotlib or jax is loaded.
+     pandas, sklearn, matplotlib or jax is loaded;
+  9. training through ``medicaldetectiontoolkit_torch.exec`` (``--mode
+     train_test``) on ten synthetic LIDC patients of z 96 x 160 x 160: the
+     LIDC config's 3D Retina U-Net at full width (patch 128x128x64, pre-crop
+     156x156x96, batch 8, the config's 8 loader threads, the native
+     resample), ``MDT_STEM_PALLAS=1``, float32, 2 epochs x 3 train batches
+     and 2 ``val_sampling`` batches, then the test of fold 0's test patients
+     with the ranked checkpoints; then ``--resume_to_checkpoint`` of
+     ``last_checkpoint`` to a third epoch. Each train dispatch must launch
+     K3 twice, K4 once and K1 once, each validation dispatch K3 and K1 once,
+     each test chunk K3 and K1 once; every monitored loss is finite; the
+     ranked best checkpoints, ``epoch_ranking.npy`` and ``last_checkpoint``
+     are written and the best ones load back into the port; the test's WBC
+     ran in the native host library; the resumed run trains epoch 3 only;
+     no module of pandas, sklearn, matplotlib or jax is loaded. ms per step
+     as the loop logs it, the loader's patches/s, each epoch's wall time
+     and the phase's time are printed.
 
 The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
@@ -148,6 +165,8 @@ def _stem_cases(torch):
     lidc = (128, 128, 64)
     return [
         ("conv0_2x1x128x128x64_k3", (2, 1, *lidc), 3, 1, 1, 18, f32, True, None),
+        # conv0 as exec's LIDC training runs it: batch 8 as one microbatch
+        ("conv0_8x1x128x128x64_k3", (8, 1, *lidc), 3, 1, 1, 18, f32, True, None),
         ("c1_8x1x128x128x64_k7_s2", (8, 1, *lidc), 7, 2, 2, 18, f32, True, None),
         ("odd_13x11x6_k7_s2", (2, 1, 13, 11, 6), 7, 2, 2, 6, f32, False, "fewer"),
         ("cin2_64x64x32_k5_s2", (2, 2, 64, 64, 32), 5, 2, 2, 18, f32, False, None),
@@ -226,7 +245,7 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem, cases):
                   f"{k4['library_ms']:.4f} ms (conv3d_weight), bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}) "
                   f"(CUDA events); host {host4:.4f} ms per wrapper call")
             timings[name] = (k3, k4)
-            if name.startswith("conv0") and dtype == torch.float32:  # the training slice's shape
+            if name == "conv0_2x1x128x128x64_k3":  # the training slice's shape
                 entries = {"stem_fwd": dict(k3, max_abs_err=err3), "stem_wgrad": dict(k4, max_abs_err=err4)}
         del x, w, b, out, ref, g, dw, dw2, dw_ref
         torch.cuda.empty_cache()
@@ -885,6 +904,239 @@ def _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, 
     return {"launches": launches, "times": times}
 
 
+TRAIN_PATIENT = (96, 160, 160)  # z, y, x: covers the 3D pre-crop of 156 x 156 x 96
+TRAIN_ENV = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_EPOCHS": "2", "MDT_LIDC_NTB": "3",
+             "MDT_LIDC_NVB": "2"}
+
+
+def _recorded_dispatches(counters, steps):
+    """``RetinaNetDetector.train_forward_dispatch`` that records, per call,
+    whether it validated and how far each launch counter rose during it."""
+    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
+
+    real = RetinaNetDetector.train_forward_dispatch
+
+    def dispatch(self, batch, is_validation=False, do_update=True):
+        before = {k: w.launches for k, w in counters.items()}
+        out = real(self, batch, is_validation, do_update)
+        steps.append(("val" if is_validation else "train", {k: w.launches - before[k] for k, w in counters.items()}))
+        return out
+
+    return _class_attr(RetinaNetDetector, "train_forward_dispatch", dispatch)
+
+
+def _same_tree(torch, np, a, b):
+    """Exact equality of nested dicts, lists, arrays, tensors and scalars."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_tree(torch, np, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same_tree(torch, np, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+@contextlib.contextmanager
+def _checked_converts(torch, np, checked, n_each=2):
+    """For the first ``n_each`` train and validation dispatches, holds what
+    ``train_forward_convert`` returns (from the pinned copies that
+    ``start_host_copies`` queued, waited for on its event) against the same
+    convert of synchronous ``.cpu()`` reads of the same device tensors, with
+    no event. Appends (kind, equal) to ``checked``."""
+    from medicaldetectiontoolkit_torch.models import base
+    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
+
+    real_copies = base.start_host_copies
+    real_dispatch = RetinaNetDetector.train_forward_dispatch
+    real_convert = RetinaNetDetector.train_forward_convert
+    queued, pending, counts = [], [], {"train": 0, "val": 0}
+
+    def copies(tensors):
+        queued[:] = [list(tensors)]
+        return real_copies(tensors)
+
+    def dispatch(self, batch, is_validation=False, do_update=True):
+        handles = real_dispatch(self, batch, is_validation, do_update)
+        kind = "val" if is_validation else "train"
+        if counts[kind] < n_each:
+            counts[kind] += 1
+            pending.append((handles, kind, queued[0]))
+        return handles
+
+    def convert(self, handles, batch, need_seg_preds=True):
+        out = real_convert(self, handles, batch, need_seg_preds)
+        for i, (held, kind, device_tensors) in enumerate(pending):
+            if held is handles:
+                del pending[i]
+                img_shape, monitor, _, _, _, seg_preds, _ = handles
+                n = len(monitor)
+                read = [None if t is None else t.cpu() for t in device_tensors]
+                sync = (img_shape, dict(zip(monitor, read[:n])), read[n:-2], read[-2], read[-1], seg_preds, None)
+                checked.append((kind, _same_tree(torch, np, out, real_convert(self, sync, batch, need_seg_preds))))
+                break
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_class_attr(base, "start_host_copies", copies))
+        stack.enter_context(_class_attr(RetinaNetDetector, "train_forward_dispatch", dispatch))
+        stack.enter_context(_class_attr(RetinaNetDetector, "train_forward_convert", convert))
+        yield
+
+
+def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=None):
+    """One ``exec --mode {mode}`` run on the card with the launch counters
+    from 0: (result, per-dispatch launches, total launches, wall seconds).
+    With a list ``checked``, the first converts are held against synchronous
+    reads (``_checked_converts``)."""
+    from medicaldetectiontoolkit_torch.testing import run_lidc_train
+
+    steps = []
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_recorded_dispatches(counters, steps))
+        if checked is not None:
+            stack.enter_context(_checked_converts(torch, np, checked))
+        out = _quietly(log_path, run_lidc_train, cf, mode, device="cuda", resume=resume)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, steps, {k: w.launches for k, w in counters.items()}, wall
+
+
+def _check_steps(cf, steps, n_epochs):
+    """Each train dispatch launched K3 twice per microbatch (forward and
+    remat recompute), K4 once per microbatch, K1 once (refinement of the
+    merged heads); each validation dispatch K3 once and K1 once."""
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+
+    n_micro = resolve_grad_accum(cf, cf.batch_size)
+    expect = {"train": {"stem_fwd": 2 * n_micro, "stem_wgrad": n_micro, "nms": 1},
+              "val": {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1}}
+    # per epoch: the train batches, the val_sampling batches and the plotted prediction
+    n_expect = {"train": n_epochs * cf.num_train_batches, "val": n_epochs * (cf.num_val_batches + 1)}
+    for kind in ("train", "val"):
+        got = [d for k, d in steps if k == kind]
+        print(f"  {len(got)} {kind} dispatches, launches each {got[0] if got else None} (expected {n_expect[kind]} "
+              f"of {expect[kind]})")
+        if len(got) != n_expect[kind] or any(d != expect[kind] for d in got):
+            raise AssertionError(f"{kind} dispatches: expected {n_expect[kind]} of {expect[kind]}, got {got}")
+    return {k: sum(d[k] for _, d in steps) for k in expect["train"]}
+
+
+def _print_train_times(out, card):
+    t, loader = out["times"], out["loader"]
+    for epoch in sorted(t["epoch_s"]):
+        print(f"  epoch {epoch}: {t['epoch_s'][epoch]:.2f} s ({t['train_s'][epoch]:.2f} s train); steps "
+              f"{', '.join(f'{s * 1e3:.1f}' for s in t['step_s'][epoch])} ms as the loop logs them; waited for "
+              f"the loader {', '.join(f'{s * 1e3:.1f}' for s in t['load_s'][epoch])} ms ({card})")
+    per_batch = loader["batch_seconds"]
+    capacity = loader["n_workers"] * loader["batch_size"] / (sum(per_batch) / len(per_batch))
+    print(f"  loader: {loader['n_workers']} workers, {len(per_batch)} train batches of {loader['batch_size']} made, "
+          f"{sum(per_batch) / len(per_batch) * 1e3:.1f} ms per batch per worker: {capacity:.2f} patches/s")
+    return capacity
+
+
+def _drive_training(torch, np, common, counters, card, root):
+    """Phase 9: 3D Retina U-Net training at LIDC width through
+    ``exec --mode train_test``, then a resume. Returns the launch counts."""
+    import pickle
+
+    from medicaldetectiontoolkit_torch import native
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
+    from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
+    from medicaldetectiontoolkit_torch.utils.exp_utils import load_checkpoint_state
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    log_path = os.path.join(root, "exec_console.log")
+    data_dir = os.path.join(root, "data_train")
+    generate_synthetic_lidc(data_dir, n_patients=10, shape=TRAIN_PATIENT)
+    cf = _quietly(log_path, make_lidc_experiment, root, TRAIN_ENV, {}, seeds=(), epochs=(), device="cuda",
+                  data_dir=data_dir, exp_name="exp_train")
+    print(f"== phase 9: exec --mode train_test, 3D retina_unet at LIDC width (patch {cf.patch_size}, pre-crop "
+          f"{cf.pre_crop_size}, sf {cf.start_filts}, ef {cf.end_filts}, batch {cf.batch_size}, {cf.compute_dtype}, "
+          f"MDT_STEM_PALLAS=1), {cf.n_workers} loader workers; 10 synthetic patients {TRAIN_PATIENT} (z y x); "
+          f"{cf.num_epochs} epochs x {cf.num_train_batches} batches, {cf.num_val_batches} val_sampling batches")
+    native.reset_calls()
+    checked = []
+    out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test", checked=checked)
+    per_step = _check_steps(cf, steps, cf.num_epochs)
+    print(f"  convert from the queued pinned copies vs synchronous .cpu() reads of the same device tensors "
+          f"(results dict: boxes, loss, monitor values): {checked}")
+    if sorted(k for k, _ in checked) != ["train", "train", "val", "val"] or not all(same for _, same in checked):
+        raise AssertionError(f"train_forward_convert's results differ from synchronous reads: {checked}")
+
+    # the test on fold 0's test patients with the ranked checkpoints
+    fold_dir = os.path.join(cf.exp_dir, "fold_0")
+    ranking = np.load(os.path.join(fold_dir, "epoch_ranking.npy"))
+    n_ckpt = min(len(ranking), cf.test_n_epochs)
+    test = out["test"]
+    with open(os.path.join(cf.exp_dir, "fold_ids.pickle"), "rb") as handle:
+        n_patients = len(pickle.load(handle)[0][2])
+    z, y, x = TRAIN_PATIENT
+    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), cf.patch_size))
+    n_chunks = math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * n_patients
+    if len(test["results"]) != n_patients:
+        raise AssertionError(f"the test mode gave {len(test['results'])} patients, fold 0 tests {n_patients}")
+    rest = {k: totals[k] - per_step[k] for k in totals}
+    print(f"  test: {n_patients} patients of {n_patches} patches x {n_ckpt} checkpoints x 4 mirrors, {n_chunks} "
+          f"chunks; launches outside "
+          f"the train and val dispatches {rest} (expected K1 and K3 1 per chunk)")
+    if rest != {"stem_fwd": n_chunks, "stem_wgrad": 0, "nms": n_chunks}:
+        raise AssertionError(f"test mode: expected {n_chunks} K1 and K3 launches, counted {rest}")
+    calls = native.calls()
+    info = native.lib_info()
+    print(f"  native host library {os.path.basename(info['path'])} ({info['compiler']}, {info['omp_threads']} "
+          f"OpenMP threads); calls in the run {calls}")
+    if not calls["wbc_greedy"] or not os.path.isfile(info["path"]):
+        raise AssertionError("the test's WBC did not run in the native host library")
+
+    metrics = out["train"]["monitor_metrics"]
+    losses = [v for split in ("train", "val") for ep in metrics[split]["monitor_values"] for m in ep
+              for v in m.values()]
+    if len(losses) != 2 * cf.num_epochs * (cf.num_train_batches + cf.num_val_batches) or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    files = sorted(os.listdir(fold_dir))
+    best = [f"{e}_best_checkpoint" for e in ranking]
+    print(f"  fold_0: {files}; epoch_ranking {ranking.tolist()}; {len(losses)} finite monitored losses")
+    if not (set(best) <= set(files) and os.path.isfile(os.path.join(fold_dir, "last_checkpoint", "params.pkl"))):
+        raise AssertionError("the best checkpoints or last_checkpoint were not written")
+    net = build_model(cf, common.QuietLog(), device="cuda")
+    for b in best:  # the best checkpoints load back into the port
+        net.load_params(load_checkpoint_state(os.path.join(fold_dir, b))["params"])
+    del net
+    capacity = _print_train_times(out["train"], card)
+    print(f"  train_test: {wall:.1f} s; test {test['predictor'].times['forward'] * 1e3:.1f} ms forward, "
+          f"{test['predictor'].times['consolidation'] * 1e3:.1f} ms consolidation")
+
+    # resume to a third epoch from last_checkpoint
+    cf = _quietly(log_path, make_lidc_experiment, root, dict(TRAIN_ENV, MDT_LIDC_EPOCHS="3"), {}, seeds=(),
+                  epochs=(), device="cuda", data_dir=data_dir, exp_name="exp_train")
+    resumed, steps, totals_r, wall_r = _train_run(torch, np, cf, counters, log_path, "train",
+                                                  resume=os.path.join(fold_dir, "last_checkpoint"))
+    epochs = sorted(resumed["times"]["epoch_s"])
+    print(f"  resume from last_checkpoint with num_epochs {cf.num_epochs}: epochs {epochs}, {wall_r:.1f} s")
+    if epochs != [3]:
+        raise AssertionError(f"the resumed run trained epochs {epochs}, not [3]")
+    _check_steps(cf, steps, 1)
+    _print_train_times(resumed, card)
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    print(f"  modules of {', '.join(BANNED)} loaded: {loaded}")
+    if loaded:
+        raise AssertionError(f"the port's training loaded {loaded}")
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s ({card})")
+    step_ms = [s * 1e3 for t in (out["train"]["times"], resumed["times"]) for ep in t["step_s"].values() for s in ep]
+    return {"launches": {k: totals[k] + totals_r[k] for k in totals}, "step_ms": step_ms,
+            "loader_patches_per_s": capacity}
+
+
 def main() -> int:
     import torch
 
@@ -894,6 +1146,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from medicaldetectiontoolkit_torch import native
     from medicaldetectiontoolkit_torch.testing import make_batch, make_config
     from medicaldetectiontoolkit_torch.tools import common
     from medicaldetectiontoolkit_torch.models import build_model
@@ -917,11 +1170,15 @@ def main() -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print("  " + _host_packages().replace("\n", "\n  "))
 
-    print("== phase 2: build (one nvcc per source, in parallel)")
+    print("== phase 2: build (one nvcc per source and the native host library, in parallel)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        host_lib = pool.submit(native.get_lib)
         libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda)))
-    print(f"  {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
+        host_lib.result()
+    info = native.lib_info()
+    print(f"  {', '.join(p.name for p in libs)}, {os.path.basename(info['path'])} ({info['compiler']}) in "
+          f"{time.perf_counter() - t0:.2f} s")
     for lib_path in libs:
         log = lib_path.with_suffix(".log")
         if log.exists():
@@ -965,6 +1222,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         patients = _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root)
+    with tempfile.TemporaryDirectory() as root:
+        training = _drive_training(torch, np, common, counters, card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -987,6 +1246,10 @@ def main() -> int:
               f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
         print(f"  stem K4 {case}: kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f} ms, library "
               f"{k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    print(f"  exec --mode train_test, retina_unet 3D float32 at LIDC width: "
+          f"{sum(training['step_ms']) / len(training['step_ms']):.1f} ms per step of 8 as the loop logs it "
+          f"(median {sorted(training['step_ms'])[len(training['step_ms']) // 2]:.1f}), loader "
+          f"{training['loader_patches_per_s']:.2f} patches/s")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -997,7 +1260,8 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/nms.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
-        + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"],
+        + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
+        + training["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -1011,14 +1275,14 @@ def main() -> int:
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
-        "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()),
+        "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
-        "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()),
+        "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

@@ -8,13 +8,14 @@ same names as the reference's ``default_configs.py``, and the per-experiment
 
 The attributes at the bottom were added for the TPU. The port reads them so
 that a config (or an experiment directory's snapshot) means the same in both
-packages, and ignores these: ``stage_mode`` (how flax lays out the backbone's
-identity blocks; the port loads either layout), ``n_data_parallel`` /
-``n_space_parallel`` (``MDT_DP`` / ``MDT_SP``, the TPU mesh; the port runs on
-one card) and ``profile`` (a ``jax.profiler`` trace). ``MDT_ZBLOCK_G`` and
-``MDT_ZBAND`` select XLA conv rewrites of the JAX backbone and are not read by
-the port at all. ``compute_dtype``, ``max_gt_boxes``, ``use_remat`` and
-``grad_accum_steps`` the port honours.
+packages. It ignores ``stage_mode`` (how flax lays out the backbone's
+identity blocks; the port loads either layout). ``n_data_parallel`` /
+``n_space_parallel`` (``MDT_DP`` / ``MDT_SP``, the TPU mesh) above 1 make the
+port's training raise: it runs on one card. ``profile`` traces train steps
+2-6 with ``torch.profiler`` in place of ``jax.profiler``. ``MDT_ZBLOCK_G``
+and ``MDT_ZBAND`` select XLA conv rewrites of the JAX backbone and are not
+read by the port at all. ``compute_dtype``, ``max_gt_boxes``, ``use_remat``
+and ``grad_accum_steps`` the port honours.
 """
 
 from __future__ import annotations
@@ -111,10 +112,10 @@ class DefaultConfigs:
         # recompute backbone activations in the backward pass; None = on in
         # 3D, off in 2D
         self.use_remat = None
-        # a jax.profiler trace in the JAX package; read and ignored here
+        # a trace of train steps 2-6 (torch.profiler here, jax.profiler in JAX)
         self.profile = False
         # the TPU mesh's data-parallel and spatial factors (MDT_DP, MDT_SP);
-        # read and ignored here: the port runs on one card
+        # the port trains on one card and raises above 1
         self.n_data_parallel = (
             int(os.environ["MDT_DP"]) if os.environ.get("MDT_DP") else None
         )

@@ -1,20 +1,64 @@
-"""Data-loading utilities of the port's test path: CV folds, patch grids,
-padding.
+"""Data-loading utilities of the port: balanced sampling, CV folds, patch
+grids, padding, npz unpacking.
 
-Counterpart of the test-time half of
-``medicaldetectiontoolkit_tpu/data/dataloader_utils.py`` (same contracts,
-the port's own copy): ``fold_generator`` (the same (seed, n_splits, len_data)
-give the same fold memberships), ``get_patch_crop_coords`` with its
+Counterpart of ``medicaldetectiontoolkit_tpu/data/dataloader_utils.py``
+(same contracts, the port's own copy): ``get_class_balanced_patients``
+(roi-level class-equilibrium patient sampling; the same RNG gives the same
+picks), ``fold_generator`` (the same (seed, n_splits, len_data) give the
+same fold memberships), ``get_patch_crop_coords`` with its
 ``_axis_intervals`` (overlapping patch grid with a minimum overlap, per-slice
-z-tiling for patch z == 1) and ``pad_nd_image``. The training half
-(class-balanced sampling, npz packing) comes with the training drivers.
+z-tiling for patch z == 1), ``pad_nd_image``, and the npz -> npy unpacking
+that staging a packed data set to ``cf.data_dest`` uses.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+
+def get_class_balanced_patients(class_targets, batch_size, num_classes, slack_factor=0.1, rng=None):
+    """Sample patient indices toward roi-level class equilibrium.
+
+    class_targets: list (per patient) of lists of roi class labels (0-based
+    foreground classes). The first ``slack_factor * batch_size`` picks are
+    unconstrained; afterwards a candidate is accepted only if it would boost
+    the batch's currently scarcest class: it must contain that class, and the
+    class must not also be the candidate's own scarcest one. Labels outside
+    [0, num_classes) are ignored. If the scarcest class is in no patient,
+    a candidate is accepted after ``100 * max(n_patients, batch_size)``
+    attempts.
+
+    The RNG call sequence (one ``choice(n, 1)`` per attempt) is part of the
+    reproducibility contract and must not change.
+    """
+    rng = rng or np.random
+    n_patients = len(class_targets)
+    counts = np.zeros((n_patients, num_classes), dtype=np.int64)  # per-patient class histogram
+    for p, targets in enumerate(class_targets):
+        for t in targets:
+            if 0 <= t < num_classes:
+                counts[p, t] += 1
+
+    n_slack = int(batch_size * slack_factor)
+    max_tries = 100 * max(n_patients, batch_size)
+    picks = []
+    batch_counts = np.zeros(num_classes, dtype=np.int64)
+    scarcest = 0
+    for k in range(batch_size):
+        for _ in range(max_tries):
+            cand = rng.choice(n_patients, 1)[0]
+            if k < n_slack:
+                break
+            if counts[cand, scarcest] > 0 and int(np.argmin(counts[cand])) != scarcest:
+                break
+        picks.append(cand)
+        batch_counts += counts[cand]
+        scarcest = int(np.argmin(batch_counts))
+    return picks
 
 
 def _rotation_splits(n_items, n_splits):
@@ -133,3 +177,23 @@ def pad_nd_image(image, new_shape=None, mode="edge", kwargs=None, return_slicer=
         return padded
     slicer = [slice(lo, size - hi) for (lo, hi), size in zip(pad_widths, padded.shape)]
     return padded, slicer
+
+
+def get_case_identifiers(folder):
+    return [i[:-4] for i in os.listdir(folder) if i.endswith("npz")]
+
+
+def convert_to_npy(npz_file):
+    """``{id}.npz`` (holding the array under the key ``id``) -> ``{id}.npy``
+    beside it, unless that exists."""
+    identifier = os.path.split(npz_file)[1][:-4]
+    if not os.path.isfile(npz_file[:-4] + ".npy"):
+        a = np.load(npz_file)[identifier]
+        np.save(npz_file[:-4] + ".npy", a)
+
+
+def unpack_dataset(folder, threads=8):
+    """Every ``.npz`` in ``folder`` unpacked to ``.npy``."""
+    npz_files = [os.path.join(folder, i + ".npz") for i in get_case_identifiers(folder)]
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(convert_to_npy, npz_files))

@@ -1,21 +1,31 @@
 #!/usr/bin/env python
-"""Execution script of the port: test / analysis / create_exp.
+"""Execution script of the port: train / test / train_test / analysis /
+create_exp.
 
 Counterpart of the root ``exec.py``, with the same CLI (--mode, --folds,
 --exp_dir, --exp_source, --server_env, --data_dest, --use_stored_settings,
---dev):
+--resume_to_checkpoint, --dev):
 
-    python -m medicaldetectiontoolkit_torch.exec --mode test \\
+    python -m medicaldetectiontoolkit_torch.exec --mode train_test \\
         --exp_source medicaldetectiontoolkit_torch/experiments/lidc_exp --exp_dir EXP [--folds 0]
 
-``test`` runs whole-patient inference of each fold (tiling, mirror TTA,
-temporal ensembling over the fold's ranked checkpoints, WBC, 2D->3D merging)
-on the CUDA card and scores it (``results.txt``); ``analysis`` re-scores the
-raw prediction pickles; ``create_exp`` prepares an experiment directory. The
-checkpoints may be the JAX package's (``{epoch}_best_checkpoint/params.pkl``,
-loaded as they are). ``train`` and ``train_test`` are not ported yet
-(ROADMAP.md, Queue 1). From Python, ``main(argv, device="cpu")`` runs on the
-CPU with the plain PyTorch versions of the kernels.
+``train`` trains each fold on the CUDA card with the root ``exec.py``'s epoch
+structure: the per-epoch lr, the train batches (a one-step-deep pipeline:
+step i+1 is dispatched before step i's results are converted on the host;
+``MDT_TRAIN_PIPELINE=0`` gives the serial loop, with the same results), the
+train evaluation, validation (``val_sampling`` batches or ``val_patient``
+whole patients), model selection (ranked best checkpoints, ``last_checkpoint``
+with the Adam state), the monitoring plots and a ``val_sampling``
+prediction plot. ``--resume_to_checkpoint`` continues from a
+``last_checkpoint``. One-stage detectors train (``retina_net``,
+``retina_unet``); one card only. ``test`` runs whole-patient inference of
+each fold (tiling, mirror TTA, temporal ensembling over the fold's ranked
+checkpoints, WBC, 2D->3D merging) and scores it (``results.txt``);
+``train_test`` does both; ``analysis`` re-scores the raw prediction pickles;
+``create_exp`` prepares an experiment directory. The checkpoints may be the
+JAX package's (``{epoch}_best_checkpoint/params.pkl``, loaded as they are).
+From Python, ``main(argv, device="cpu")`` runs on the CPU with the plain
+PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -26,9 +36,205 @@ import tempfile
 import time
 
 import medicaldetectiontoolkit_torch.utils.exp_utils as utils
+from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.evaluator import Evaluator
 from medicaldetectiontoolkit_torch.models import build_model
+from medicaldetectiontoolkit_torch.plotting import plot_batch_prediction
 from medicaldetectiontoolkit_torch.predictor import Predictor
+
+
+def _check_one_device(cf):
+    for attr in ("n_data_parallel", "n_space_parallel"):
+        if (getattr(cf, attr, None) or 1) > 1:
+            raise NotImplementedError(
+                f"cf.{attr} = {getattr(cf, attr)}: the port trains on one card; data and spatial parallelism "
+                "are ROADMAP.md's scale-out item (Queue 1, slice 7b)")
+
+
+class _StepProfiler:
+    """``torch.profiler`` over train steps 2-6 of an epoch (``cf.profile``),
+    the trace written to ``exp_dir/profile``."""
+
+    def __init__(self, cf, logger, device):
+        self.out_dir = os.path.join(cf.exp_dir, "profile")
+        self.logger = logger
+        self.device = device
+        self.prof = None
+
+    def step(self, bix):
+        import torch
+
+        if bix == 2:  # skip the first steps (cuDNN plans, allocator growth)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.__enter__()
+        elif bix == 7:
+            self.stop()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
+        self.prof = None
+
+
+def train(cf, data_loader, logger, device=None):
+    """Training routine for one fold; writes plots and checkpoints to the exp
+    dir. Returns {"monitor_metrics", "times", "loader"}: per epoch the wall
+    seconds of the epoch (``epoch_s``) and of its train batches
+    (``train_s``), each train step's seconds as the step log gives them
+    (``step_s``) and the host seconds the loop waited for each train batch
+    (``load_s``); the train loader's worker count, batch size and host
+    seconds per generated batch."""
+    _check_one_device(cf)
+    logger.info(
+        "performing training in {}D over fold {} on experiment {} with model {}".format(
+            cf.dim, cf.fold, cf.exp_dir, cf.model
+        )
+    )
+    net = build_model(cf, logger, device=device)
+    net.initialize()
+    model_selector = utils.ModelSelector(cf, logger)
+    train_evaluator = Evaluator(cf, logger, mode="train")
+    val_evaluator = Evaluator(cf, logger, mode=cf.val_mode)
+
+    starting_epoch = 1
+    monitor_metrics, training_plot = utils.prepare_monitoring(cf)
+
+    if cf.resume_to_checkpoint:
+        starting_epoch, monitor_metrics = utils.load_checkpoint(cf.resume_to_checkpoint, net)
+        for split in monitor_metrics.values():  # room for epochs beyond the checkpoint's run
+            split["monitor_values"] += [[] for _ in range(cf.num_epochs + 1 - len(split["monitor_values"]))]
+        logger.info(f"resumed to checkpoint {cf.resume_to_checkpoint} at epoch {starting_epoch}")
+
+    logger.info("loading dataset and initializing batch generators...")
+    batch_gen = data_loader.get_train_generators(cf, logger)
+    if native.enabled():
+        native.get_lib()
+        info = native.lib_info()
+        logger.info(f"native host library {info['path']} ({info['compiler']}, {info['omp_threads']} OpenMP threads)")
+    else:
+        logger.info("MDT_NO_NATIVE=1: augmentation and consolidation run on NumPy / scipy")
+    # one-step-deep software pipeline: dispatch step i+1 to the device BEFORE
+    # converting step i's results on the host (box building, logging and the
+    # monitor floats wait for the device), so the device does not idle on
+    # host monitoring. MDT_TRAIN_PIPELINE=0 restores the serial loop
+    # (identical results, order preserved).
+    pipelined = os.environ.get("MDT_TRAIN_PIPELINE", "1") != "0"
+    times = {"epoch_s": {}, "train_s": {}, "step_s": {}, "load_s": {}}
+
+    try:
+        for epoch in range(starting_epoch, cf.num_epochs + 1):
+            logger.info(f"starting training epoch {epoch}")
+            net.current_lr = cf.learning_rate[epoch - 1]
+
+            start_time = time.time()
+            train_results_list = []
+            step_s = times["step_s"][epoch] = []
+            load_s = times["load_s"][epoch] = []
+            profiler = _StepProfiler(cf, logger, net.device) if getattr(cf, "profile", False) and \
+                epoch == starting_epoch else None
+            pending = None
+
+            def _finish(handles, fbatch, fbix, tic, foreign=0.0):
+                # monitoring consumes boxes + floats only: skip the
+                # full-volume seg_preds copy
+                results_dict = net.train_forward_convert(handles, fbatch, need_seg_preds=False)
+                # 'foreign' is host time spent on the NEXT batch (loading +
+                # dispatch) between this batch's tic and now: subtracted, so
+                # the pipelined log reports this step's own device + convert
+                # time, not step + data time
+                train_time_step = time.time() - tic - foreign
+                step_s.append(train_time_step)
+                logger.info(
+                    "tr. batch {0}/{1} (ep. {2}) step {3:.3f}s || ".format(
+                        fbix + 1, cf.num_train_batches, epoch, train_time_step
+                    )
+                    + results_dict["logger_string"]
+                )
+                train_results_list.append([results_dict["boxes"], fbatch["pid"]])
+                monitor_metrics["train"]["monitor_values"][epoch].append(results_dict["monitor_values"])
+
+            for bix in range(cf.num_train_batches):
+                if profiler is not None:
+                    profiler.step(bix)
+                t_load0 = time.time()
+                batch = next(batch_gen["train"])
+                tic_fw = time.time()
+                load_s.append(tic_fw - t_load0)
+                if pipelined:
+                    handles = net.train_forward_dispatch(batch)
+                    if pending is not None:
+                        _finish(*pending, foreign=time.time() - t_load0)
+                    pending = (handles, batch, bix, tic_fw)
+                else:
+                    _finish(net.train_forward_dispatch(batch), batch, bix, tic_fw)
+            if pending is not None:
+                _finish(*pending)
+            if profiler is not None:
+                profiler.stop()
+
+            _, monitor_metrics["train"] = train_evaluator.evaluate_predictions(
+                train_results_list, monitor_metrics["train"]
+            )
+            train_time = time.time() - start_time
+
+            logger.info(f"starting validation in mode {cf.val_mode}.")
+            if cf.do_validation:
+                val_results_list = []
+                val_predictor = Predictor(cf, net, logger, mode="val")
+                pending_val = None  # val_sampling pipelines one-deep like training
+
+                def _record_val(results_dict, fbatch):
+                    val_results_list.append([results_dict["boxes"], fbatch["pid"]])
+                    monitor_metrics["val"]["monitor_values"][epoch].append(results_dict["monitor_values"])
+
+                for _ in range(batch_gen["n_val"]):
+                    batch = next(batch_gen[cf.val_mode])
+                    if cf.val_mode == "val_patient":
+                        _record_val(val_predictor.predict_patient(batch), batch)
+                    elif pipelined:
+                        handles = net.train_forward_dispatch(batch, is_validation=True)
+                        if pending_val is not None:
+                            _record_val(net.train_forward_convert(*pending_val, need_seg_preds=False),
+                                        pending_val[1])
+                        pending_val = (handles, batch)
+                    else:
+                        _record_val(net.train_forward(batch, is_validation=True, need_seg_preds=False), batch)
+                if pending_val is not None:
+                    _record_val(net.train_forward_convert(*pending_val, need_seg_preds=False), pending_val[1])
+
+                _, monitor_metrics["val"] = val_evaluator.evaluate_predictions(
+                    val_results_list, monitor_metrics["val"])
+            # without validation, selection reads the train metrics
+            model_selector.run_model_selection(net, monitor_metrics, epoch)
+
+            training_plot.update_and_save(monitor_metrics, epoch)
+            epoch_time = time.time() - start_time
+            times["epoch_s"][epoch], times["train_s"][epoch] = epoch_time, train_time
+            logger.info(f"trained epoch {epoch}: took {epoch_time:.1f} sec. ({train_time:.1f} train / "
+                        f"{epoch_time - train_time:.1f} val)")
+            batch = next(batch_gen["val_sampling"])
+            results_dict = net.train_forward(batch, is_validation=True)
+            logger.info("plotting predictions from validation sampling.")
+            plot_batch_prediction(batch, results_dict, cf)
+    finally:
+        for key in ("train", "val_sampling"):
+            if key in batch_gen:
+                batch_gen[key].shutdown()
+    loader = {"n_workers": batch_gen["train"].n_workers, "batch_size": cf.batch_size,
+              "batch_seconds": list(batch_gen["train"].batch_seconds)}
+    return {"monitor_metrics": monitor_metrics, "times": times, "loader": loader}
 
 
 def test(cf, data_loader, logger, device=None):
@@ -56,6 +262,18 @@ def _close(logger):
     logger.handlers = []
 
 
+def apply_dev_shrinkage(cf, args, folds):
+    if args.dev:
+        if folds is None:
+            folds = [0, 1]
+        cf.batch_size = 3 if cf.dim == 2 else 1
+        cf.num_epochs, cf.min_save_thresh, cf.save_n_models = 1, 0, 1
+        cf.num_train_batches, cf.num_val_batches, cf.max_val_patients = 5, 1, 1
+        cf.test_n_epochs = cf.save_n_models
+        cf.max_test_patients = 1
+    return folds
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-m", "--mode", type=str, default="train_test",
@@ -70,6 +288,8 @@ def parse_args(argv=None):
                         help="override the config's preprocessed-data location")
     parser.add_argument("--use_stored_settings", default=False, action="store_true",
                         help="run with the config snapshot already in exp_dir rather than the source tree")
+    parser.add_argument("--resume_to_checkpoint", type=str, default=None,
+                        help="checkpoint directory to continue training from (pick the fold via --folds)")
     parser.add_argument("--exp_source", type=str, default="medicaldetectiontoolkit_torch/experiments/lidc_exp",
                         help="experiment package providing configs.py and data_loader.py")
     parser.add_argument("-d", "--dev", default=False, action="store_true",
@@ -79,15 +299,36 @@ def parse_args(argv=None):
 
 def main(argv=None, device=None):
     """Run the CLI on ``argv``; ``device`` None is the CUDA card. Returns
-    ``{fold: test()'s result}`` in test mode."""
+    ``{fold: result}``: train()'s in train mode, test()'s in test mode, both
+    as ``{"train", "test"}`` in train_test mode."""
     args = parse_args(argv)
     folds = args.folds
     out = {}
 
     if args.mode in ("train", "train_test"):
-        raise NotImplementedError(f"--mode {args.mode}: training is not ported yet (ROADMAP.md, Queue 1)")
+        cf = utils.prep_exp(args.exp_source, args.exp_dir, args.server_env, args.use_stored_settings)
+        folds = apply_dev_shrinkage(cf, args, folds)
+        cf.data_dest = args.data_dest
+        data_loader = utils.import_module("dl", os.path.join(args.exp_source, "data_loader.py"))
+        if folds is None:
+            folds = range(cf.n_cv_splits)
+        for fold in folds:
+            cf.fold_dir = os.path.join(cf.exp_dir, f"fold_{fold}")
+            cf.fold = fold
+            cf.resume_to_checkpoint = args.resume_to_checkpoint
+            os.makedirs(cf.fold_dir, exist_ok=True)
+            logger = utils.get_logger(cf.fold_dir)
+            try:
+                trained = train(cf, data_loader, logger, device=device)
+                cf.resume_to_checkpoint = None
+                if args.mode == "train_test":
+                    out[fold] = {"train": trained, "test": test(cf, data_loader, logger, device=device)}
+                else:
+                    out[fold] = trained
+            finally:
+                _close(logger)
 
-    if args.mode == "test":
+    elif args.mode == "test":
         cf = utils.prep_exp(args.exp_source, args.exp_dir, args.server_env, is_training=False, use_stored_settings=True)
         if args.dev:
             folds = [0, 1]

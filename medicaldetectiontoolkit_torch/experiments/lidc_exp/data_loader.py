@@ -1,14 +1,26 @@
-"""LIDC data loader of the port: the test half.
+"""LIDC data loader of the port: training generators and the test iterator.
 
-Counterpart of ``experiments/lidc_exp/data_loader.py``, test-time entry
-points only, with no pandas and no jax:
+Counterpart of ``experiments/lidc_exp/data_loader.py``, with no pandas and
+no jax:
   * ``load_dataset`` reads the per-patient ``meta_info_{pid}.pickle`` dicts
     that the real preprocessing and the synthetic generator both write (not
     the pandas ``info_df.pickle`` aggregated from them). Patients come in the
     order ``os.listdir`` gives the ``meta_info`` files, which is the row order
     of ``info_df.pickle`` (``preprocessing.py::aggregate_meta_info`` lists
     the same directory); a fold's test subset is indexed into the sorted
-    unique pids, as in JAX. Malignancy is binarized (>= 3 -> class 1);
+    unique pids, as in JAX. Malignancy is binarized (>= 3 -> class 1). With
+    ``cf.server_env`` and ``cf.data_dest`` the patients are first staged
+    there (``.npz`` archives unpacked);
+  * ``get_train_generators``: the fold's train and val patients (the CV split
+    written once per experiment to ``fold_ids.pickle``), a train pipeline
+    (``BatchGenerator`` -> mirror -> spatial augmentation -> boxes) and a
+    ``val_sampling`` pipeline (center crop -> boxes), each a
+    ``MultiThreadedGenerator`` of ``cf.n_workers`` threads seeded
+    ``0 .. n_workers - 1`` (rank 0 of 1 until the port scales out), and a
+    ``val_patient`` iterator in that mode;
+  * ``BatchGenerator``: class-balanced patients, fg-biased slices in 2D (with
+    ``n_3D_context`` neighbours in channels), fg-anchored pre-crops; the same
+    ``RandomState`` gives the JAX package's batches, array for array;
   * ``get_test_generator`` reads the fold split from ``fold_ids.pickle`` (or
     takes every patient of ``cf.pp_test_data_path`` with
     ``cf.hold_out_test_set``);
@@ -31,7 +43,94 @@ from collections import OrderedDict
 import numpy as np
 
 from medicaldetectiontoolkit_torch.data import dataloader_utils as dutils
+from medicaldetectiontoolkit_torch.data.augmentation import center_crop_batch, mirror_batch, spatial_augment_batch
+from medicaldetectiontoolkit_torch.data.loader import BatchGeneratorBase, MultiThreadedGenerator
 from medicaldetectiontoolkit_torch.data.seg_to_boxes import convert_seg_to_bounding_box_coordinates
+
+
+def _fold_splits(cf, n_pids):
+    """Per-experiment CV fold assignments, created once and reused.
+
+    ``fold_ids.pickle`` in the exp dir is the cross-run source of truth: the
+    first fold of a fresh experiment writes it, and every later fold and run
+    of the same experiment reads the same split.
+    """
+    path = os.path.join(cf.exp_dir, "fold_ids.pickle")
+    if cf.created_fold_id_pickle:
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+    splits = dutils.fold_generator(seed=cf.seed, n_splits=cf.n_cv_splits, len_data=n_pids).get_fold_names()
+    with open(path, "wb") as fh:
+        pickle.dump(splits, fh)
+    cf.created_fold_id_pickle = True
+    return splits
+
+
+def get_train_generators(cf, logger):
+    """Train/val batch-generator pipelines for one CV fold.
+
+    One split validates, one is held out for testing, the rest train; with
+    ``cf.hold_out_test_set`` the test split folds back into training and
+    testing happens on the separate hold-out directory instead.
+    """
+    all_data = load_dataset(cf, logger)
+    pids = np.unique([v["pid"] for v in all_data.values()])
+    train_ix, val_ix, test_ix, _ = _fold_splits(cf, len(pids))[cf.fold]
+
+    keep = {"train": {pids[i] for i in train_ix}, "val": {pids[i] for i in val_ix}}
+    if cf.hold_out_test_set:
+        keep["train"].update(pids[i] for i in test_ix)
+    subset = {
+        name: {k: v for k, v in all_data.items() if v["pid"] in wanted}
+        for name, wanted in keep.items()
+    }
+    logger.info(f"data set loaded with: {len(train_ix)} train / {len(val_ix)} val / {len(test_ix)} test patients")
+
+    gens = {
+        "train": create_data_gen_pipeline(subset["train"], cf=cf, is_training=True),
+        "val_sampling": create_data_gen_pipeline(subset["val"], cf=cf, is_training=False),
+    }
+    if cf.val_mode == "val_patient":
+        gens["val_patient"] = PatientBatchIterator(subset["val"], cf=cf)
+        gens["n_val"] = len(val_ix) if cf.max_val_patients is None else min(len(val_ix), cf.max_val_patients)
+    else:
+        gens["n_val"] = cf.num_val_batches
+    return gens
+
+
+def create_data_gen_pipeline(patient_data, cf, is_training=True):
+    """``BatchGenerator`` + transforms in ``cf.n_workers`` threads: mirror and
+    spatial augmentation to ``patch_size`` in training, a center crop
+    otherwise, then seg -> boxes."""
+    data_gen = BatchGenerator(patient_data, batch_size=cf.batch_size, cf=cf)
+    transforms = []
+    if is_training:
+        def mirror_t(batch, rng):
+            batch["data"], batch["seg"] = mirror_batch(batch["data"], batch["seg"], rng)
+            return batch
+
+        def spatial_t(batch, rng):
+            batch["data"], batch["seg"] = spatial_augment_batch(
+                batch["data"], batch["seg"], cf.patch_size[: cf.dim], cf.da_kwargs, rng
+            )
+            return batch
+
+        transforms += [mirror_t, spatial_t]
+    else:
+        def crop_t(batch, rng):
+            batch["data"], batch["seg"] = center_crop_batch(batch["data"], batch["seg"], cf.patch_size[: cf.dim])
+            return batch
+
+        transforms.append(crop_t)
+
+    def convert_t(batch, rng):
+        return convert_seg_to_bounding_box_coordinates(
+            batch, cf.dim, get_rois_from_seg_flag=False, class_specific_seg_flag=cf.class_specific_seg_flag
+        )
+
+    transforms.append(convert_t)
+    # worker seeds rank * n_workers + w, with this process rank 0 of 1
+    return MultiThreadedGenerator(data_gen, transforms, n_workers=cf.n_workers, seeds=range(cf.n_workers))
 
 
 def get_test_generator(cf, logger):
@@ -53,15 +152,20 @@ def _meta_files(path):
 
 
 def _stage_to_data_dest(cf, pp_data_path, logger):
-    """Cluster staging: copy the patients' files to ``cf.data_dest`` once."""
+    """Cluster staging: copy the patients' files (``.npy``, or ``.npz``
+    archives, then unpacked) to ``cf.data_dest`` once."""
     target_dir = os.path.join(cf.data_dest, cf.pp_name)
     if not os.path.isdir(target_dir) or not os.listdir(target_dir):
         os.makedirs(target_dir, exist_ok=True)
         for f in _meta_files(pp_data_path):
             with open(os.path.join(pp_data_path, f), "rb") as handle:
                 pid = pickle.load(handle)["pid"]
-            for name in (f, f"{pid}_img.npy", f"{pid}_rois.npy"):
-                shutil.copy(os.path.join(pp_data_path, name), target_dir)
+            shutil.copy(os.path.join(pp_data_path, f), target_dir)
+            for name in (f"{pid}_img", f"{pid}_rois"):
+                for ext in (".npz", ".npy"):
+                    if os.path.isfile(os.path.join(pp_data_path, name + ext)):
+                        shutil.copy(os.path.join(pp_data_path, name + ext), target_dir)
+        dutils.unpack_dataset(target_dir)
         logger.info(f"copied the data set to {target_dir}")
     return target_dir
 
@@ -98,6 +202,121 @@ def load_dataset(cf, logger, subset_ixs=None, pp_data_path=None):
             "fg_slices": m["fg_slices"],
         }
     return data
+
+
+class BatchGenerator(BatchGeneratorBase):
+    """Samples patients (class-balanced), fg-biased slices/crops to
+    pre_crop_size; augmentation produces the final patch_size.
+
+    Sampling contract (``experiments/lidc_exp/data_loader.py:223-334``, the
+    reference's ``data_loader.py:119-244``): patients are
+    drawn class-balanced when more than one fg class exists; in 2D a slice is
+    drawn with total probability p_fg=0.5 on the patient's fg slices; crops
+    to pre_crop_size are centered near a random fg pixel with probability
+    p_fg, constrained so the ROI stays >= patch_size/8 from the final patch
+    border, and uniformly otherwise.
+    """
+
+    def __init__(self, data, batch_size, cf):
+        super().__init__(data, batch_size, cf)
+        self.crop_margin = np.array(cf.patch_size) / 8.0  # min distance of ROI center to patch edge
+        self.p_fg = 0.5
+
+    def _sample_patient_ixs(self, rng):
+        targets_per_patient = [v["class_target"] for v in self._data.values()]
+        if self.cf.head_classes > 2:
+            return dutils.get_class_balanced_patients(
+                targets_per_patient, self.batch_size, self.cf.head_classes - 1,
+                slack_factor=self.cf.batch_sample_slack, rng=rng,
+            )
+        return rng.choice(len(targets_per_patient), self.batch_size)
+
+    def _choose_slice(self, n_z, fg_slices, rng):
+        """Slice id with total probability p_fg on the fg slices."""
+        fg = [s for s in fg_slices if 0 <= s < n_z]
+        if fg and rng.rand() < self.p_fg:
+            return int(rng.choice(fg))
+        bg = np.setdiff1d(np.arange(n_z), fg)
+        return int(rng.choice(bg if bg.size else n_z))
+
+    @staticmethod
+    def _z_context_window(volume, slice_id, n_ctx):
+        """(1, y, x, z) -> (2*n_ctx+1, y, x): the slice and its z neighbors
+        stacked into channels (zero-padded at the volume ends)."""
+        padded = np.pad(volume[0], ((0, 0), (0, 0), (n_ctx, n_ctx)), "constant")
+        return np.moveaxis(padded[..., slice_id : slice_id + 2 * n_ctx + 1], -1, 0)
+
+    def _fg_anchor_center(self, data, seg, d, anchor, rng):
+        """Crop-center range along axis d keeping the anchor pixel at least
+        crop_margin away from the eventual patch border; uniform inside."""
+        half = self.cf.pre_crop_size[d] // 2
+        reach = self.cf.patch_size[d] // 2 - self.crop_margin[d]
+        low = max(half, anchor[d] - reach)
+        high = min(data.shape[d + 1] - half, anchor[d] + reach)
+        if low >= high:  # lesion at the image edge: just keep the crop inside
+            low, high = half, data.shape[d + 1] - half
+        return rng.randint(int(low), int(high))
+
+    def _pre_crop(self, data, seg, rng):
+        """Pad up to, then crop down to pre_crop_size (fg-biased center)."""
+        cf = self.cf
+        if any(data.shape[d + 1] < ps for d, ps in enumerate(cf.pre_crop_size)):
+            grown = [max(data.shape[d + 1], ps) for d, ps in enumerate(cf.pre_crop_size)]
+            data = dutils.pad_nd_image(data, grown, mode="constant")
+            seg = dutils.pad_nd_image(seg, grown, mode="constant")
+
+        crop_dims = [d for d, ps in enumerate(cf.pre_crop_size) if data.shape[d + 1] > ps]
+        if not crop_dims:
+            return data, seg
+
+        if rng.rand(1) < self.p_fg and seg.sum() > 0:
+            instance = rng.choice(np.unique(seg)[1:], 1)
+            fg_pixels = np.argwhere(seg == instance)
+            anchor = fg_pixels[rng.choice(fg_pixels.shape[0], 1)][0]
+            centers = {d: self._fg_anchor_center(data, seg, d, anchor, rng) for d in crop_dims}
+        else:
+            centers = {
+                d: rng.randint(cf.pre_crop_size[d] // 2, data.shape[d + 1] - cf.pre_crop_size[d] // 2)
+                for d in crop_dims
+            }
+        for d in crop_dims:
+            lo = int(centers[d] - cf.pre_crop_size[d] // 2)
+            hi = int(centers[d] + cf.pre_crop_size[d] // 2)
+            data = data[(slice(None),) * (d + 1) + (slice(lo, hi),)]
+            seg = seg[(slice(None),) * d + (slice(lo, hi),)]
+        return data, seg
+
+    def generate_train_batch(self, rng):
+        cf = self.cf
+        patients = list(self._data.values())
+        batch_data, batch_segs, batch_pids, batch_targets = [], [], [], []
+        for ix in self._sample_patient_ixs(rng):
+            patient = patients[ix]
+            # stored (z, y, x) -> channel-first (c, y, x, z)
+            data = np.transpose(np.load(patient["data"], mmap_mode="r"), axes=(1, 2, 0))[np.newaxis]
+            seg = np.transpose(np.load(patient["seg"], mmap_mode="r"), axes=(1, 2, 0))
+
+            if cf.dim == 2:
+                slice_id = self._choose_slice(data.shape[3], patient["fg_slices"], rng)
+                if cf.n_3D_context is not None:
+                    data = self._z_context_window(data, slice_id, cf.n_3D_context)
+                else:
+                    data = data[..., slice_id]
+                seg = seg[..., slice_id]
+
+            data, seg = self._pre_crop(data, seg, rng)
+            batch_data.append(data)
+            batch_segs.append(seg[np.newaxis])
+            batch_pids.append(patient["pid"])
+            batch_targets.append(patient["class_target"])
+
+        ragged = len({len(t) for t in batch_targets}) > 1
+        return {
+            "data": np.array(batch_data).astype(np.float32),
+            "seg": np.array(batch_segs).astype(np.uint8),
+            "pid": batch_pids,
+            "class_target": np.array(batch_targets, dtype=object) if ragged else np.array(batch_targets),
+        }
 
 
 class PatientBatchIterator:

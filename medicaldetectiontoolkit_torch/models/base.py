@@ -12,6 +12,9 @@ Device tensors stay channel-first, as torch convolutions take them.
 tensors; ``*_forward_convert`` does the device->host copy. That keeps the
 Predictor's in-flight window of dispatched chunks (``predictor.py:374-417``)
 and the trainer's pipelined steps overlapping host work with device work.
+A training step's small results are copied by ``start_host_copies`` at the
+end of its dispatch: on one CUDA stream a copy made in ``convert`` would
+also wait for every step dispatched after this one.
 The inference handles are ``(with_masks, (det, det_mask, det_masks_raw,
 seg_preds))`` for every detector: the one-stage detectors
 (``retina_net.py``) leave ``det_masks_raw`` None, the two-stage ones
@@ -157,6 +160,22 @@ def add_anchor_boxes_to_results(np_anchors, anchor_info, img_shape_spatial, box_
             for row in np.clip(np_anchors[idx[valid]], 0, hi):
                 box_results_list[b].append({"box_coords": row, "box_type": kind})
     return box_results_list
+
+
+def start_host_copies(tensors):
+    """Queue device->host copies of ``tensors`` (a list; None entries stay
+    None) into pinned memory on the current stream, right behind the work
+    that made them, and record an event after them. Waiting on that event
+    waits for this work alone, not for work enqueued later on the stream.
+    Returns (host tensors, event); CPU tensors come back as they are, with
+    no event."""
+    if all(t is None or t.device.type == "cpu" for t in tensors):
+        return list(tensors), None
+    host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in tensors]
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 def resolve_remat(cf) -> bool:

@@ -269,8 +269,10 @@ class RetinaNetDetector(base.Detector):
         self.optimizer.step()
 
     def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
-        """Enqueue one step (the update unless validating) and the detection
-        refinement of its heads; return un-synchronised handles."""
+        """Enqueue one step (the update unless validating), the detection
+        refinement of its heads and the host copies of its small results
+        (monitor values, sampled anchors, detections); return handles that
+        nothing has waited for yet."""
         inputs = self._prep(batch)
         bsz = inputs[0].shape[0]
         if is_validation or not do_update:
@@ -283,17 +285,21 @@ class RetinaNetDetector(base.Detector):
             self._update()
         with torch.no_grad():
             det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
-        return tuple(inputs[0].shape), aux["monitor"], aux["anchor_info"], det, det_mask, seg_preds
+        keys = list(aux["monitor"])
+        host, copied = base.start_host_copies([*aux["monitor"].values(), *aux["anchor_info"], det, det_mask])
+        return tuple(inputs[0].shape), dict(zip(keys, host)), host[len(keys):-2], host[-2], host[-1], seg_preds, copied
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
-        """Host copies of one step's handles -> the reference results dict
-        (``retina_net.py:386-417``)."""
+        """One step's handles -> the reference results dict
+        (``retina_net.py:386-417``), waiting for that step's host copies."""
         cf = self.cf
-        img_shape, monitor, anchor_info, det, det_mask, seg_preds = handles
+        img_shape, monitor, anchor_info, det, det_mask, seg_preds, copied = handles
+        if copied is not None:
+            copied.synchronize()
         boxes = [[] for _ in range(img_shape[0])]
         base.add_gt_boxes_to_results(batch, boxes)
-        base.add_anchor_boxes_to_results(self.np_anchors, [t.cpu().numpy() for t in anchor_info], img_shape[2:], boxes)
-        base.detections_to_box_results(cf, det.cpu().numpy(), det_mask.cpu().numpy(), boxes)
+        base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:], boxes)
+        base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
         monitor = {k: float(v) for k, v in monitor.items()}
         logger_string = "loss: {0:.2f}, class: {1:.2f}, bbox: {2:.2f}".format(
             monitor["loss"], monitor["class_loss"], monitor["bbox_loss"])

@@ -21,8 +21,10 @@ Chunks are padded to ``cf.batch_size``, and up to ``MDT_TILE_INFLIGHT``
 (default 8) chunks are dispatched before the oldest is converted: the port's
 ``test_forward_dispatch`` only enqueues CUDA work (a pinned, non-blocking
 upload), so the card computes the next chunks while the host walks one
-chunk's boxes. Consolidation is host NumPy (the JAX package's NumPy path; its
-native C++ copy is not ported), run in a thread pool. ``Predictor.times``
+chunk's boxes. Consolidation runs on the host in a thread pool: from 16 boxes
+up, WBC and ``nms_2to3D`` go through the port's native host library
+(``native.wbc_greedy`` / ``native.nms_2to3d``, the JAX package's cutover);
+below that, or under ``MDT_NO_NATIVE=1``, their NumPy loops. ``Predictor.times``
 sums host seconds per stage: ``forward`` (dispatch and convert, ending in the
 device->host copies), ``patient`` (all of ``predict_patient``; the rest of it
 beyond ``forward`` is stitching: mirroring, seg averaging, box offsets) and
@@ -39,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.utils.exp_utils import load_checkpoint_state
 
 
@@ -546,6 +549,12 @@ def weighted_box_clustering(dets, box_patch_id, thresh, n_ens):
     overlap_counts = dets[:, -1]
 
     order = scores.argsort()[::-1]
+    if len(scores) >= 16:  # the greedy loop is the cost at scale -> native
+        codes = np.unique(np.asarray(box_patch_id), return_inverse=True)[1]
+        out = native.wbc_greedy(np.asarray(dets, np.float64), codes, order, thresh, n_ens)
+        if out is not None:  # None: MDT_NO_NATIVE=1 -> NumPy loop below
+            return list(out[0]), [list(c) for c in out[1]]
+
     extents = [coords[:, 2] - coords[:, 0] + 1, coords[:, 3] - coords[:, 1] + 1]
     if dim == 3:
         extents.append(coords[:, 5] - coords[:, 4] + 1)
@@ -601,6 +610,11 @@ def nms_2to3D(dets, thresh):
     areas = (coords[:, 2] - coords[:, 0] + 1) * (coords[:, 3] - coords[:, 1] + 1)
 
     order = scores.argsort()[::-1]
+    if len(scores) >= 16:  # native greedy loop (same cutover as WBC)
+        out = native.nms_2to3d(np.asarray(dets, np.float64), order, thresh)
+        if out is not None:
+            return list(out[0]), [list(z) for z in out[1]]
+
     keep, keep_z = [], []
     consumed = np.zeros(len(scores), bool)
     for seed in order:

@@ -12,8 +12,9 @@ The config is a plain attribute bag, so an experiment's own config object
 
 ``make_lidc_experiment`` and ``run_lidc_test`` set up and run the port's
 whole-patient test mode on synthetic LIDC patients (the tests, the smoke
-script's phase 8 and ``tools/time_patient.py``); ``assert_same`` is the
-tests' exact comparison of two results.
+script's phase 8 and ``tools/time_patient.py``), ``run_lidc_train`` its
+training modes on such an experiment (phase 9, ``tools/time_train.py``);
+``assert_same`` is the tests' exact comparison of two results.
 """
 
 from __future__ import annotations
@@ -283,4 +284,20 @@ def run_lidc_test(cf, device="cpu", folds=(0,)):
 
     exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
     argv = ["--mode", "test", "--exp_source", exp_source, "--exp_dir", cf.exp_dir, "--folds", *map(str, folds)]
+    return port_exec.main(argv, device=device)[folds[0]]
+
+
+def run_lidc_train(cf, mode="train_test", device="cpu", folds=(0,), resume=None):
+    """``exec --mode train | train_test`` on the experiment of
+    ``make_lidc_experiment`` (made with no checkpoints), with its pinned
+    config snapshot (``--use_stored_settings``), optionally resuming from
+    the checkpoint directory ``resume``; returns ``exec.main``'s result for
+    fold ``folds[0]``."""
+    from medicaldetectiontoolkit_torch import exec as port_exec
+
+    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
+    argv = ["--mode", mode, "--exp_source", exp_source, "--exp_dir", cf.exp_dir, "--use_stored_settings",
+            "--folds", *map(str, folds)]
+    if resume:
+        argv += ["--resume_to_checkpoint", resume]
     return port_exec.main(argv, device=device)[folds[0]]

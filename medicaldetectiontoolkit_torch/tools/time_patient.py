@@ -9,7 +9,7 @@ run pays the card's first-use costs). Per run it prints the ms per patient
 (host clock around the whole test mode, ending in the device->host copies)
 and its split: forward (dispatch and convert of every chunk), stitching (the
 rest of ``predict_patient``: mirroring, seg averaging, box offsets),
-consolidation (WBC), evaluation, and the rest (model build, checkpoint
+consolidation (WBC; native unless ``MDT_NO_NATIVE=1``), evaluation, and the rest (model build, checkpoint
 load, data load); patches/s (forwards over the whole time, and over the
 forward time) and the peak device memory. The card's name and power limit
 head the output; the JSON goes to ``--out-dir``.
@@ -29,6 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
 from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
 from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda
@@ -87,8 +88,9 @@ def main():
     args = ap.parse_args()
     card = common.setup_card()
     print(card)
-    with ThreadPoolExecutor(max_workers=2) as pool:  # build the kernels before any timing
-        list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda)))
+    builds = [nms_cuda.build, roi_align_cuda.build] + ([native.get_lib] if native.enabled() else [])
+    with ThreadPoolExecutor(max_workers=3) as pool:  # build the kernels and the host library before any timing
+        list(pool.map(lambda build: build(), builds))
     rows = []
     with tempfile.TemporaryDirectory() as root:
         data_dir = os.path.join(root, "data")

@@ -1,4 +1,5 @@
-"""Experiment bootstrap, logging, checkpoints and the results csv of the port.
+"""Experiment bootstrap, logging, checkpoints, model selection, monitoring and
+the results csv of the port.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/utils/exp_utils.py`` with no
 pandas and no jax:
@@ -15,9 +16,20 @@ pandas and no jax:
     (``{epoch}_best_checkpoint/params.pkl``) loads as it is, on a machine
     without jax, flax or optax: the unpickler turns the pickles of jax arrays
     into numpy arrays and refuses any other jax, flax or optax class;
+  * ``ModelSelector``: top-k epoch checkpoints ranked by the mean of
+    ``cf.model_selection_criteria`` val metrics and ``epoch_ranking.npy`` for
+    the test mode's ensembling, as in JAX. A best checkpoint holds
+    ``{"params": net.jax_params(), "epoch": e}``, JAX's layout, which this
+    package's and the JAX package's test modes read. The always-rewritten
+    ``last_checkpoint`` holds the port's own ``Detector.state_dict()`` (the
+    parameters under their torch names and the torch Adam state, as numpy
+    arrays) and the epoch;
+  * ``load_checkpoint``: resume from a ``last_checkpoint`` (or, without the
+    optimizer state, from a best checkpoint). A JAX ``last_checkpoint``, which
+    holds optax's state, is refused by name: ``utils/convert.py`` converts
+    it on a machine with jax;
+  * ``prepare_monitoring``: the monitor-metrics dicts and the training plot;
   * ``create_csv_output`` with the ``csv`` module.
-
-``ModelSelector`` and ``prepare_monitoring`` come with the training drivers.
 """
 
 from __future__ import annotations
@@ -164,6 +176,24 @@ def save_checkpoint(path, state):
     os.replace(tmp, final)
 
 
+def _atomic_pickle(path, obj):
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as handle:
+        pickle.dump(obj, handle)
+    os.replace(tmp, path)
+
+
+def _atomic_np_save(path, arr):
+    """``np.save`` by write-then-rename: ``epoch_ranking`` is what a
+    preempted job's test-time ensembling reads."""
+    if not path.endswith(".npy"):
+        path += ".npy"
+    tmp = path + ".tmp.npy"
+    with open(tmp, "wb") as handle:
+        np.save(handle, arr)
+    os.replace(tmp, path)
+
+
 def _jax_array_from_pickle(fun, args, arr_state, aval_state):
     """What a pickled ``jax.Array`` holds: its numpy value (jax's own
     ``_reconstruct_array`` rebuilds the numpy array the same way, then puts
@@ -196,6 +226,107 @@ def load_checkpoint_state(path):
     ``save_checkpoint``: ``{"params": tree of numpy arrays, "epoch": ...}``."""
     with open(os.path.join(path, "params.pkl"), "rb") as handle:
         return _CheckpointUnpickler(handle).load()
+
+
+def _to_tensors(x):
+    """numpy arrays in a (nested dict of a) checkpoint -> CPU tensors."""
+    import torch
+
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.array(x))
+    if isinstance(x, dict):
+        return {k: _to_tensors(v) for k, v in x.items()}
+    return x
+
+
+def load_checkpoint(checkpoint_path, net):
+    """Resume: restore the net's params (and the optimizer state of a
+    ``last_checkpoint``); return (epoch + 1, monitor_metrics)."""
+    try:
+        state = load_checkpoint_state(checkpoint_path)
+    except pickle.UnpicklingError as e:
+        raise RuntimeError(
+            f"{checkpoint_path}: {e}. A JAX last_checkpoint holds optax's state; on a machine with jax, "
+            "medicaldetectiontoolkit_torch/utils/convert.py (jax_to_torch, jax_adam_to_torch) converts it, "
+            "or Detector.load_params takes its params and opt_state"
+        ) from e
+    if any(isinstance(v, dict) for v in state["params"].values()):
+        net.load_params(state["params"])  # a best checkpoint: JAX's param tree, no optimizer state
+    else:
+        net.load_state_dict({"params": _to_tensors(state["params"]), "opt_state": _to_tensors(state.get("opt_state"))})
+    with open(os.path.join(checkpoint_path, "monitor_metrics.pickle"), "rb") as handle:
+        monitor_metrics = pickle.load(handle)
+    return state["epoch"] + 1, monitor_metrics
+
+
+class ModelSelector:
+    """Top-k epoch checkpointing by the mean val selection criteria, plus the
+    resume checkpoint.
+
+    With ``cf.do_validation = False`` the criteria are read from the train
+    metrics, as in the JAX package, so ``--mode test`` has ranked
+    checkpoints to ensemble.
+    """
+
+    def __init__(self, cf, logger):
+        self.cf = cf
+        self.logger = logger
+
+    def run_model_selection(self, net, monitor_metrics, epoch):
+        source = "val" if getattr(self.cf, "do_validation", True) else "train"
+        non_nan_scores = np.mean(
+            np.array([[0 if ii is None else ii for ii in monitor_metrics[source][sc]]
+                      for sc in self.cf.model_selection_criteria]),
+            0,
+        )
+        epochs_scores = [ii for ii in non_nan_scores[1:]]
+        epoch_ranking = np.argsort(epochs_scores)[::-1] + 1  # epochs start at 1
+        epoch_ranking = epoch_ranking[epoch_ranking >= self.cf.min_save_thresh]
+
+        if epoch in epoch_ranking[: self.cf.save_n_models]:
+            save_dir = os.path.join(self.cf.fold_dir, f"{epoch}_best_checkpoint")
+            save_checkpoint(save_dir, {"params": net.jax_params(), "epoch": epoch})
+            _atomic_pickle(os.path.join(save_dir, "monitor_metrics.pickle"), monitor_metrics)
+            _atomic_np_save(os.path.join(self.cf.fold_dir, "epoch_ranking"), epoch_ranking[: self.cf.save_n_models])
+            _atomic_np_save(os.path.join(save_dir, "epoch_ranking"), epoch_ranking[: self.cf.save_n_models])
+            self.logger.info(f"saving current epoch {epoch} at rank {np.argwhere(epoch_ranking == epoch)}")
+            # delete checkpoints that fell out of the top-k
+            for se in [int(ii.split("_")[0]) for ii in os.listdir(self.cf.fold_dir) if "best_checkpoint" in ii]:
+                if se in epoch_ranking[self.cf.save_n_models :]:
+                    shutil.rmtree(os.path.join(self.cf.fold_dir, f"{se}_best_checkpoint"), ignore_errors=True)
+                    self.logger.info(f"deleting epoch {se} at rank {np.argwhere(epoch_ranking == se)}")
+
+        # always (re)write the resume checkpoint with the optimizer state
+        save_dir = os.path.join(self.cf.fold_dir, "last_checkpoint")
+        state = dict(net.state_dict())
+        state["epoch"] = epoch
+        save_checkpoint(save_dir, state)
+        _atomic_np_save(os.path.join(save_dir, "epoch_ranking"), epoch_ranking[: self.cf.save_n_models])
+        _atomic_pickle(os.path.join(save_dir, "monitor_metrics.pickle"), monitor_metrics)
+
+
+def prepare_monitoring(cf):
+    """Monitor-metrics dicts (train/val per-class AP, patient AUC, raw
+    values) and the training plot."""
+    from collections import OrderedDict
+
+    from medicaldetectiontoolkit_torch import plotting
+
+    metrics = {"train": OrderedDict(), "val": OrderedDict()}
+    metric_classes = []
+    if "rois" in cf.report_score_level:
+        metric_classes.extend([v for k, v in cf.class_dict.items()])
+    if "patient" in cf.report_score_level:
+        metric_classes.extend(["patient"])
+    for cl in metric_classes:
+        metrics["train"][cl + "_ap"] = [None]
+        metrics["val"][cl + "_ap"] = [None]
+        if cl == "patient":
+            metrics["train"][cl + "_auc"] = [None]
+            metrics["val"][cl + "_auc"] = [None]
+    metrics["train"]["monitor_values"] = [[] for _ in range(cf.num_epochs + 1)]
+    metrics["val"]["monitor_values"] = [[] for _ in range(cf.num_epochs + 1)]
+    return metrics, plotting.TrainingPlot2Panel(cf)
 
 
 def create_csv_output(results_list, cf, logger):

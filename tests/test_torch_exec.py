@@ -239,7 +239,23 @@ def test_csv_output_matches_jax(runs, tmp_path):
 
 @pytest.mark.parametrize("mode", ["train", "train_test"])
 def test_training_modes_are_not_ported(mode, tmp_path):
+    """One-stage training is ported (``tests/test_torch_exec_train.py``);
+    the two-stage detectors' training is not, and exec's train modes raise
+    for them, naming the ROADMAP, instead of running another model."""
+    from medicaldetectiontoolkit_torch.testing import run_lidc_train
+
+    env = dict(ENV, MDT_MODEL="mrcnn", MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="1", MDT_LIDC_NVB="1")
+    cf = make_lidc_experiment(str(tmp_path), env, dict(SMALL, n_workers=1), seeds=(), epochs=())
+    with pytest.raises(NotImplementedError, match="MaskRCNNDetector is not ported yet; see ROADMAP.md"):
+        run_lidc_train(cf, mode, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["train", "train_test"])
+def test_training_without_card_raises(mode, tmp_path, monkeypatch):
+    """Without a card and without ``device="cpu"``, exec's train modes raise
+    instead of running on the CPU."""
     from medicaldetectiontoolkit_torch import exec as port_exec
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_exec.main(["--mode", mode, "--exp_dir", str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_exec.main(["--mode", mode, "--exp_dir", str(tmp_path / "exp")])

@@ -1,5 +1,6 @@
 """The port and ``chip_smoke.py`` import without jax, flax, optax, pandas,
-sklearn or matplotlib and without any module of the JAX package, running
+sklearn or matplotlib and without any module of the JAX package (and
+without building the native host library), running
 the one-stage and two-stage detectors (a training step of the one-stage
 ones with the opt-in stem path included) and the port's test mode
 (``exec --mode test``, then ``--mode analysis``) on a tiny synthetic LIDC
@@ -61,6 +62,11 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.predictor",
     "medicaldetectiontoolkit_torch.evaluator",
     "medicaldetectiontoolkit_torch.exec",
+    "medicaldetectiontoolkit_torch.native",
+    "medicaldetectiontoolkit_torch.data.augmentation",
+    "medicaldetectiontoolkit_torch.data.loader",
+    "medicaldetectiontoolkit_torch.plotting",
+    "medicaldetectiontoolkit_torch.tools.time_train",
     "chip_smoke",
 ]
 
@@ -74,6 +80,8 @@ def test_port_imports_no_jax_or_host_heavy_packages():
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "from medicaldetectiontoolkit_torch import native\n"
+        "print('NATIVE_AT_IMPORT', native._lib, native.lib_info())\n"
         "from medicaldetectiontoolkit_torch.models import build_model\n"
         "from medicaldetectiontoolkit_torch.testing import make_batch, make_config\n"
         "for model in ('retina_unet', 'mrcnn', 'ufrcnn'):\n"
@@ -111,6 +119,7 @@ def test_port_imports_no_jax_or_host_heavy_packages():
     assert "BANNED []" in res.stdout, res.stdout
     assert "JAX_PACKAGE []" in res.stdout, res.stdout
     assert "JAX_FILES []" in res.stdout, res.stdout
+    assert "NATIVE_AT_IMPORT None {}" in res.stdout, res.stdout
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):

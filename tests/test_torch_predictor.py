@@ -4,11 +4,13 @@ bit, when both drive the same port detector on the CPU.
 Both predictors get the same batches (from the port's LIDC loader on a
 synthetic set), load the same two checkpoints (written by the port's
 ``save_checkpoint``) and drive one ``RetinaUNetDetector`` on the CPU; every
-box dict, seg map, monitor value and pickle must be identical. The JAX
-package's WBC and ``nms_2to3D`` are held to their NumPy loop (their native
-C++ shortcut agrees only to 1e-9, ``tests/test_native_wbc.py``); the port has
-only that loop. Also: WBC, ``nms_2to3D`` and the mirrored patch crops alone
-on random inputs."""
+box dict, seg map, monitor value and pickle must be identical. WBC and
+``nms_2to3D`` run their NumPy loops on both sides (``MDT_NO_NATIVE=1`` for
+the port, JAX's ``native.get_lib`` patched to None), and, in the tests that
+ask for ``native_consolidation``, both packages' native C++ copies, built
+here from the same code with the same flags (the native copy agrees with the
+NumPy loop only to 1e-9, ``tests/test_torch_native.py``). Also: WBC,
+``nms_2to3D`` and the mirrored patch crops alone on random inputs."""
 
 import os
 import pickle
@@ -51,6 +53,19 @@ class _Log:
 @pytest.fixture(autouse=True)
 def numpy_consolidation(monkeypatch):
     monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setenv("MDT_NO_NATIVE", "1")
+
+
+@pytest.fixture
+def native_consolidation(monkeypatch):
+    """Both packages' native libraries (undoing ``numpy_consolidation``)."""
+    from medicaldetectiontoolkit_torch import native as port_native
+
+    monkeypatch.undo()
+    assert native.get_lib() is not None and port_native.get_lib() is not None
+    port_native.reset_calls()
+    yield port_native
+    assert port_native.calls()["wbc_greedy"] > 0
 
 
 @pytest.fixture(scope="module", params=sorted(SETTINGS))
@@ -93,6 +108,19 @@ def test_test_mode_matches_jax(experiment):
     ids = {b["patch_id"].split("_")[0] + "_" + b["patch_id"].split("_")[1]
            for r in traw for bl in r[0] for b in bl if b["box_type"] == "det"}
     assert ids == {f"{r}_{a}" for r in range(2) for a in range(4)}
+
+
+def test_test_mode_with_native_consolidation_matches_jax(experiment, native_consolidation):
+    """The same as ``test_test_mode_matches_jax``, with WBC and the 2D->3D
+    merge in both packages' native libraries."""
+    cf, net = experiment
+    jres, jraw = _predict_test_set(jpred, cf, net, "jax")
+    tres, traw = _predict_test_set(tpred, cf, net, "port")
+    assert_same(traw, jraw)
+    assert_same(tres, jres)
+    assert sum(b["box_type"] == "det" for r in tres for bl in r[0] for b in bl) > 0
+    if cf.dim == 2:
+        assert native_consolidation.calls()["nms_2to3d"] > 0
 
 
 def test_predict_patient_matches_jax(experiment):

@@ -171,7 +171,9 @@ def test_train_step_matches_jax(case, monkeypatch):
     j_img_shape = (inputs[0].shape[0], *inputs[0].shape[2:], inputs[0].shape[1])  # channel-last
     jres = jnet.train_forward_convert((j_img_shape, jo[1], jo[3], *jo[4]), batches[0])
     with torch.no_grad():
-        handles = (tuple(inputs[0].shape), aux["monitor"], aux["anchor_info"], *tnet._finalize_outputs(*aux["heads"]))
+        # on the CPU the host copies are the tensors themselves, with no event to wait for
+        handles = (tuple(inputs[0].shape), aux["monitor"], aux["anchor_info"], *tnet._finalize_outputs(*aux["heads"]),
+                   None)
     tres = tnet.train_forward_convert(handles, batches[0])
     assert set(tres) == set(jres)
     np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=1e-5)
