@@ -43,6 +43,15 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      shared-memory bytes must equal the library's; K4 run twice must be
      bit-identical; K3's launch alone, wrapper and host time per call, K4's
      wrapper and host time, beside F.conv3d and conv3d_weight;
+  3d. the backward of the RoIAlign kernel (K2's gradient to the maps, a
+     float32 scatter with atomic adds) vs the plain PyTorch backward on the
+     card (the cases of ``tools/time_roi_align_bwd.py``): 2D and 3D, every
+     level, crop 1, clamped and zero-size boxes, level indices -1 and
+     n_levels, strided maps, bf16 and f16 maps, and the two-stage training
+     step's launches at LIDC width (48 sampled RoIs to (7,7,3) and to
+     (14,14,5) on the 36-channel pyramid, float32 and bfloat16); each case
+     twice, the runs within the atomics' tolerance; the launch alone, the
+     wrapper, its host time per call and the bound;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
@@ -64,8 +73,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      steps; the K3, K4 and NMS counters rise by the counts derived per step;
      from the same weights and draws the cuDNN stem (the opt-in unset) gives
      the same loss and gradients within the stated tolerance, and both
-     step times are printed; small 3D retina_unet and retina_net train steps
-     on the card agree with the CPU run of the same weights and draws;
+     step times are printed; small 3D retina_unet, retina_net, mrcnn and
+     ufrcnn train steps on the card agree with the CPU run of the same
+     weights and draws (7b);
   8. whole-patient test inference through ``medicaldetectiontoolkit_torch.exec``
      (``--mode test``) on synthetic LIDC patients, each experiment directory
      prepared as a training run leaves one (config snapshot, hold-out split,
@@ -101,7 +111,19 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      ran in the native host library; the resumed run trains epoch 3 only;
      no module of pandas, sklearn, matplotlib or jax is loaded. ms per step
      as the loop logs it, the loader's patches/s, each epoch's wall time
-     and the phase's time are printed.
+     and the phase's time are printed;
+ 10. two-stage training through ``exec --mode train_test`` on phase 9's
+     patients: the LIDC config's 3D Mask R-CNN at full width (batch 8,
+     float32, ``MDT_STEM_PALLAS=1``), 2 epochs x 3 train batches and 2
+     ``val_sampling`` batches, then the test. Each train dispatch must
+     launch K1 twice (proposals, refinement), K2 three times (classify-all,
+     the sampled RoIs' classifier and mask heads), K2's backward twice, K3
+     twice and K4 once; each validation dispatch K1 twice, K2 four times
+     (with the mask pass on the detections) and K3 once; each test chunk K1
+     twice, K2 for its classify-all chunks and K3 once; every monitored loss
+     is finite; ms per step as logged. Then one warm-up and two timed
+     bfloat16 train steps of ``make_mrcnn_slice_config`` with the same
+     counts.
 
 The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
@@ -152,6 +174,20 @@ def _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, tim
     timings = time_roi_align.check_cases(torch, np, common, roi_ops, roi_align_cuda, roi_levels,
                                          time_roi_align.roi_cases(torch))
     t = timings["lidc_classify_600_f32"]
+    entry = {k: t[k] for k in ("max_abs_err", "ms", "wrapper_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
+    return dict(entry, library_ms=None), timings
+
+
+def _check_roi_align_bwd(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
+                         time_roi_align_bwd):
+    """Phase 3d: every case of ``tools/time_roi_align_bwd.py``, the kernel
+    (twice) against the plain backward within that module's tolerances; the
+    timed cases with their bounds. Returns the kernels-line entry (the mask
+    head's launch at LIDC width, float32) and the timings."""
+    print("== phase 3d: RoIAlign backward kernel vs the plain PyTorch backward (float32 atomics)")
+    timings = time_roi_align_bwd.check_cases(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
+                                             time_roi_align_bwd.bwd_cases(torch))
+    t = timings["lidc_mask_48_f32"]
     entry = {k: t[k] for k in ("max_abs_err", "ms", "wrapper_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
     return dict(entry, library_ms=None), timings
 
@@ -553,24 +589,40 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
     with TF32 off: loss within 1e-5 relative, gradients within 1e-3 of each
     tensor's max, updated params within 1e-6 where the gradient is clear of
     zero and of one sign on both (Adam's first step is lr * sign(g)), else
-    2 lr."""
+    2 lr. The two-stage detectors take the weights and batch of
+    ``tests/test_torch_mrcnn_train.py``'s 3D mrcnn case (positive RoIs are
+    sampled), and their sampled RoIs must be the same slots and classes on
+    both, the boxes within 1e-5."""
     print(f"== phase 7b: small 3D {model} train step, card vs CPU plain path")
     os.environ["MDT_STEM_PALLAS"] = "1"
-    cf = make_config(model=model, dim=3, batch_size=4)
+    two_stage = model in ("mrcnn", "ufrcnn")
+    cf = make_config(model=model, dim=3, batch_size=4, retina_scales=not two_stage)
     cf.grad_accum_steps = 2
-    batch = make_batch(cf, seed=5)
+    if two_stage:
+        cf.pre_nms_limit, cf.post_nms_rois_training = 2000, 300
+    batch = make_batch(cf, seed=1 if two_stage else 5)
     gpu = build_model(cf, log, device="cuda")
     cpu = build_model(cf, log, device="cpu")
-    gpu.initialize(seed=1)
+    gpu.initialize(seed=4 if two_stage else 1)
     cpu.load_state_dict(gpu.state_dict())
     draws = cpu.draws(2, 2)
-    out = {}
+    out, sampled = {}, {}
     for net, d in ((gpu, [t.cuda() for t in draws]), (cpu, draws)):
         net.current_lr = 1e-3
         loss, aux = net._accumulate(net._prep(batch), d)
         grads = {n: p.grad.float().cpu().clone() for n, p in net.module.named_parameters()}
         net._update()
         out[net.device.type] = (float(loss), grads, {n: p.detach().cpu() for n, p in net.module.named_parameters()})
+        if two_stage:
+            sampled[net.device.type] = [[a[k].cpu() for k in ("sampled_valid", "sampled_class", "sampled_rois")] +
+                                        [float(a["monitor"]["mrcnn_bbox_loss"])] for a in aux]
+    if two_stage:
+        for g, c in zip(sampled["cuda"], sampled["cpu"]):
+            same = torch.equal(g[0], c[0]) and torch.equal(g[1], c[1]) and float((g[2] - c[2]).abs().max()) <= 1e-5
+            print(f"  microbatch: {int(c[0].sum())} sampled RoIs, {int((c[1] > 0).sum())} positive (box loss "
+                  f"{c[3]:.4f}); the same on the card: {same}")
+            if not same:
+                raise AssertionError(f"small {model} train step: the card sampled other RoIs than the CPU")
     stem = gpu.module.fpn.stem0[0] if cf.operate_stride1 else gpu.module.fpn.stem1
     if not stem.stem_kernel:
         raise AssertionError("the small net's stem did not take the stem kernels")
@@ -909,12 +961,10 @@ TRAIN_ENV = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_EPOCHS": "2",
              "MDT_LIDC_NVB": "2"}
 
 
-def _recorded_dispatches(counters, steps):
-    """``RetinaNetDetector.train_forward_dispatch`` that records, per call,
-    whether it validated and how far each launch counter rose during it."""
-    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
-
-    real = RetinaNetDetector.train_forward_dispatch
+def _recorded_dispatches(counters, steps, detector):
+    """``detector.train_forward_dispatch`` that records, per call, whether
+    it validated and how far each launch counter rose during it."""
+    real = detector.train_forward_dispatch
 
     def dispatch(self, batch, is_validation=False, do_update=True):
         before = {k: w.launches for k, w in counters.items()}
@@ -922,7 +972,7 @@ def _recorded_dispatches(counters, steps):
         steps.append(("val" if is_validation else "train", {k: w.launches - before[k] for k, w in counters.items()}))
         return out
 
-    return _class_attr(RetinaNetDetector, "train_forward_dispatch", dispatch)
+    return _class_attr(detector, "train_forward_dispatch", dispatch)
 
 
 def _same_tree(torch, np, a, b):
@@ -985,11 +1035,13 @@ def _checked_converts(torch, np, checked, n_each=2):
         yield
 
 
-def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=None):
+def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=None, detector=None):
     """One ``exec --mode {mode}`` run on the card with the launch counters
     from 0: (result, per-dispatch launches, total launches, wall seconds).
-    With a list ``checked``, the first converts are held against synchronous
-    reads (``_checked_converts``)."""
+    ``detector`` is the class whose dispatches are recorded (default
+    ``RetinaNetDetector``). With a list ``checked``, the first converts are
+    held against synchronous reads (``_checked_converts``)."""
+    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
     from medicaldetectiontoolkit_torch.testing import run_lidc_train
 
     steps = []
@@ -997,7 +1049,7 @@ def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=Non
         wrapper.launches = 0
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
-        stack.enter_context(_recorded_dispatches(counters, steps))
+        stack.enter_context(_recorded_dispatches(counters, steps, detector or RetinaNetDetector))
         if checked is not None:
             stack.enter_context(_checked_converts(torch, np, checked))
         out = _quietly(log_path, run_lidc_train, cf, mode, device="cuda", resume=resume)
@@ -1006,15 +1058,17 @@ def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=Non
     return out, steps, {k: w.launches for k, w in counters.items()}, wall
 
 
-def _check_steps(cf, steps, n_epochs):
-    """Each train dispatch launched K3 twice per microbatch (forward and
-    remat recompute), K4 once per microbatch, K1 once (refinement of the
-    merged heads); each validation dispatch K3 once and K1 once."""
+def _check_steps(cf, steps, n_epochs, expect=None):
+    """Each dispatch launched the kernels ``expect`` gives per kind ("train",
+    "val"); by default Retina U-Net's: each train dispatch K3 twice per
+    microbatch (forward and remat recompute), K4 once per microbatch, K1
+    once (refinement of the merged heads); each validation dispatch K3 once
+    and K1 once."""
     from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
 
     n_micro = resolve_grad_accum(cf, cf.batch_size)
-    expect = {"train": {"stem_fwd": 2 * n_micro, "stem_wgrad": n_micro, "nms": 1},
-              "val": {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1}}
+    expect = expect or {"train": {"stem_fwd": 2 * n_micro, "stem_wgrad": n_micro, "nms": 1},
+                        "val": {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1}}
     # per epoch: the train batches, the val_sampling batches and the plotted prediction
     n_expect = {"train": n_epochs * cf.num_train_batches, "val": n_epochs * (cf.num_val_batches + 1)}
     for kind in ("train", "val"):
@@ -1137,6 +1191,110 @@ def _drive_training(torch, np, common, counters, card, root):
             "loader_patches_per_s": capacity}
 
 
+def two_stage_launches(cf, m, kind, with_mask_head=True):
+    """Kernel launches of one two-stage dispatch of ``m`` elements per
+    microbatch: ``kind`` "train" (per microbatch: K1 for the proposals and
+    the refinement, K2 for the classify-all chunks and the sampled RoIs'
+    heads, K2's backward for those heads, K3 forward and remat recompute,
+    K4), "val" (one pass, no gradient, the mask pass on the detections when
+    ``cf.return_masks_in_val``) or "test" (a chunk of ``exec --mode test``:
+    the inference proposals, classify-all, refinement)."""
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+
+    heads = 2 if with_mask_head else 1
+    if kind == "test":
+        return {"nms": 2, "roi_align": math.ceil(m * cf.post_nms_rois_inference / cf.roi_chunk_size),
+                "roi_align_bwd": 0, "stem_fwd": 1, "stem_wgrad": 0}
+    classify = math.ceil(m * cf.post_nms_rois_training / cf.roi_chunk_size)
+    if kind == "val":
+        masks = 1 if with_mask_head and cf.return_masks_in_val else 0
+        return {"nms": 2, "roi_align": classify + heads + masks, "roi_align_bwd": 0, "stem_fwd": 1, "stem_wgrad": 0}
+    n = resolve_grad_accum(cf, m)
+    classify = math.ceil(m // n * cf.post_nms_rois_training / cf.roi_chunk_size)
+    return {"nms": 2 * n, "roi_align": (classify + heads) * n, "roi_align_bwd": heads * n, "stem_fwd": 2 * n,
+            "stem_wgrad": n}
+
+
+def _drive_two_stage_training(torch, np, common, counters, card, root):
+    """Phase 10: 3D Mask R-CNN training at LIDC width through ``exec --mode
+    train_test`` on phase 9's patients, then bfloat16 steps of the Mask
+    R-CNN slice. Returns the launch counts and step times."""
+    import pickle
+
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
+    from medicaldetectiontoolkit_torch.models.mrcnn import MaskRCNNDetector
+    from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    log_path = os.path.join(root, "exec_console.log")
+    cf = _quietly(log_path, make_lidc_experiment, root, dict(TRAIN_ENV, MDT_MODEL="mrcnn"), {}, seeds=(), epochs=(),
+                  device="cuda", data_dir=os.path.join(root, "data_train"), exp_name="exp_train_mrcnn")
+    print(f"== phase 10: exec --mode train_test, 3D mrcnn at LIDC width (patch {cf.patch_size}, sf {cf.start_filts}, "
+          f"ef {cf.end_filts}, batch {cf.batch_size}, {cf.compute_dtype}, MDT_STEM_PALLAS=1, "
+          f"{cf.post_nms_rois_training} proposals and {cf.train_rois_per_image} sampled RoIs per element); phase 9's "
+          f"patients; {cf.num_epochs} epochs x {cf.num_train_batches} batches, {cf.num_val_batches} val_sampling batches")
+    out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test", detector=MaskRCNNDetector)
+    expect = {kind: two_stage_launches(cf, cf.batch_size, kind) for kind in ("train", "val")}
+    print(f"  derived launches per dispatch: {expect}")
+    per_step = _check_steps(cf, steps, cf.num_epochs, expect)
+
+    fold_dir = os.path.join(cf.exp_dir, "fold_0")
+    ranking = np.load(os.path.join(fold_dir, "epoch_ranking.npy"))
+    n_ckpt = min(len(ranking), cf.test_n_epochs)
+    with open(os.path.join(cf.exp_dir, "fold_ids.pickle"), "rb") as handle:
+        n_patients = len(pickle.load(handle)[0][2])
+    z, y, x = TRAIN_PATIENT
+    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), cf.patch_size))
+    n_chunks = math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * n_patients
+    per_chunk = two_stage_launches(cf, cf.batch_size, "test")
+    rest = {k: totals[k] - per_step[k] for k in totals}
+    want = {k: v * n_chunks for k, v in per_chunk.items()}
+    print(f"  test: {n_patients} patients x {n_ckpt} checkpoints x 4 mirrors, {n_chunks} chunks; launches outside the "
+          f"train and val dispatches {rest} (expected {want})")
+    if len(out["test"]["results"]) != n_patients or rest != want:
+        raise AssertionError(f"mrcnn test mode: expected {want} launches for {n_patients} patients, counted {rest}")
+    metrics = out["train"]["monitor_metrics"]
+    losses = [v for split in ("train", "val") for ep in metrics[split]["monitor_values"] for m in ep
+              for v in m.values()]
+    if len(losses) != 2 * cf.num_epochs * (cf.num_train_batches + cf.num_val_batches) or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    files = sorted(os.listdir(fold_dir))
+    print(f"  fold_0: {files}; epoch_ranking {ranking.tolist()}; {len(losses)} finite monitored losses")
+    if not ({f"{e}_best_checkpoint" for e in ranking} <= set(files) and
+            os.path.isfile(os.path.join(fold_dir, "last_checkpoint", "params.pkl"))):
+        raise AssertionError("the best checkpoints or last_checkpoint were not written")
+    with open(os.path.join(fold_dir, "exec.log")) as handle:
+        logged = [line.split("|| ")[-1].strip() for line in handle if "tr. batch" in line]
+    print(f"  train steps as logged: {logged[:2]} ...")
+    _print_train_times(out["train"], card)
+    step_ms = [s * 1e3 for ep in out["train"]["times"]["step_s"].values() for s in ep]
+    print(f"  train_test: {wall:.1f} s")
+
+    print("== phase 10: 3D mrcnn slice (make_mrcnn_slice_config), bfloat16: one warm-up and two timed train steps")
+    net = common.slice_net("bfloat16", seed=0, model="mrcnn")
+    batches = common.slice_batches(3, "mrcnn")
+    common.train_steps(net, batches[:1])
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    results, times = common.train_steps(net, batches[1:])
+    counted = {k: w.launches for k, w in counters.items()}
+    want = {k: v * len(times) for k, v in two_stage_launches(net.cf, net.cf.batch_size, "train").items()}
+    print(f"  launches {counted} (expected {want}); {', '.join(f'{t * 1e3:.1f}' for t in times)} ms per step; "
+          f"{results[-1]['logger_string']} ({card})")
+    if counted != want or not all(math.isfinite(r["loss"]) for r in results):
+        raise AssertionError(f"mrcnn bfloat16 train steps: launches {counted} (expected {want}) or a non-finite loss")
+    del net
+    torch.cuda.empty_cache()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    if loaded:
+        raise AssertionError(f"the port's two-stage training loaded {loaded}")
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": {k: totals[k] + counted[k] for k in totals}, "step_ms": step_ms,
+            "bf16_step_ms": [t * 1e3 for t in times]}
+
+
 def main() -> int:
     import torch
 
@@ -1155,7 +1313,7 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
-    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align, time_stem
+    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align, time_roi_align_bwd, time_stem
 
     t_start = time.perf_counter()
     print("== phase 1: device")
@@ -1188,6 +1346,8 @@ def main() -> int:
     roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align)
     stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem,
                                            _stem_cases(torch))
+    bwd_entry, bwd_times = _check_roi_align_bwd(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
+                                                time_roi_align_bwd)
 
     batches = common.slice_batches(3)
     runs = {}
@@ -1217,13 +1377,16 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         truns[dtype] = _drive_train(torch, np, dtype, train_batches, common, counters, card)
         torch.cuda.empty_cache()
-    for model in ("retina_unet", "retina_net"):
+    for model in ("retina_unet", "retina_net", "mrcnn", "ufrcnn"):
         _small_train(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
 
     with tempfile.TemporaryDirectory() as root:
         patients = _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root)
     with tempfile.TemporaryDirectory() as root:
         training = _drive_training(torch, np, common, counters, card, root)
+        two_stage = _drive_two_stage_training(
+            torch, np, common, dict(counters, roi_align=roi_align_cuda.pyramid_roi_align,
+                                    roi_align_bwd=roi_align_cuda.pyramid_roi_align_backward), card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -1250,6 +1413,13 @@ def main() -> int:
           f"{sum(training['step_ms']) / len(training['step_ms']):.1f} ms per step of 8 as the loop logs it "
           f"(median {sorted(training['step_ms'])[len(training['step_ms']) // 2]:.1f}), loader "
           f"{training['loader_patches_per_s']:.2f} patches/s")
+    for case, t in bwd_times.items():
+        print(f"  roi_align backward {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms (host "
+              f"{t['host_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    ms = two_stage["step_ms"]
+    print(f"  exec --mode train_test, mrcnn 3D float32 at LIDC width: {sum(ms) / len(ms):.1f} ms per step of 8 as the "
+          f"loop logs it (median {sorted(ms)[len(ms) // 2]:.1f}); mrcnn slice bfloat16: "
+          f"{', '.join(f'{t:.1f}' for t in two_stage['bf16_step_ms'])} ms per step")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -1261,28 +1431,38 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
-        + training["launches"]["nms"],
+        + training["launches"]["nms"] + two_stage["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
-        "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"],
+        "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"]
+        + two_stage["launches"]["roi_align"],
         **roi_entry,
+    }, {
+        "name": "roi_align_bwd",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
+        "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:269",
+        "launches": two_stage["launches"]["roi_align_bwd"],
+        **bwd_entry,
     }, {
         "name": "stem_fwd",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
-        "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"],
+        "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
+        + two_stage["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
-        "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"],
+        "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"]
+        + two_stage["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

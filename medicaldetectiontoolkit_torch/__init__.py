@@ -11,9 +11,11 @@ kernel.
 Ported so far: the inference paths of RetinaNet / Retina U-Net and of
 Mask R-CNN / U-Faster R-CNN+ (2D + 3D), with the NMS kernel
 (``ops/nms_cuda.py`` + ``csrc/nms.cu``) and the pyramid RoIAlign kernel
-(``ops/roi_align_cuda.py`` + ``csrc/roi_align.cu``); the training of
-RetinaNet / Retina U-Net, with the stem conv kernels (``csrc/stem_conv.cu``);
-and whole-patient test inference through ``exec.py --mode test``
+(``ops/roi_align_cuda.py`` + ``csrc/roi_align.cu``); the training of all
+four, with the stem conv kernels (``csrc/stem_conv.cu``) and the pyramid
+RoIAlign's backward kernel (in ``csrc/roi_align.cu``), through ``exec.py
+--mode train | train_test``; and whole-patient test inference through
+``exec.py --mode test``
 (``predictor.py``, ``evaluator.py``, ``config.py``, ``experiments/lidc_exp/``,
 ``utils/exp_utils.py``). The package loads nothing of the JAX package: its
 anchors, configs, loaders and test batches are its own, held equal to the

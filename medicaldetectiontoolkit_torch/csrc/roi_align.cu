@@ -67,6 +67,11 @@
 // its accesses, bound by L1 lookups: a warp's 32 outputs span about 11 map
 // rows, and each of its 8 corner loads touched as many lines.
 //
+// The same source holds K2's backward (pyramid_roi_align_bwd_kernel below):
+// the scatter-add into the maps that JAX takes from the VJP of the plain
+// form (roi_align_pallas.py:269-285), with float32 atomics, so its sums are
+// not deterministic in their last bits.
+//
 // Limits (the wrapper checks them): each crop axis at most kMaxCrop; the
 // slab of one channel at its largest (2 crop slots per axis, the innermost
 // padded to an odd count) at most kSlabFloats; each level's largest in-plane
@@ -87,6 +92,14 @@ struct Level {
   int stride[3];     // element strides of (H, W, (Z)); 0 where the extent is 1
 };
 
+// one level of the backward's float32 gradient buffer (ctypes mirror in
+// ops/roi_align_cuda.py::_BwdLevel); outside the unnamed namespace, as
+// Level, so that the extern "C" entry points that take them are exported
+struct BwdLevel {
+  long long offset;  // first element of the level's gradient in the buffer
+  int size[3];       // extents (H, W, (Z)); Z = 1 in 2D
+};
+
 namespace {
 
 constexpr int kMaxLevels = 8;
@@ -105,6 +118,26 @@ struct Levels {
 __device__ __forceinline__ float load(const float* p, long long i) { return __ldg(p + i); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
 __device__ __forceinline__ float load(const __half* p, long long i) { return __half2float(p[i]); }
+
+// cell i of n on an axis of extent S: floor and +1-clamped indices and the
+// lerp weight, in the float32 steps of the note above
+__device__ __forceinline__ void axis_row(float lo, float hi, int n, int i, int S, int& i0, int& i1, float& w) {
+  const float Sf = static_cast<float>(S);
+  float coord;
+  if (n > 1) {
+    const float scale = __fmul_rn(__fmul_rn(__fsub_rn(hi, lo), Sf), __frcp_rn(static_cast<float>(n)));
+    coord = __fsub_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(lo, Sf), __fmul_rn(static_cast<float>(i), scale)), __fmul_rn(scale, 0.5f)),
+        0.5f);
+  } else {
+    coord = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(lo, hi)), Sf);
+  }
+  coord = fminf(fmaxf(coord, 0.0f), Sf - 1.0f);
+  const float f = floorf(coord);
+  i0 = static_cast<int>(f);
+  i1 = min(i0 + 1, S - 1);
+  w = __fsub_rn(coord, f);
+}
 
 // a * (1 - w) + b * w as PyTorch's separate multiplies and add round it
 __device__ __forceinline__ float lerp(float a, float b, int4 e) {
@@ -195,23 +228,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) pyramid_roi_align_kern
     // 1. rows: warp a computes axis a (columns (y1, x1, y2, x2, z1, z2))
     if (warp < DIM) {
       const int a = warp, n = crop[a], S = L.size[a];
-      const float Sf = static_cast<float>(S);
       int lo_idx = INT_MAX, hi_idx = INT_MIN;
       for (int i = lane; i < n; i += 32) {
-        float coord;
-        if (n > 1) {
-          const float scale = __fmul_rn(__fmul_rn(__fsub_rn(hi, lo), Sf), __frcp_rn(static_cast<float>(n)));
-          coord = __fsub_rn(
-              __fadd_rn(__fadd_rn(__fmul_rn(lo, Sf), __fmul_rn(static_cast<float>(i), scale)), __fmul_rn(scale, 0.5f)),
-              0.5f);
-        } else {
-          coord = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(lo, hi)), Sf);
-        }
-        coord = fminf(fmaxf(coord, 0.0f), Sf - 1.0f);
-        const float f = floorf(coord);
-        const int i0 = static_cast<int>(f);
-        const int i1 = min(i0 + 1, S - 1);
-        const float w = __fsub_rn(coord, f);
+        int i0, i1;
+        float w;
+        axis_row(lo, hi, n, i, S, i0, i1, w);
         rows[a][i] = make_int4(i0, i1, __float_as_int(w), __float_as_int(__fsub_rn(1.0f, w)));
         lo_idx = min(lo_idx, i0);
         hi_idx = max(hi_idx, i1);
@@ -332,6 +353,80 @@ cudaError_t launch(const Levels& lv, int n_levels, int dim, const float* boxes, 
   return cudaGetLastError();
 }
 
+// The backward (K2's gradient to the maps): one thread per element of
+// grad_out (R, C, *crop). The thread recomputes its cell's rows on the RoI's
+// level with axis_row, as the forward does, and atomically adds g times the
+// product of its lerp weights into each of the 2^DIM corners of the level's
+// float32 gradient (B, C, H, W, (Z)), contiguous. The weights multiply in
+// the order of the plain version's pullback: g * (1 - wz) or g * wz first,
+// then the x weight, then the y weight. A level index outside
+// [0, n_levels) adds nothing.
+struct BwdLevels {
+  BwdLevel l[kMaxLevels];
+};
+
+constexpr int kBwdThreads = 256;
+
+template <int DIM>
+__global__ void __launch_bounds__(kBwdThreads) pyramid_roi_align_bwd_kernel(
+    const __grid_constant__ BwdLevels lv, const float* __restrict__ boxes, const int* __restrict__ box_idx,
+    const int* __restrict__ level_idx, int n_levels, int n_elems, int channels, int ch, int cw, int cz,
+    const float* __restrict__ grad_out, float* __restrict__ grad_maps) {
+  const int e = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (e >= n_elems) return;
+  // (r, c, oy, ox, oz), oz fastest
+  int rest = e;
+  const int oz = DIM == 3 ? rest % cz : 0;
+  if (DIM == 3) rest /= cz;
+  const int ox = rest % cw;
+  rest /= cw;
+  const int oy = rest % ch;
+  rest /= ch;
+  const int c = rest % channels;
+  const int r = rest / channels;
+  const int level = __ldg(level_idx + r);
+  if (level < 0 || level >= n_levels) return;
+  const float g = __ldg(grad_out + e);
+  const BwdLevel& L = lv.l[level];
+  const float* box = boxes + r * 2 * DIM;
+  int y0, y1, x0, x1, z0 = 0, z1 = 0;
+  float wy, wx, wz = 0.0f;
+  axis_row(__ldg(box + 0), __ldg(box + 2), ch, oy, L.size[0], y0, y1, wy);
+  axis_row(__ldg(box + 1), __ldg(box + 3), cw, ox, L.size[1], x0, x1, wx);
+  if (DIM == 3) axis_row(__ldg(box + 4), __ldg(box + 5), cz, oz, L.size[2], z0, z1, wz);
+  const int nz = L.size[2];
+  const long long plane = static_cast<long long>(L.size[0]) * L.size[1] * nz;
+  float* const base = grad_maps + L.offset + (static_cast<long long>(__ldg(box_idx + r)) * channels + c) * plane;
+  const int ry0 = y0 * L.size[1], ry1 = y1 * L.size[1];
+  const float vy[2] = {__fsub_rn(1.0f, wy), wy};
+  const float vx[2] = {__fsub_rn(1.0f, wx), wx};
+  const int ry[2] = {ry0, ry1};
+  const int rx[2] = {x0, x1};
+  if (DIM == 2) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float gx = __fmul_rn(g, vx[j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) atomicAdd(base + ry[i] + rx[j], __fmul_rn(gx, vy[i]));
+    }
+    return;
+  }
+  const float vz[2] = {__fsub_rn(1.0f, wz), wz};
+  const int rz[2] = {z0, z1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float gz = __fmul_rn(g, vz[k]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float gzx = __fmul_rn(gz, vx[j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        atomicAdd(base + static_cast<long long>(ry[i] + rx[j]) * nz + rz[k], __fmul_rn(gzx, vy[i]));
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // levels: host array of n_levels Level descriptors; dtype 0 float32,
@@ -370,4 +465,35 @@ extern "C" int mdt_roi_align_launch(const Level* levels, int n_levels, int dtype
 
 extern "C" const char* mdt_roi_align_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The backward. levels: host array of n_levels BwdLevel descriptors into
+// grad_maps, a float32 buffer of grad_elems elements that this call zeroes
+// and then fills; boxes, box_idx, level_idx as the forward's; grad_out
+// (n_rois, channels, ch, cw, (cz)) float32, contiguous. cz is ignored in 2D.
+extern "C" int mdt_roi_align_bwd_launch(const BwdLevel* levels, int n_levels, int dim, const float* boxes,
+                                        const int* box_idx, const int* level_idx, int n_rois, int channels, int ch,
+                                        int cw, int cz, const float* grad_out, float* grad_maps,
+                                        long long grad_elems, void* stream) {
+  if (dim == 2) cz = 1;
+  const long long n_elems = static_cast<long long>(n_rois) * channels * ch * cw * cz;
+  if (n_levels < 1 || n_levels > kMaxLevels || (dim != 2 && dim != 3) || n_rois < 0 || channels < 1 || ch < 1 ||
+      cw < 1 || cz < 1 || grad_elems < 1 || n_elems >= kMaxOutputs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BwdLevels lv = {};
+  for (int k = 0; k < n_levels; ++k) lv.l[k] = levels[k];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(grad_maps, 0, grad_elems * sizeof(float), s);
+  if (err != cudaSuccess || n_elems == 0) return static_cast<int>(err);
+  const int blocks = static_cast<int>((n_elems + kBwdThreads - 1) / kBwdThreads);
+  const int n = static_cast<int>(n_elems);
+  if (dim == 2) {
+    pyramid_roi_align_bwd_kernel<2><<<blocks, kBwdThreads, 0, s>>>(lv, boxes, box_idx, level_idx, n_levels, n,
+                                                                   channels, ch, cw, 1, grad_out, grad_maps);
+  } else {
+    pyramid_roi_align_bwd_kernel<3><<<blocks, kBwdThreads, 0, s>>>(lv, boxes, box_idx, level_idx, n_levels, n,
+                                                                   channels, ch, cw, cz, grad_out, grad_maps);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,8 @@ train evaluation, validation (``val_sampling`` batches or ``val_patient``
 whole patients), model selection (ranked best checkpoints, ``last_checkpoint``
 with the Adam state), the monitoring plots and a ``val_sampling``
 prediction plot. ``--resume_to_checkpoint`` continues from a
-``last_checkpoint``. One-stage detectors train (``retina_net``,
-``retina_unet``); one card only. ``test`` runs whole-patient inference of
+``last_checkpoint``. Every registered detector trains (``retina_net``,
+``retina_unet``, ``mrcnn``, ``ufrcnn``); one card only. ``test`` runs whole-patient inference of
 each fold (tiling, mirror TTA, temporal ensembling over the fold's ranked
 checkpoints, WBC, 2D->3D merging) and scores it (``results.txt``);
 ``train_test`` does both; ``analysis`` re-scores the raw prediction pickles;

@@ -1,9 +1,9 @@
 """Model zoo of the port: a registry keyed by ``cf.model``.
 
 Same names as ``medicaldetectiontoolkit_tpu/models/__init__.py:14-78``. The
-one-stage detectors (``retina_net``, ``retina_unet``) infer and train; the
-two-stage ones (``mrcnn``, ``ufrcnn``) infer. Their training and
-``detection_unet`` follow in the order of ROADMAP.md, Queue 1.
+one-stage detectors (``retina_net``, ``retina_unet``) and the two-stage ones
+(``mrcnn``, ``ufrcnn``) infer and train; ``detection_unet`` follows in the
+order of ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations

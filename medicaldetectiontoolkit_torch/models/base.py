@@ -20,10 +20,9 @@ seg_preds))`` for every detector: the one-stage detectors
 (``retina_net.py``) leave ``det_masks_raw`` None, the two-stage ones
 (``mrcnn.py``) fill it when masks are asked for.
 
-Training is ported for the one-stage detectors (``retina_net.py``): Adam
-with the lr set per step, gradient accumulation over microbatches, and the
-optimizer state in ``state_dict``. The two-stage detectors' training entry
-points raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+Every detector trains (``retina_net.py``, ``mrcnn.py``): Adam with the lr
+set per step, gradient accumulation over microbatches, and the optimizer
+state in ``state_dict``.
 """
 
 from __future__ import annotations
@@ -242,8 +241,8 @@ class Detector:
 
     Subclasses implement ``build`` (set ``self.module``) and either
     ``_predict`` + ``_finalize_outputs`` (one-stage) or ``_forward`` +
-    ``_make_seg_preds`` (two-stage); detectors that train implement
-    ``train_forward_dispatch`` + ``train_forward_convert``.
+    ``_make_seg_preds`` (two-stage), and ``train_forward_dispatch`` +
+    ``train_forward_convert``.
     """
 
     # per-epoch lr, set by the trainer (reference exec.py:59-60)
@@ -346,10 +345,16 @@ class Detector:
 
     # ---- training ------------------------------------------------------
     def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
-        raise NotImplementedError(f"training of {type(self).__name__} is not ported yet; see ROADMAP.md, Queue 1")
+        raise NotImplementedError
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
-        raise NotImplementedError(f"training of {type(self).__name__} is not ported yet; see ROADMAP.md, Queue 1")
+        raise NotImplementedError
+
+    def _update(self):
+        """One Adam step at ``current_lr``."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.current_lr
+        self.optimizer.step()
 
     def train_forward(self, batch, is_validation: bool = False, do_update: bool = True,
                       need_seg_preds: bool = True):

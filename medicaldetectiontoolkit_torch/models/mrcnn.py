@@ -1,28 +1,34 @@
-"""Mask R-CNN inference, 2D + 3D (torch); base of U-Faster R-CNN+.
+"""Mask R-CNN, 2D + 3D (torch): inference and training; base of U-Faster
+R-CNN+.
 
-Counterpart of the inference half of ``medicaldetectiontoolkit_tpu/models/
-mrcnn.py``:
+Counterpart of ``medicaldetectiontoolkit_tpu/models/mrcnn.py``:
   * ``RPNHead``: shared 3x3 conv + 1x1 class (2A) / box (2*dim*A) convs per
     pyramid level, flattened in the anchor order of ``ops/anchors.py``;
   * ``ClassifierHead`` (pool_size conv -> 1x1 conv -> class logits and
     per-class box deltas) and ``MaskHead`` (4 conv3x3 -> deconv x2 -> 1x1
     conv -> sigmoid) on pooled RoIs;
-  * ``pyramid_roi_align``: FPN level assignment, then the pyramid RoIAlign
-    dispatcher (the CUDA kernel K2 for CUDA tensors);
+  * ``pyramid_roi_align``: FPN level assignment, then the differentiable
+    pyramid RoIAlign (the CUDA kernel K2 and its backward for CUDA tensors);
   * ``proposal_layer``: per-element exact top-``pre_nms_limit`` by RPN
     foreground score, decode, clip, NMS at ``rpn_nms_threshold`` padded to
-    ``post_nms_rois_inference`` (the NMS dispatcher: kernel K1 on the card);
+    a fixed count (the NMS dispatcher: kernel K1 on the card);
   * ``refine_detections``: every proposal expanded for every foreground
     class, decode, clip, round, min-confidence filter, one NMS lane per
-    (element, class), per-element top-k merge.
+    (element, class), per-element top-k merge;
+  * training (``mrcnn.py:343-458``, ``:586-770``): RPN matching and SHEM,
+    the classify-all pass over every proposal with no gradient, then
+    ``detection_target_layer`` samples RoIs by IoU and SHEM and builds their
+    class, delta and mask targets, the classifier and mask heads run on the
+    sampled RoIs, and the second-stage losses join the RPN's (+ dice and CE
+    on the ufrcnn seg head); backward per microbatch, Adam, then detection
+    refinement per microbatch.
 
 As in JAX, padded and invalid proposals are not masked out: padding slots
 are zero boxes, classified and refined like the rest, and the mask pass runs
 on every detection slot. Tensors are channel-first; masks come out
-``(b, max_inst, n_classes, *mask_shape)``.
-
-Training (detection targets, losses, K2's backward) is not ported yet
-(ROADMAP.md, Queue 1).
+``(b, max_inst, n_classes, *mask_shape)``. The random draws of a step come
+from ``self.generator`` (``MaskRCNNDetector.draws``) and reach the loss as
+tensors, so a test can feed JAX's own draws.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
 from medicaldetectiontoolkit_torch.ops import anchors as anchor_ops
 from medicaldetectiontoolkit_torch.ops import boxes as box_ops
+from medicaldetectiontoolkit_torch.ops import losses as loss_ops
+from medicaldetectiontoolkit_torch.ops import matching as match_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
 from medicaldetectiontoolkit_torch.ops.losses import softmax
@@ -117,7 +125,7 @@ class MRCNNModule(nn.Module):
     def __init__(self, dim, n_channels, start_filts, end_filts, res_architecture, norm, relu, sixth_pooling,
                  operate_stride1, head_classes, n_rpn_features, n_anchors_per_pos, anchor_stride,
                  pyramid_levels: Sequence[int], pool_size, mask_pool_size, with_mask_head=True,
-                 num_seg_classes=0, dtype=torch.float32):
+                 num_seg_classes=0, dtype=torch.float32, remat=False):
         super().__init__()
         self.dtype = dtype
         self.operate_stride1 = operate_stride1
@@ -125,7 +133,7 @@ class MRCNNModule(nn.Module):
         self.pool_size = tuple(pool_size)
         self.mask_pool_size = tuple(mask_pool_size)
         self.fpn = FPN(dim, n_channels, start_filts, end_filts, res_architecture, norm, relu, sixth_pooling,
-                       operate_stride1, dtype=dtype)
+                       operate_stride1, dtype=dtype, remat=remat)
         self.rpn = RPNHead(dim, end_filts, n_rpn_features, n_anchors_per_pos, anchor_stride, relu, dtype=dtype)
         self.classifier = ClassifierHead(dim, end_filts, pool_size, head_classes, norm, relu, dtype=dtype)
         self.mask = MaskHead(dim, end_filts, head_classes, norm, relu, dtype=dtype) if with_mask_head else None
@@ -258,6 +266,126 @@ def refine_detections(rois_norm, probs, deltas, batch_ix, cf, batch_size: int, n
     return det, final_mask
 
 
+def masked_topk_indices(key, k: int):
+    """Indices of the ``k`` smallest keys along the last axis, ties to the
+    lower index, and whether each is valid (key < +inf) (``mrcnn.py:343-346``)."""
+    neg_vals, idx = top_k(-key, k)
+    return idx, torch.isfinite(neg_vals)
+
+
+def roi_slots(cf):
+    """(positive, negative) RoI slots per element (``mrcnn.py:366-368``)."""
+    n_pos = max(1, int(cf.train_rois_per_image * cf.roi_positive_ratio))
+    return n_pos, max(1, int(n_pos * (1.0 / cf.roi_positive_ratio - 1.0)))
+
+
+def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_boxes_norm, gt_ids, gt_valid,
+                           gt_masks, cf):
+    """Sample RoIs and build the second-stage targets, batched over elements
+    (``mrcnn.py:349-428``, which JAX ``vmap``s).
+
+    draws: (pos_rand (b, P), shem_rand (b, k_pool), neg_rand (b, P)) uniform
+    draws: positive sampling, SHEM's pool draw, negative sampling (JAX draws
+    the last two from one key). proposals_norm (b, P, 2d), prop_valid (b, P),
+    class_scores (b, P, C), gt_boxes_norm (b, G, 2d), gt_ids (b, G), gt_valid
+    (b, G), gt_masks (b, M, *spatial) uint8 with M <= G mask slots.
+
+    Returns per element S = n_pos + n_neg slots: rois (b, S, 2d), slot_valid,
+    target_class (int32), target_deltas (b, S, 2d), target_masks (b, S,
+    *mask_shape), pos_mask, and mask_pos: pos_mask restricted to positives
+    whose GT has a mask slot. Mask targets are the assigned GT masks cropped
+    by the plain ``roi_align`` at ``cf.mask_shape``, rounded.
+    """
+    pos_rand, shem_rand, neg_rand = draws
+    dim = cf.dim
+    bsz = proposals_norm.shape[0]
+    dev = proposals_norm.device
+    n_pos_slots, n_neg_slots = roi_slots(cf)
+    r = 1.0 / cf.roi_positive_ratio
+    pos_iou = 0.5 if dim == 2 else 0.3
+    neg_iou = 0.1 if dim == 2 else 0.01
+    any_gt = gt_valid.any(dim=1, keepdim=True)
+
+    overlaps = box_ops.pairwise_iou(proposals_norm, gt_boxes_norm)  # (b, P, G)
+    overlaps = torch.where(gt_valid[:, None, :], overlaps, -1.0)
+    roi_iou_max = overlaps.amax(dim=2)
+    pos_bool = (roi_iou_max >= pos_iou) & any_gt
+    neg_bool = torch.where(any_gt, roi_iou_max < neg_iou, True)
+
+    # positives: the lowest uniform draws among them
+    pos_idx, pos_valid = masked_topk_indices(torch.where(pos_bool, pos_rand, float("inf")), n_pos_slots)
+    n_pos = pos_valid.sum(dim=1)
+    pos_ov = torch.take_along_dim(overlaps, pos_idx[..., None], dim=1)
+    assignment = torch.argmax(pos_ov, dim=2)  # first maximum, as jnp.argmax
+    pos_rois = torch.take_along_dim(proposals_norm, pos_idx[..., None], dim=1)
+    roi_gt_boxes = torch.take_along_dim(gt_boxes_norm, assignment[..., None], dim=1)
+    safe_gt = torch.where(pos_valid[..., None], roi_gt_boxes, pos_rois + 1e-3)
+    eps = torch.tensor([0.0, 0.0, 1e-3, 1e-3] + ([0.0, 1e-3] if dim == 3 else []), dtype=torch.float32, device=dev)
+    safe_rois = torch.where((box_ops.box_area(pos_rois) > 0)[..., None], pos_rois, pos_rois + eps)
+    std = base.host_to_device(np.asarray(cf.bbox_std_dev), dev)
+    deltas = torch.where(pos_valid[..., None], box_ops.box_refinement(safe_rois, safe_gt) / std, 0.0)
+    target_class_pos = torch.where(pos_valid, torch.gather(gt_ids.to(torch.int32), 1, assignment), 0)
+
+    # mask targets: the assigned GT masks gathered first, then cropped; a
+    # positive assigned past the mask slots gets no mask supervision
+    n_masks = gt_masks.shape[1]
+    mask_pos_valid = pos_valid & (assignment < n_masks)
+    mask_assignment = assignment.clamp(0, n_masks - 1)
+    b_ix = torch.arange(bsz, device=dev)[:, None]
+    sel_masks = gt_masks[b_ix, mask_assignment].to(torch.float32)  # (b, S_pos, *spatial)
+    flat = sel_masks.reshape(bsz * n_pos_slots, 1, *sel_masks.shape[2:])
+    target_masks = roi_ops.roi_align(flat, pos_rois.reshape(-1, 2 * dim), torch.arange(flat.shape[0], device=dev),
+                                     tuple(cf.mask_shape))[:, 0].reshape(bsz, n_pos_slots, *cf.mask_shape)
+    keep = mask_pos_valid.reshape(bsz, n_pos_slots, *(1,) * dim)
+    target_masks = torch.round(torch.where(keep, target_masks, 0.0))
+
+    # negatives: SHEM on the predicted fg scores, then the lowest draws
+    fg_scores = class_scores[..., 1:].amax(dim=-1)
+    neg_count = torch.round(n_pos.to(torch.float32) * (r - 1.0)).to(torch.int64).clamp_min(1)
+    sel = loss_ops.shem_select(shem_rand, fg_scores, neg_bool & prop_valid, neg_count, n_neg_slots, cf.shem_poolsize)
+    neg_idx, neg_valid = masked_topk_indices(torch.where(sel, neg_rand, float("inf")), n_neg_slots)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((bsz, n_neg_slots, *shape), dtype=dtype, device=dev)
+
+    rois = torch.cat([pos_rois, torch.take_along_dim(proposals_norm, neg_idx[..., None], dim=1)], dim=1)
+    slot_valid = torch.cat([pos_valid, neg_valid], dim=1)
+    target_class = torch.cat([target_class_pos, zeros(dtype=torch.int32)], dim=1)
+    target_deltas = torch.cat([deltas, zeros(2 * dim)], dim=1)
+    target_masks = torch.cat([target_masks, zeros(*cf.mask_shape)], dim=1)
+    pos_mask = torch.cat([pos_valid, zeros(dtype=torch.bool)], dim=1)
+    mask_pos = torch.cat([mask_pos_valid, zeros(dtype=torch.bool)], dim=1)
+    return rois, slot_valid, target_class, target_deltas, target_masks, pos_mask, mask_pos
+
+
+def _flat_mean(values, mask):
+    """``masked_mean`` over all of ``values``, as JAX's over one flat batch."""
+    return loss_ops.masked_mean(values[None], mask[None])[0]
+
+
+def mrcnn_class_loss(target_class, logits, slot_valid):
+    """CE of the sampled RoIs' classes over the valid slots (``mrcnn.py:431-433``)."""
+    return _flat_mean(loss_ops.softmax_ce(logits, target_class.clamp_min(0)), slot_valid)
+
+
+def mrcnn_bbox_loss(target_deltas, pred_deltas, target_class, pos_mask):
+    """Smooth-L1 of the target class's deltas over the positives
+    (``mrcnn.py:436-440``): pred_deltas (S, C, 2d)."""
+    cls = target_class.clamp(0, pred_deltas.shape[1] - 1).long()
+    per = loss_ops.smooth_l1(pred_deltas[torch.arange(cls.shape[0], device=cls.device), cls], target_deltas)
+    return _flat_mean(per, pos_mask[:, None].expand_as(per))
+
+
+def mrcnn_mask_loss(target_masks, pred_masks, target_class, pos_mask):
+    """BCE of the target class's mask over the positives
+    (``mrcnn.py:443-452``): pred_masks (S, C, *mask_shape) probabilities."""
+    cls = target_class.clamp(0, pred_masks.shape[1] - 1).long()
+    sel = pred_masks[torch.arange(cls.shape[0], device=cls.device), cls]
+    eps = 1e-7
+    bce = -(target_masks * torch.log(sel.clamp(eps, 1.0)) + (1 - target_masks) * torch.log((1 - sel).clamp(eps, 1.0)))
+    return _flat_mean(bce, pos_mask.reshape((-1,) + (1,) * (bce.dim() - 1)).expand_as(bce))
+
+
 @register("mrcnn")
 class MaskRCNNDetector(base.Detector):
     """Host-facing Mask R-CNN with the reference's test_forward API."""
@@ -297,7 +425,11 @@ class MaskRCNNDetector(base.Detector):
             with_mask_head=self.with_mask_head and not cf.frcnn_mode,
             num_seg_classes=cf.num_seg_classes if self.with_seg_head else 0,
             dtype=torch.bfloat16 if cf.compute_dtype == "bfloat16" else torch.float32,
+            remat=base.resolve_remat(cf),
         ).to(self.device).eval()
+        self.np_anchors = self.anchors.cpu().numpy()
+        self.rpn_std = base.host_to_device(np.asarray(cf.rpn_bbox_std_dev), self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(cf.seed)
 
     def init_params(self, seed: int = 0):
         gen = torch.Generator().manual_seed(seed)
@@ -307,12 +439,13 @@ class MaskRCNNDetector(base.Detector):
         init_weights(self.module.classifier.conv1.conv, None, gen)
 
     # ---- forward -----------------------------------------------------------
-    def _proposals(self, rpn_logits, rpn_deltas):
+    def _proposals(self, rpn_logits, rpn_deltas, count=None):
         """(normalised proposals (b, P, 2d), out_proposals, valid) of the
-        RPN heads (``mrcnn.py:526-534``, inference)."""
-        rpn_probs_fg = softmax(rpn_logits)[..., 1]
-        return proposal_layer(rpn_probs_fg, rpn_deltas, self.anchors, self.cf, self.cf.post_nms_rois_inference,
-                              nms_fn=self.nms_fn)
+        RPN heads (``mrcnn.py:526-534``); P is ``count``, by default
+        ``post_nms_rois_inference``. No gradient flows through them."""
+        rpn_probs_fg = softmax(rpn_logits.detach())[..., 1]
+        return proposal_layer(rpn_probs_fg, rpn_deltas.detach(), self.anchors, self.cf,
+                              count or self.cf.post_nms_rois_inference, nms_fn=self.nms_fn)
 
     def _second_stage_all(self, maps, rois_norm):
         """Classify every proposal in chunks of ``cf.roi_chunk_size`` RoIs
@@ -398,6 +531,221 @@ class MaskRCNNDetector(base.Detector):
                 full = np.maximum(full, base.unmold_mask(masks[b, i, cls], coords, spatial))
             seg[b, 0] = np.round(full).astype(np.uint8)
         return seg
+
+
+    # ---- training ---------------------------------------------------------
+    def _prep(self, batch):
+        """Upload one batch (``mrcnn.py:790-819``): image, padded GTs, the
+        GT masks as uint8 (b, max_gt_masks, *spatial) with the first
+        ``max_gt_masks`` of each element's masks, and (ufrcnn) seg labels."""
+        cf, dev = self.cf, self.device
+        img = base.host_to_device(batch["data"], dev)
+        bsz, spatial = img.shape[0], tuple(img.shape[2:])
+        gt = base.pad_gt_boxes(batch["bb_target"], batch["roi_labels"], bsz, cf.dim, cf.max_gt_boxes, dev)
+        max_gt_masks = min(cf.max_gt_boxes, getattr(cf, "max_gt_masks", None) or cf.max_gt_boxes)
+        gt_masks = np.zeros((bsz, max_gt_masks) + spatial, dtype=np.uint8)
+        for b, rm in enumerate(batch.get("roi_masks", ())):
+            rm = np.asarray(rm)
+            if rm.ndim == len(spatial) + 2:  # (n_rois, 1, *spatial)
+                rm = rm[:, 0]
+            n = min(rm.shape[0], max_gt_masks)
+            if n and rm.shape[1:] == spatial:
+                gt_masks[b, :n] = rm[:n]
+        seg = None
+        if self.with_seg_head:
+            labels = batch["seg"] if "seg" in batch else np.zeros((bsz, 1, *spatial), np.int32)
+            seg = base.host_to_device(labels, dev, np.int32)
+        return (img, *gt, base.host_to_device(gt_masks, dev, np.uint8), seg)
+
+    def draws(self, n_micro: int, m: int):
+        """One step's uniform draws from ``self.generator``, per microbatch of
+        ``m`` elements: RPN matching (n_micro, m, A), RPN SHEM (.., k_pool),
+        RoI positives (.., P), RoI SHEM (.., k_pool') and RoI negatives
+        (.., P), P = ``post_nms_rois_training``."""
+        cf = self.cf
+        A = self.anchors.shape[0]
+        P = cf.post_nms_rois_training
+        sizes = (A, min(cf.shem_poolsize * (cf.rpn_train_anchors_per_image // 2), A), P,
+                 min(cf.shem_poolsize * roi_slots(cf)[1], P), P)
+        return tuple(torch.rand((n_micro, m, n), generator=self.generator, device=self.device) for n in sizes)
+
+    def _losses(self, inputs, draws, with_masks: bool = False):
+        """Loss and aux of one microbatch (``mrcnn.py:586-676``); ``draws``
+        are ``self.draws``' five tensors of one microbatch. With
+        ``with_masks`` the aux keeps the maps for the mask pass."""
+        cf = self.cf
+        img, gt_boxes, gt_ids, gt_valid, gt_masks, seg = inputs
+        match_rand, rpn_shem_rand, pos_rand, roi_shem_rand, neg_rand = draws
+        bsz, dev = img.shape[0], img.device
+        neg_iou = 0.1 if cf.dim == 2 else 0.01
+        scale = base.host_to_device(np.asarray(cf.scale), dev)
+
+        maps, rpn_logits, rpn_deltas, seg_logits = self.module.extract(img)
+        rois_norm, out_proposals, prop_valid = self._proposals(rpn_logits, rpn_deltas, cf.post_nms_rois_training)
+        with torch.no_grad():
+            cls_logits_all, bbox_all, flat_rois, batch_ix = self._second_stage_all(maps, rois_norm)
+
+        # RPN losses on binary fg labels
+        rpn_match, rpn_tdeltas = match_ops.gt_anchor_matching(
+            match_rand, self.anchors, gt_boxes, torch.ones_like(gt_ids), gt_valid, cf.anchor_matching_iou, neg_iou,
+            cf.rpn_train_anchors_per_image, self.rpn_std)
+        rpn_class_losses, neg_sel = loss_ops.anchor_class_loss(
+            rpn_shem_rand, rpn_match, rpn_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
+        rpn_class_loss = rpn_class_losses.mean()
+        rpn_bbox_loss = loss_ops.anchor_bbox_loss(rpn_tdeltas, rpn_deltas, rpn_match).mean()
+
+        # detection targets, then the heads on the sampled RoIs
+        probs_pe = softmax(cls_logits_all).reshape(bsz, -1, cls_logits_all.shape[-1])
+        s_rois, s_valid, s_class, s_deltas, s_masks, s_pos, s_mask_pos = detection_target_layer(
+            (pos_rand, roi_shem_rand, neg_rand), rois_norm, prop_valid, probs_pe, gt_boxes / scale, gt_ids, gt_valid,
+            gt_masks, cf)
+        S = s_rois.shape[1]
+        flat_s_rois = s_rois.reshape(-1, 2 * cf.dim)
+        s_bix = torch.arange(bsz, dtype=torch.int32, device=dev).repeat_interleave(S)
+        s_logits, s_bbox = self.module.classify_rois(maps, flat_s_rois, s_bix, self.align_fn)
+        flat_class, flat_pos = s_class.reshape(-1), s_pos.reshape(-1)
+        cls_loss = mrcnn_class_loss(flat_class, s_logits, s_valid.reshape(-1))
+        bbox_loss = mrcnn_bbox_loss(s_deltas.reshape(-1, 2 * cf.dim), s_bbox, flat_class, flat_pos)
+        mask_loss = torch.zeros((), device=dev)
+        if self.module.mask is not None:
+            s_pred_masks = self.module.mask_rois(maps, flat_s_rois, s_bix, self.align_fn)
+            mask_loss = mrcnn_mask_loss(s_masks.reshape(-1, *cf.mask_shape), s_pred_masks, flat_class,
+                                        s_mask_pos.reshape(-1))
+
+        loss = rpn_class_loss + rpn_bbox_loss + cls_loss + bbox_loss + mask_loss
+        monitor = {"loss": loss, "class_loss": cls_loss, "rpn_class_loss": rpn_class_loss,
+                   "rpn_bbox_loss": rpn_bbox_loss, "mrcnn_bbox_loss": bbox_loss, "mrcnn_mask_loss": mask_loss}
+        if seg_logits is not None:
+            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes)
+            loss = loss + (seg_dice + seg_ce) / 2.0
+            monitor.update({"seg_dice_loss": seg_dice, "loss": loss})
+        max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
+        aux = {
+            "maps": [m.detach() for m in maps] if with_masks else None,
+            "flat_rois": flat_rois,
+            "batch_ix": batch_ix,
+            "cls_logits_all": cls_logits_all,
+            "bbox_all": bbox_all,
+            "seg_logits": None if seg_logits is None else seg_logits.detach(),
+            "out_proposals": out_proposals,
+            "anchor_info": base.compact_anchor_indices(rpn_match, neg_sel, max_half, max_half),
+            "sampled_rois": s_rois,
+            "sampled_valid": s_valid,
+            "sampled_class": s_class,
+            "monitor": {k: v.detach() for k, v in monitor.items()},
+        }
+        return loss, aux
+
+    def _finalize(self, aux, bsz: int, with_masks: bool = False):
+        """Detection refinement of one microbatch's aux (``mrcnn.py:678-686``):
+        (det, det_mask, det_masks_raw | None, seg_preds | None)."""
+        with torch.no_grad():
+            det, det_mask, det_masks_raw = self._detections_and_masks(
+                aux["maps"], aux["flat_rois"], aux["batch_ix"], aux["cls_logits_all"], aux["bbox_all"], bsz,
+                with_masks)
+            seg_preds = None
+            if aux["seg_logits"] is not None:
+                seg_preds = torch.argmax(aux["seg_logits"], dim=1, keepdim=True).to(torch.uint8)
+        return det, det_mask, det_masks_raw, seg_preds
+
+    def _accumulate(self, inputs, draws):
+        """Loss and gradients of one step: ``draws`` is ``self.draws``'
+        tuple, one row per microbatch; grads land in the params' ``.grad``
+        (``mrcnn.py:717-730``). Returns (mean loss, [aux per microbatch])."""
+        n_micro = draws[0].shape[0]
+        m = inputs[0].shape[0] // n_micro
+
+        def micro(i):
+            part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
+            return self._losses(part, [d[i] for d in draws])
+
+        return base.accum_backward(list(self.module.parameters()), micro, n_micro)
+
+    def _merge(self, auxs, m: int, with_masks: bool = False):
+        """Refinement per microbatch (its ``batch_ix`` is microbatch-local),
+        then the batch-leading outputs concatenated and the monitor values
+        averaged (``mrcnn.py:735-754``)."""
+        fin = [self._finalize(a, m, with_masks) for a in auxs]
+
+        def cat(parts):
+            return None if parts[0] is None else torch.cat(parts)
+
+        outs = dict(zip(("det", "det_mask", "det_masks_raw", "seg_preds"), (cat(parts) for parts in zip(*fin))))
+        for key in ("out_proposals", "sampled_rois", "sampled_valid", "sampled_class"):
+            outs[key] = cat([a[key] for a in auxs])
+        outs["anchor_info"] = [cat(parts) for parts in zip(*(a["anchor_info"] for a in auxs))]
+        monitor = {k: torch.stack([a["monitor"][k] for a in auxs]).mean() for k in auxs[0]["monitor"]}
+        return monitor, outs
+
+    def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
+        """Enqueue one step (the update unless validating), the detection
+        refinement and the host copies of its small results (monitor values,
+        sampled anchors, proposals and RoIs, detections); return handles that
+        nothing has waited for yet. Validation returns masks when
+        ``cf.return_masks_in_val``."""
+        inputs = self._prep(batch)
+        bsz = inputs[0].shape[0]
+        with_masks = bool(self.cf.return_masks_in_val) if is_validation else False
+        if is_validation or not do_update:
+            with torch.no_grad():
+                _, aux = self._losses(inputs, [d[0] for d in self.draws(1, bsz)], with_masks)
+            monitor, outs = self._merge([aux], bsz, with_masks)
+        else:
+            n_micro = base.resolve_grad_accum(self.cf, bsz)
+            m = bsz // n_micro
+            _, auxs = self._accumulate(inputs, self.draws(n_micro, m))
+            self._update()
+            monitor, outs = self._merge(auxs, m)
+        keys = list(monitor)
+        small = ["det", "det_mask", "out_proposals", "sampled_rois", "sampled_valid", "sampled_class"]
+        host, copied = base.start_host_copies([*monitor.values(), *outs["anchor_info"], *(outs[k] for k in small)])
+        n = len(keys)
+        return (tuple(inputs[0].shape), dict(zip(keys, host[:n])), host[n:n + 4], dict(zip(small, host[n + 4:])),
+                outs["det_masks_raw"], outs["seg_preds"], with_masks, copied)
+
+    def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
+        """One step's handles -> the reference results dict
+        (``mrcnn.py:821-858``, ``:909-929``): GT boxes, sampled anchors, the
+        top ``n_plot_rpn_props`` proposals, the sampled RoIs as ``pos_class``
+        / ``neg_class``, then the detections."""
+        cf = self.cf
+        img_shape, monitor, anchor_info, small, det_masks_raw, seg_preds, with_masks, copied = handles
+        if copied is not None:
+            copied.synchronize()
+        bsz = img_shape[0]
+        boxes = [[] for _ in range(bsz)]
+        base.add_gt_boxes_to_results(batch, boxes)
+        base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:], boxes)
+        props = small["out_proposals"].numpy()
+        for b in range(bsz):
+            order = np.argsort(-props[b, :, -1])
+            for r in props[b][order][: getattr(cf, "n_plot_rpn_props", 5), :-1]:
+                boxes[b].append({"box_coords": r, "box_type": "prop"})
+        srois, svalid, sclass = (small[k].numpy() for k in ("sampled_rois", "sampled_valid", "sampled_class"))
+        for b in range(bsz):
+            for s in np.flatnonzero(svalid[b]):
+                boxes[b].append({"box_coords": srois[b, s] * np.asarray(cf.scale),
+                                 "box_type": "pos_class" if sclass[b, s] > 0 else "neg_class"})
+        det, det_mask = small["det"], small["det_mask"]
+        base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
+        if need_seg_preds:
+            seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape, with_masks)
+        else:  # skip the full-volume copy
+            seg = np.zeros((bsz, 1) + tuple(batch["data"].shape[2:]), dtype=np.float32)
+        monitor = {k: float(v) for k, v in monitor.items()}
+        return {
+            "boxes": boxes,
+            "seg_preds": seg,
+            "loss": monitor["loss"],
+            "torch_loss": monitor["loss"],  # legacy key some callers expect
+            "monitor_values": {"loss": monitor["loss"], "class_loss": monitor["class_loss"]},
+            "logger_string": (
+                "loss: {0:.2f}, rpn_class: {1:.2f}, rpn_bbox: {2:.2f}, mrcnn_class: {3:.2f}, "
+                "mrcnn_bbox: {4:.2f}, mrcnn_mask: {5:.2f}".format(
+                    monitor["loss"], monitor["rpn_class_loss"], monitor["rpn_bbox_loss"],
+                    monitor["class_loss"], monitor["mrcnn_bbox_loss"], monitor.get("mrcnn_mask_loss", 0.0))
+            ),
+        }
 
 
 @register("ufrcnn")

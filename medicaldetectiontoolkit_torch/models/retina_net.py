@@ -262,12 +262,6 @@ class RetinaNetDetector(base.Detector):
         loss, auxs = base.accum_backward(list(self.module.parameters()), micro, n_micro)
         return loss, base.merge_microbatch_aux(auxs)
 
-    def _update(self):
-        """One Adam step at ``current_lr``."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.current_lr
-        self.optimizer.step()
-
     def train_forward_dispatch(self, batch, is_validation: bool = False, do_update: bool = True):
         """Enqueue one step (the update unless validating), the detection
         refinement of its heads and the host copies of its small results

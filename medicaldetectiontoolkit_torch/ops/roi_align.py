@@ -16,9 +16,14 @@ Boxes are normalised ``(y1, x1, y2, x2, (z1, z2))`` in [0, 1].
 
 ``pyramid_roi_align`` is the plain version of the pyramid kernel K2: it
 crops every RoI from every level and keeps the assigned level's crop
-(``roi_align_pallas.py:65-73``). ``pyramid_roi_align_auto`` dispatches on
-the maps' device: a CPU tensor takes the plain version, a CUDA tensor the
-hand-written kernel (``ops/roi_align_cuda.py``), and there is no third path.
+(``roi_align_pallas.py:65-73``); ``pyramid_roi_align_backward_plain`` the
+plain version of K2's backward, the autograd of that forward (JAX's custom
+VJP, ``roi_align_pallas.py:269-285``). ``PyramidRoIAlign`` is the
+differentiable pyramid RoIAlign, keyed on the maps' device: CPU tensors
+take the plain versions, CUDA tensors the hand-written kernels
+(``ops/roi_align_cuda.py``), and there is no third path. Only the maps get a
+gradient; boxes and indices are constants, as JAX's ``stop_gradient``
+makes them.
 """
 
 from __future__ import annotations
@@ -129,18 +134,60 @@ def pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size):
     return pooled.to(torch.float32)
 
 
+def pyramid_roi_align_backward_plain(grad_out, feature_maps, boxes, box_indices, levels_idx, crop_size):
+    """The gradient of ``pyramid_roi_align`` to the maps, plain PyTorch: the
+    autograd of the plain forward, recomputed. grad_out (R, C, *crop_size)
+    float32. Returns one gradient per level in the maps' dtype; bf16 and f16
+    maps accumulate in their own dtype, as JAX's scatter-add does."""
+    with torch.enable_grad():
+        maps = [fm.detach().requires_grad_() for fm in feature_maps]
+        out = pyramid_roi_align(maps, boxes, box_indices, levels_idx, crop_size)
+        return list(torch.autograd.grad(out, maps, grad_out))
+
+
+class PyramidRoIAlign(torch.autograd.Function):
+    """Differentiable pyramid RoIAlign: ``apply(*feature_maps, boxes,
+    box_indices, levels_idx, crop_size)``, the contract of
+    ``pyramid_roi_align``. Forward and backward are K2 and its backward on
+    CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *feature_maps, boxes, box_indices, levels_idx, crop_size = args
+        device = feature_maps[0].device
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no pyramid RoIAlign implementation for device {device}")
+        ctx.crop_size = tuple(crop_size)
+        ctx.meta = [(tuple(fm.shape), fm.dtype) for fm in feature_maps]
+        if device.type == "cpu":
+            # the plain backward recomputes the forward from the maps
+            ctx.save_for_backward(boxes, box_indices, levels_idx, *feature_maps)
+            return pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size)
+        from medicaldetectiontoolkit_torch.ops import roi_align_cuda
+
+        ctx.save_for_backward(boxes, box_indices, levels_idx)
+        return roi_align_cuda.pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, box_indices, levels_idx, *feature_maps = ctx.saved_tensors
+        if grad_out.device.type == "cpu":
+            grads = pyramid_roi_align_backward_plain(grad_out, feature_maps, boxes, box_indices, levels_idx,
+                                                     ctx.crop_size)
+        else:
+            from medicaldetectiontoolkit_torch.ops import roi_align_cuda
+
+            grads = roi_align_cuda.pyramid_roi_align_backward(grad_out, ctx.meta, boxes, box_indices, levels_idx,
+                                                              ctx.crop_size)
+        return (*grads, None, None, None, None)
+
+
 def pyramid_roi_align_auto(feature_maps, boxes, box_indices, levels_idx, crop_size):
-    """Pyramid RoIAlign keyed on the maps' device.
+    """Pyramid RoIAlign keyed on the maps' device, differentiable to the
+    maps (``PyramidRoIAlign``).
 
-    CPU tensors take the plain ``pyramid_roi_align``; CUDA tensors launch the
-    hand-written kernel (``ops/roi_align_cuda.py``), which raises rather than
-    falling back when it cannot build or launch.
+    CPU tensors take the plain versions; CUDA tensors launch the
+    hand-written kernels (``ops/roi_align_cuda.py``), which raise rather
+    than falling back when they cannot build or launch.
     """
-    device = feature_maps[0].device
-    if device.type == "cpu":
-        return pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size)
-    if device.type != "cuda":
-        raise ValueError(f"no pyramid RoIAlign implementation for device {device}")
-    from medicaldetectiontoolkit_torch.ops import roi_align_cuda
-
-    return roi_align_cuda.pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size)
+    return PyramidRoIAlign.apply(*feature_maps, boxes, box_indices, levels_idx, tuple(crop_size))

@@ -28,6 +28,11 @@ launch raises; there is no fallback. ``box_indices`` must lie in ``[0, B)``:
 the kernel does not check them. A ``levels_idx`` outside
 ``[0, len(feature_maps))`` pools zeros, as in the plain version.
 
+``pyramid_roi_align_backward`` launches K2's backward from the same source:
+one thread per element of ``grad_out`` scatters it into float32 gradients of
+the levels with atomic adds (see the source's note), which are then cast to
+the maps' dtype. Its float32 sums are not deterministic in their last bits.
+
 ``axis_rows`` and ``level_axis_rows`` model the kernel's row arithmetic in
 numpy float32, step by step; the CPU tests hold them against
 ``_level_axis_indices`` and JAX's.
@@ -36,6 +41,7 @@ numpy float32, step by step; the CPU tests hold them against
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -62,6 +68,12 @@ class _Level(ctypes.Structure):
 
     _fields_ = [("data", ctypes.c_void_p), ("sb", ctypes.c_longlong), ("sc", ctypes.c_longlong),
                 ("size", ctypes.c_int * 3), ("stride", ctypes.c_int * 3)]
+
+
+class _BwdLevel(ctypes.Structure):
+    """Mirror of ``struct BwdLevel`` in ``csrc/roi_align.cu``."""
+
+    _fields_ = [("offset", ctypes.c_longlong), ("size", ctypes.c_int * 3)]
 
 
 def axis_rows(lo, hi, crop: int, size: int, reciprocal: bool = SCALE_BY_RECIPROCAL):
@@ -116,10 +128,25 @@ def _load():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mdt_roi_align_launch.argtypes = [vp, i32, i32, i32, vp, vp, vp] + [i32] * 5 + [vp, vp]
         lib.mdt_roi_align_launch.restype = i32
+        lib.mdt_roi_align_bwd_launch.argtypes = [vp, i32, i32, vp, vp, vp] + [i32] * 5 + [vp, vp,
+                                                                                      ctypes.c_longlong, vp]
+        lib.mdt_roi_align_bwd_launch.restype = i32
         lib.mdt_roi_align_error_string.argtypes = [i32]
         lib.mdt_roi_align_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _check_rois(boxes, box_indices, levels_idx, dim: int, dev):
+    """The RoIs' shapes and device; returns R."""
+    R = boxes.shape[0]
+    if boxes.dim() != 2 or boxes.shape[1] != 2 * dim or box_indices.shape != (R,) or levels_idx.shape != (R,):
+        raise ValueError(f"expected boxes (R, {2 * dim}), box_indices and levels_idx (R,); got "
+                         f"{tuple(boxes.shape)}, {tuple(box_indices.shape)}, {tuple(levels_idx.shape)}")
+    for name, t in (("boxes", boxes), ("box_indices", box_indices), ("levels_idx", levels_idx)):
+        if t.device != dev:
+            raise ValueError(f"{name} must be on {dev}; got {t.device}")
+    return R
 
 
 def prepare(feature_maps, boxes, box_indices, levels_idx, crop_size):
@@ -148,13 +175,7 @@ def prepare(feature_maps, boxes, box_indices, levels_idx, crop_size):
             raise ValueError(f"feature maps must be (B, C, *spatial) CUDA tensors of one dtype on {dev}, "
                              f"(B, C) = {(B, C)}, spatial extents >= 1; got {fm.dtype} {tuple(fm.shape)} on "
                              f"{fm.device}")
-    R = boxes.shape[0]
-    if boxes.dim() != 2 or boxes.shape[1] != 2 * dim or box_indices.shape != (R,) or levels_idx.shape != (R,):
-        raise ValueError(f"expected boxes (R, {2 * dim}), box_indices and levels_idx (R,); got "
-                         f"{tuple(boxes.shape)}, {tuple(box_indices.shape)}, {tuple(levels_idx.shape)}")
-    for name, t in (("boxes", boxes), ("box_indices", box_indices), ("levels_idx", levels_idx)):
-        if t.device != dev:
-            raise ValueError(f"{name} must be on {dev}; got {t.device}")
+    R = _check_rois(boxes, box_indices, levels_idx, dim, dev)
     out = torch.empty((R, C, *crop_size), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, None
@@ -210,3 +231,89 @@ def pyramid_roi_align(feature_maps, boxes, box_indices, levels_idx, crop_size):
 
 # kernel launches since the last reset; the main path's proof of use
 pyramid_roi_align.launches = 0
+
+
+def prepare_backward(grad_out, feature_maps_meta, boxes, box_indices, levels_idx, crop_size):
+    """Validate the backward's inputs and build one launch: the level
+    descriptors and the float32 gradient buffer of all levels. Returns
+    ``(buffer, shapes, launch_args)``; ``launch_args`` is None when
+    ``grad_out`` is empty (the gradients are then zeros)."""
+    dim = len(crop_size)
+    if dim not in (2, 3) or not all(1 <= c for c in crop_size):
+        raise ValueError(f"crop_size must be rank 2 or 3 with cells >= 1, got {crop_size}")
+    if not 1 <= len(feature_maps_meta) <= MAX_LEVELS:
+        raise ValueError(f"expected 1 to {MAX_LEVELS} pyramid levels, got {len(feature_maps_meta)}")
+    shapes = [tuple(int(n) for n in shape) for shape, _ in feature_maps_meta]
+    dtypes = [d for _, d in feature_maps_meta]
+    B, C = shapes[0][:2]
+    if dtypes[0] not in _DTYPES or any(d != dtypes[0] for d in dtypes) or \
+            any(len(s) != dim + 2 or s[:2] != (B, C) or min(s[2:]) < 1 for s in shapes):
+        raise ValueError(f"feature maps must be (B, C, *spatial) of one dtype (float32, bfloat16 or float16); got "
+                         f"{list(zip(shapes, dtypes))}")
+    R = boxes.shape[0]
+    dev = grad_out.device
+    if dev.type != "cuda" or tuple(grad_out.shape) != (R, C, *crop_size):
+        raise ValueError(f"grad_out must be a CUDA tensor of shape {(R, C, *crop_size)}; got "
+                         f"{tuple(grad_out.shape)} on {dev}")
+    _check_rois(boxes, box_indices, levels_idx, dim, dev)
+    if grad_out.numel() >= MAX_OUTPUTS:
+        raise ValueError(f"{grad_out.numel()} gradient elements; the kernel indexes at most {MAX_OUTPUTS - 1}")
+    sizes = [math.prod(s) for s in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    if grad_out.numel() == 0:
+        buf.zero_()
+        return buf, shapes, None
+    levels = (_BwdLevel * len(shapes))()
+    offset = 0
+    for k, (shape, n) in enumerate(zip(shapes, sizes)):
+        levels[k] = _BwdLevel(offset, (ctypes.c_int * 3)(*(*shape[2:], 1, 1)[:3]))
+        offset += n
+    grad_out = grad_out.to(torch.float32).contiguous()
+    boxes = boxes.to(torch.float32).contiguous()
+    box_indices = box_indices.to(torch.int32).contiguous()
+    levels_idx = levels_idx.to(torch.int32).contiguous()
+    # the tensors stay referenced here until the launch is enqueued
+    tensors = (grad_out, boxes, box_indices, levels_idx, buf)
+    ptrs = [boxes.data_ptr(), box_indices.data_ptr(), levels_idx.data_ptr()]
+    return buf, shapes, (tensors, levels, len(shapes), dim, ptrs, [R, C, *(*crop_size, 1)[:3]], grad_out.data_ptr(),
+                         buf.data_ptr(), buf.numel(), dev)
+
+
+def launch_backward(launch_args):
+    """Enqueue the backward (zero the buffer, then the scatter) on the
+    current stream; raise if it is refused."""
+    _, levels, n_levels, dim, ptrs, sizes, grad_ptr, buf_ptr, buf_elems, dev = launch_args
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mdt_roi_align_bwd_launch(levels, n_levels, dim, *ptrs, *sizes, grad_ptr, buf_ptr, buf_elems,
+                                           stream)
+    if err != 0:
+        raise RuntimeError(f"RoIAlign backward kernel launch failed: {lib.mdt_roi_align_error_string(err).decode()} "
+                           f"({err})")
+
+
+def pyramid_roi_align_backward(grad_out, feature_maps_meta, boxes, box_indices, levels_idx, crop_size):
+    """K2's backward on the GPU: the gradient of ``pyramid_roi_align`` to
+    the maps, as ``ops.roi_align.pyramid_roi_align_backward_plain`` computes
+    it, but summed in float32 whatever the maps' dtype.
+
+    grad_out (R, C, *crop_size) CUDA tensor (made float32 and contiguous);
+    feature_maps_meta: the levels' ``(shape, dtype)``, shapes (B, C,
+    *spatial_l), one float dtype; boxes, box_indices, levels_idx as the
+    forward's. Returns one gradient per level, contiguous, in the maps'
+    dtype; un-synchronised. A RoI whose level lies outside ``[0,
+    len(feature_maps_meta))`` adds nothing.
+    """
+    buf, shapes, launch_args = prepare_backward(grad_out, feature_maps_meta, boxes, box_indices, levels_idx,
+                                                crop_size)
+    if launch_args is not None:
+        launch_backward(launch_args)
+        pyramid_roi_align_backward.launches += 1
+    grads = [g.view(s) for g, s in zip(buf.split([math.prod(s) for s in shapes]), shapes)]
+    dtype = feature_maps_meta[0][1]
+    return grads if dtype == torch.float32 else [g.to(dtype) for g in grads]
+
+
+# kernel launches since the last reset; the main path's proof of use
+pyramid_roi_align_backward.launches = 0

@@ -1,8 +1,8 @@
 """Small synthetic configs and batches for the port's scripts and tests.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/testing.py``, cut to what the
-ported paths read (inference of the one-stage and two-stage detectors,
-training of the one-stage ones). ``make_config``
+ported paths read (inference and training of the one-stage and two-stage
+detectors). ``make_config``
 gives the same values as the JAX package's ``make_config``
 (``testing.py:10-95``) for every attribute it sets, and ``make_batch`` draws
 the same arrays from the same seed (``testing.py:98-131``);
@@ -71,12 +71,15 @@ def make_config(model="retina_net", dim=2, patch_size=None, start_filts=4, end_f
         grad_accum_steps=1,
         # mrcnn-family extras (``testing.py:65-77``, ``config.py:89-91``)
         rpn_nms_threshold=0.7,
+        train_rois_per_image=8,
+        roi_positive_ratio=0.5,
         pool_size=(7, 7) if dim == 2 else (7, 7, 3),
         mask_pool_size=(14, 14) if dim == 2 else (14, 14, 5),
         mask_shape=(28, 28) if dim == 2 else (28, 28, 10),
         roi_chunk_size=100,
         post_nms_rois_training=50,
         post_nms_rois_inference=50,
+        n_plot_rpn_props=3,
         return_masks_in_val=True,
         return_masks_in_test=False,
         frcnn_mode=model == "ufrcnn",

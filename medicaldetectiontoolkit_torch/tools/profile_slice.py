@@ -2,7 +2,8 @@
 CUDA card.
 
     python3 -m medicaldetectiontoolkit_torch.tools.profile_slice [--model retina_unet|mrcnn] [--out-dir DIR]
-    python3 -m medicaldetectiontoolkit_torch.tools.profile_slice --train [--stem 0|1] [--out-dir DIR]
+    python3 -m medicaldetectiontoolkit_torch.tools.profile_slice --train [--model retina_unet|mrcnn] [--stem 0|1]
+        [--out-dir DIR]
 
 For float32 and bfloat16, on the 3D Retina U-Net slice (``make_slice_config``)
 or the 3D Mask R-CNN slice (``make_mrcnn_slice_config``), batch 8, random
@@ -22,7 +23,9 @@ weights from seed 0:
     table of kernels goes to ``DIR/profile_<model>_<dtype>.txt``.
 
 With ``--train``, the training slice (``make_train_slice_config``: 3D Retina
-U-Net at LIDC width, batch 2 x 4, remat) with ``MDT_STEM_PALLAS`` set to
+U-Net at LIDC width, batch 2 x 4, remat; with ``--model mrcnn`` the Mask
+R-CNN slice, ``make_mrcnn_slice_config``, batch 8 as one microbatch, remat)
+with ``MDT_STEM_PALLAS`` set to
 ``--stem`` (default 1: the stem kernels K3/K4): per-step CUDA-event stage
 times (upload, forward + loss and backward summed over the microbatches,
 optimizer, refine), the peak device memory of one step, and the profiler's
@@ -52,6 +55,7 @@ CLASSES = (
     ("K4 partial pass", ("stem_wgrad_partial_kernel",)),
     ("K4 reduce", ("stem_wgrad_reduce_kernel",)),
     ("roi_align", ("pyramid_roi_align_kernel",)),
+    ("K2 backward", ("pyramid_roi_align_bwd_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("conv", ("conv", "fprop", "implicit_gemm", "xmma", "cudnn", "Nhwc", "nhwc", "Nchw", "nchw")),
     ("upsample", ("upsample",)),
@@ -136,8 +140,10 @@ TRAIN_STAGES = ("upload", "forward + loss", "backward", "optimizer", "refine")
 
 def train_stage_times(net, batches):
     """Mean CUDA-event ms per step of each training stage: the composition of
-    ``RetinaNetDetector.train_forward_dispatch`` with events between its
-    parts (forward + loss and backward summed over the microbatches)."""
+    ``train_forward_dispatch`` with events between its parts (forward + loss
+    and backward summed over the microbatches; for Mask R-CNN "refine" is
+    the refinement per microbatch and the merge)."""
+    two_stage = hasattr(net, "_merge")
     sums = dict.fromkeys(TRAIN_STAGES, 0.0)
     params = list(net.module.parameters())
     for b in batches:
@@ -154,13 +160,16 @@ def train_stage_times(net, batches):
         bsz = inputs[0].shape[0]
         n_micro = resolve_grad_accum(net.cf, bsz)
         m = bsz // n_micro
-        match_rand, shem_rand = net.draws(n_micro, m)
+        draws = net.draws(n_micro, m)
         for p in params:
             p.grad = None
         auxs = []
         for i in range(n_micro):
             part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
-            loss, aux = net._losses_and_outputs(*part, match_rand[i], shem_rand[i])
+            if two_stage:
+                loss, aux = net._losses(part, [d[i] for d in draws])
+            else:
+                loss, aux = net._losses_and_outputs(*part, *(d[i] for d in draws))
             mark("forward + loss")
             loss.backward()
             mark("backward")
@@ -170,7 +179,10 @@ def train_stage_times(net, batches):
         net._update()
         mark("optimizer")
         with torch.no_grad():
-            net._finalize_outputs(*merge_microbatch_aux(auxs)["heads"])
+            if two_stage:
+                net._merge(auxs, m)
+            else:
+                net._finalize_outputs(*merge_microbatch_aux(auxs)["heads"])
         mark("refine")
         torch.cuda.synchronize()
         for (_, start), (stage, end) in zip(marks, marks[1:]):
@@ -245,17 +257,20 @@ def print_classes(per_class_ms, unit):
 
 def main_train(args):
     os.environ["MDT_STEM_PALLAS"] = args.stem
-    batches = slice_batches(args.chunks, "retina_unet_train")
-    print(f"training slice: retina_unet 3D 128x128x64 sf18 ef36, batch 2 x 4, remat, MDT_STEM_PALLAS={args.stem}")
+    model = "retina_unet_train" if args.model == "retina_unet" else args.model
+    batches = slice_batches(args.chunks, model)
+    layout = "batch 2 x 4" if args.model == "retina_unet" else "batch 8 as one microbatch"
+    print(f"training slice: {args.model} 3D 128x128x64 sf18 ef36, {layout}, remat, MDT_STEM_PALLAS={args.stem}")
     for dtype in ("float32", "bfloat16"):
-        net = slice_net(dtype, model="retina_unet_train")
+        net = slice_net(dtype, model=model)
         net.current_lr = 1e-4
         train_steps(net, batches[:1])  # warm-up: cuDNN plans, kernel build and load
         stages = train_stage_times(net, batches)
         print(f"[{dtype}] CUDA-event stage ms per step of 8: "
               + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; device total {sum(stages.values()):.2f}")
         print(f"[{dtype}] peak device memory, one step: {train_peak_memory_gib(net, batches[0]):.2f} GiB")
-        table = os.path.join(args.out_dir, f"profile_train_stem{args.stem}_{dtype}.txt") if args.out_dir else None
+        table = (os.path.join(args.out_dir, f"profile_train_{args.model}_stem{args.stem}_{dtype}.txt")
+                 if args.out_dir else None)
         p = profile_train(net, batches, table)
         print(f"[{dtype}] profiled {len(batches)} steps: host wall {p['wall_ms']:.1f} ms, device span "
               f"{p['span_ms']:.1f} ms, busy {p['busy_ms']:.1f} ms, idle share {1 - p['busy_ms'] / p['span_ms']:.4f} "

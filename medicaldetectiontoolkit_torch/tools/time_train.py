@@ -1,8 +1,9 @@
 """Time training through the port's exec on the card at LIDC width.
 
 Synthetic LIDC patients (default 6 of z 280 x y 512 x x 512, a chest CT at
-LIDC's 0.7 x 0.7 x 1.25 mm spacing) and the LIDC config's 3D Retina U-Net
-(patch 128 x 128 x 64, start_filts 18, end_filts 36, batch 8, the config's
+LIDC's 0.7 x 0.7 x 1.25 mm spacing) and the LIDC config's 3D model
+(``--model``: Retina U-Net by default, or Mask R-CNN / U-Faster R-CNN+;
+patch 128 x 128 x 64, start_filts 18, end_filts 36, batch 8, the config's
 loader workers) go through ``exec.train`` (the routine of
 ``exec --mode train``) for 2 epochs of ``--batches`` train batches and 2
 ``val_sampling`` batches, in float32 and bfloat16, with ``MDT_STEM_PALLAS``
@@ -19,8 +20,8 @@ its first batch request to the first ``val_sampling`` request, which
 follows the last step's convert and the train evaluation). The card's name
 and power limit head the output; the JSON goes to ``--out-dir``.
 
-    python3 -m medicaldetectiontoolkit_torch.tools.time_train [--batches 12] [--patients 6]
-        [--shape 280 512 512] [--dtypes float32 bfloat16] [--stem 1] [--pipeline 1] [--out-dir DIR]
+    python3 -m medicaldetectiontoolkit_torch.tools.time_train [--model retina_unet|mrcnn|ufrcnn] [--batches 12]
+        [--patients 6] [--shape 280 512 512] [--dtypes float32 bfloat16] [--stem 1] [--pipeline 1] [--out-dir DIR]
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from medicaldetectiontoolkit_torch import exec as port_exec
 from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.experiments.lidc_exp import data_loader as lidc_dl
 from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
-from medicaldetectiontoolkit_torch.ops import nms_cuda, stem_conv_cuda
+from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv_cuda
 from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
 from medicaldetectiontoolkit_torch.tools import common
 from medicaldetectiontoolkit_torch.tools.profile_slice import RUNTIME, busy_union_us
@@ -108,12 +109,13 @@ class _ProbedLoader:
 
 
 def time_dtype(root, data_dir, dtype, args, card, turn=0):
-    env = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_DTYPE": dtype, "MDT_LIDC_EPOCHS": "2",
+    env = {"MDT_DIM": "3", "MDT_MODEL": args.model, "MDT_LIDC_DTYPE": dtype, "MDT_LIDC_EPOCHS": "2",
            "MDT_LIDC_NTB": str(args.batches), "MDT_LIDC_NVB": "2"}
+    name = f"exp_{args.model}_{dtype}_{turn}"
     make_lidc_experiment(root, env, {"n_cv_splits": 3}, seeds=(), epochs=(), device="cuda", data_dir=data_dir,
-                         exp_name=f"exp_{dtype}_{turn}")
+                         exp_name=name)
     exp_source = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments", "lidc_exp")
-    cf = exp_utils.prep_exp(exp_source, os.path.join(root, f"exp_{dtype}_{turn}"), use_stored_settings=True)
+    cf = exp_utils.prep_exp(exp_source, os.path.join(root, name), use_stored_settings=True)
     cf.data_dest, cf.fold, cf.resume_to_checkpoint = None, 0, None
     cf.fold_dir = os.path.join(cf.exp_dir, "fold_0")
     os.makedirs(cf.fold_dir, exist_ok=True)
@@ -130,7 +132,7 @@ def time_dtype(root, data_dir, dtype, args, card, turn=0):
     per_batch = sum(loader["batch_seconds"]) / len(loader["batch_seconds"])
     t = out["times"]
     row = dict(
-        dtype=dtype, stem=os.environ.get("MDT_STEM_PALLAS", "0"), turn=turn,
+        model=args.model, dtype=dtype, stem=os.environ.get("MDT_STEM_PALLAS", "0"), turn=turn,
         pipeline=os.environ.get("MDT_TRAIN_PIPELINE", "1"), batch_size=cf.batch_size,
         batches_per_epoch=cf.num_train_batches, step_ms=[s * 1e3 for s in t["step_s"][2]],
         warmup_step_ms=[s * 1e3 for s in t["step_s"][1]], load_wait_ms=[s * 1e3 for s in t["load_s"][2]],
@@ -141,7 +143,7 @@ def time_dtype(root, data_dir, dtype, args, card, turn=0):
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, run_s=wall, card=card, **window.summary(),
     )
     steps = sorted(row["step_ms"])
-    print(f"  turn {turn}, MDT_TRAIN_PIPELINE={row['pipeline']}, {dtype}: {sum(steps) / len(steps):.1f} ms per "
+    print(f"  turn {turn}, {args.model}, MDT_TRAIN_PIPELINE={row['pipeline']}, {dtype}: {sum(steps) / len(steps):.1f} ms per "
           f"step of {cf.batch_size} (median {steps[len(steps) // 2]:.1f}; epoch 1: "
           f"{', '.join(f'{s:.0f}' for s in row['warmup_step_ms'])}); "
           f"waited for the loader {sum(row['load_wait_ms']) / len(steps):.1f} ms per step; loader "
@@ -154,6 +156,7 @@ def time_dtype(root, data_dir, dtype, args, card, turn=0):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("retina_unet", "mrcnn", "ufrcnn"), default="retina_unet")
     ap.add_argument("--batches", type=int, default=12, help="train batches per epoch")
     ap.add_argument("--patients", type=int, default=6)
     ap.add_argument("--shape", type=int, nargs=3, default=(280, 512, 512), help="z y x of each patient")
@@ -167,7 +170,8 @@ def main():
     card = common.setup_card()
     print(card)
     with ThreadPoolExecutor(max_workers=3) as pool:  # build every library before any timing
-        list(pool.map(lambda build: build(), (nms_cuda.build, stem_conv_cuda.build, native.get_lib)))
+        list(pool.map(lambda build: build(), (nms_cuda.build, roi_align_cuda.build, stem_conv_cuda.build,
+                                               native.get_lib)))
     info = native.lib_info()
     print(f"  native host library {os.path.basename(info['path'])}: {info['compiler']}, "
           f"{info['omp_threads']} OpenMP threads")
@@ -184,9 +188,10 @@ def main():
                 torch.cuda.empty_cache()
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        with open(os.path.join(args.out_dir, "time_train.json"), "w") as handle:
+        with open(os.path.join(args.out_dir, f"time_train_{args.model}.json"), "w") as handle:
             json.dump(rows, handle, indent=1)
-    print(json.dumps({"time_train": [{k: r[k] for k in ("turn", "pipeline", "dtype", "train_s", "loader_patches_per_s",
+    print(json.dumps({"time_train": [{k: r[k] for k in ("model", "turn", "pipeline", "dtype", "train_s",
+                                                        "loader_patches_per_s",
                                                         "idle_share")}
                                      for r in rows]}))
 

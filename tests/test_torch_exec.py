@@ -239,14 +239,15 @@ def test_csv_output_matches_jax(runs, tmp_path):
 
 @pytest.mark.parametrize("mode", ["train", "train_test"])
 def test_training_modes_are_not_ported(mode, tmp_path):
-    """One-stage training is ported (``tests/test_torch_exec_train.py``);
-    the two-stage detectors' training is not, and exec's train modes raise
-    for them, naming the ROADMAP, instead of running another model."""
+    """Every detector the port registers trains (``tests/test_torch_exec_train.py``,
+    ``tests/test_torch_mrcnn_train.py``); for a model it does not register
+    (``detection_unet``, ROADMAP.md Queue 1) exec's train modes raise,
+    naming the models it has, instead of running another model."""
     from medicaldetectiontoolkit_torch.testing import run_lidc_train
 
-    env = dict(ENV, MDT_MODEL="mrcnn", MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="1", MDT_LIDC_NVB="1")
+    env = dict(ENV, MDT_MODEL="detection_unet", MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="1", MDT_LIDC_NVB="1")
     cf = make_lidc_experiment(str(tmp_path), env, dict(SMALL, n_workers=1), seeds=(), epochs=())
-    with pytest.raises(NotImplementedError, match="MaskRCNNDetector is not ported yet; see ROADMAP.md"):
+    with pytest.raises(KeyError, match="unknown model 'detection_unet'.*'mrcnn'"):
         run_lidc_train(cf, mode, device="cpu")
 
 

@@ -67,6 +67,7 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.data.loader",
     "medicaldetectiontoolkit_torch.plotting",
     "medicaldetectiontoolkit_torch.tools.time_train",
+    "medicaldetectiontoolkit_torch.tools.time_roi_align_bwd",
     "chip_smoke",
 ]
 
