@@ -64,8 +64,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      2 per chunk and the RoIAlign counter by the classify launches plus one
      mask launch per chunk; on chunk 0 the kernels give the same detections
      and masks as the plain versions on the same heads and maps;
-  6. small 3D Mask R-CNN and U-Faster R-CNN+: the card against the CPU run
-     of the same weights;
+  6. small 3D Mask R-CNN, U-Faster R-CNN+ and Detection U-Net: the card
+     against the CPU run of the same weights (Detection U-Net: the softmax
+     within 1e-4, the argmax and the boxes of its components equal);
   7. 3D Retina U-Net training at LIDC width (``make_train_slice_config``:
      batch 2 x 4 accumulated, remat, 300 training anchors per image) with
      ``MDT_STEM_PALLAS=1``, float32 and bfloat16, through
@@ -73,16 +74,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      steps; the K3, K4 and NMS counters rise by the counts derived per step;
      from the same weights and draws the cuDNN stem (the opt-in unset) gives
      the same loss and gradients within the stated tolerance, and both
-     step times are printed; small 3D retina_unet, retina_net, mrcnn and
-     ufrcnn train steps on the card agree with the CPU run of the same
-     weights and draws (7b);
+     step times are printed; small 3D retina_unet, retina_net, mrcnn, ufrcnn
+     and detection_unet train steps on the card agree with the CPU run of
+     the same weights and draws (7b);
   8. whole-patient test inference through ``medicaldetectiontoolkit_torch.exec``
      (``--mode test``) on synthetic LIDC patients, each experiment directory
      prepared as a training run leaves one (config snapshot, hold-out split,
      ``epoch_ranking.npy``, two ranked checkpoints of random weights written by
      ``save_checkpoint``; random weights already score detections above
-     ``min_det_thresh``): 3D Retina U-Net at LIDC width on a patient of z 128 x
-     y 256 x x 256 (27 patches x 4 mirrors x 2 checkpoints) in float32 and
+     ``min_det_thresh``): 3D Retina U-Net at LIDC width on a patient of z 64 x
+     y 256 x x 256 (9 patches x 4 mirrors x 2 checkpoints) in float32 and
      bfloat16, K1 counted once per chunk, and every chunk's NMS inputs run
      through the plain NMS on the same card after the timed run, giving the
      same keep lists (so the same consolidated boxes); 3D Mask R-CNN at LIDC width in
@@ -123,8 +124,28 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      twice, K2 for its classify-all chunks and K3 once; every monitored loss
      is finite; ms per step as logged. Then one warm-up and two timed
      bfloat16 train steps of ``make_mrcnn_slice_config`` with the same
-     counts.
+     counts;
+ 11. Detection U-Net training through ``exec --mode train_test`` on phase
+     9's patients: the LIDC config's 3D Detection U-Net at full width (patch
+     128x128x64, sf 18, ef 36, batch 8, float32, ``MDT_STEM_PALLAS=1``), one
+     epoch of 3 train batches and 2 ``val_sampling`` batches, then the test.
+     Each train dispatch must launch K3 twice and K4 once, each validation
+     dispatch and test chunk K3 once, and none K1; the first two train and
+     validation converts, made from the softmax copies queued at dispatch,
+     equal converts of synchronous ``.cpu()`` reads; every monitored loss is
+     finite; ms per step as logged. Then steps of
+     ``make_det_unet_slice_config`` in float32 and bfloat16 (one warm-up, two
+     timed): dispatch to synchronise (the device) and the convert (the
+     softmax's host copy waited for, argmax, connected components, boxes);
+ 12. the toy experiment through ``exec --mode train_test`` at its full
+     width (2D, 320x320, start_filts 48, resnet50, batch 20) on 48 generated
+     train and val images and 4 test images, 2 epochs x 4 train batches, 4
+     validation images, for Retina U-Net (K1 counted: once per train and
+     validation dispatch and per test forward) and Detection U-Net (no
+     kernel of the table: the stem kernels are 3D only); the results files
+     are written and each test's mean foreground roi-AP printed.
 
+Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
 ``{"ok": true, "device": {...}}``.
 
@@ -497,6 +518,41 @@ def _small_two_stage(torch, np, make_config, make_batch, build_model, log, model
         _same_seg(gpu._make_seg_preds(*og, shape, True), cpu._make_seg_preds(*oc, shape, True))
 
 
+def _small_det_unet(torch, np, make_config, make_batch, build_model, log):
+    """Small 3D Detection U-Net: the card (stem kernels, TF32 off) against
+    the CPU run of the same weights. The softmax within 1e-4 of its max; the
+    argmax equal but for near-ties (at most 1e-4 of the voxels, each within
+    1e-4 between its top two classes on the CPU); where the argmax is equal
+    everywhere, the boxes of its components equal (scores within 1e-5)."""
+    from medicaldetectiontoolkit_torch.models.detection_unet import channel_softmax
+
+    print("== phase 6: small 3D detection_unet, card vs CPU plain path")
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    cf = make_config(model="detection_unet", dim=3, batch_size=2)
+    batch = make_batch(cf, seed=5)
+    gpu = build_model(cf, log, device="cuda")
+    cpu = build_model(cf, log, device="cpu")
+    gpu.initialize(seed=1)
+    cpu.load_state_dict(gpu.state_dict())
+    x = torch.from_numpy(batch["data"])
+    with torch.inference_mode():
+        sg = channel_softmax(gpu.module(x.cuda())).cpu()
+        sc = channel_softmax(cpu.module(x))
+    if not gpu.module.fpn.stem0[0].stem_kernel:
+        raise AssertionError("the small Detection U-Net's conv0 did not take the stem kernel")
+    _close("softmax", sg, sc)
+    rg, rc = gpu.test_forward(batch), cpu.test_forward(batch)
+    differ = rg["seg_preds"] != rc["seg_preds"]
+    top2 = np.sort(sc.numpy(), axis=1)[:, -2:]
+    margin = (top2[:, 1] - top2[:, 0])[:, None]
+    print(f"  argmax: {int(differ.sum())} of {differ.size} voxels differ, CPU margins there "
+          f"{margin[differ].tolist()[:8]}")
+    if differ.sum() > 1e-4 * differ.size or (differ.any() and margin[differ].max() > 1e-4):
+        raise AssertionError("small Detection U-Net: the argmax differs from the CPU reference beyond near-ties")
+    if not differ.any():
+        _same_boxes(np, rg["boxes"], rc["boxes"])
+
+
 def _grad_errors(torch, a, b):
     """Worst per-tensor max|a - b| / max|b| over two {name: grad} dicts."""
     errs = {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30) for n in b}
@@ -596,6 +652,7 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
     print(f"== phase 7b: small 3D {model} train step, card vs CPU plain path")
     os.environ["MDT_STEM_PALLAS"] = "1"
     two_stage = model in ("mrcnn", "ufrcnn")
+    seg_only = model == "detection_unet"  # no draws: a loss of the seg head alone
     cf = make_config(model=model, dim=3, batch_size=4, retina_scales=not two_stage)
     cf.grad_accum_steps = 2
     if two_stage:
@@ -605,11 +662,11 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
     cpu = build_model(cf, log, device="cpu")
     gpu.initialize(seed=4 if two_stage else 1)
     cpu.load_state_dict(gpu.state_dict())
-    draws = cpu.draws(2, 2)
+    draws = None if seg_only else cpu.draws(2, 2)
     out, sampled = {}, {}
-    for net, d in ((gpu, [t.cuda() for t in draws]), (cpu, draws)):
+    for net, d in ((gpu, None if seg_only else [t.cuda() for t in draws]), (cpu, draws)):
         net.current_lr = 1e-3
-        loss, aux = net._accumulate(net._prep(batch), d)
+        loss, aux = net._accumulate(*net._prep(batch)) if seg_only else net._accumulate(net._prep(batch), d)
         grads = {n: p.grad.float().cpu().clone() for n, p in net.module.named_parameters()}
         net._update()
         out[net.device.type] = (float(loss), grads, {n: p.detach().cpu() for n, p in net.module.named_parameters()})
@@ -642,7 +699,7 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
         raise AssertionError(f"small {model} train step: the card differs from the CPU reference")
 
 
-PATIENT_3D = (128, 256, 256)  # z, y, x: 27 patches of 128 x 128 x 64
+PATIENT_3D = (64, 256, 256)  # z, y, x: 9 patches of 128 x 128 x 64
 PATIENT_2D = (16, 288, 288)  # one patch of 288 x 288 per slice
 BANNED = ("pandas", "sklearn", "matplotlib", "jax", "jaxlib", "flax", "optax")
 
@@ -989,18 +1046,18 @@ def _same_tree(torch, np, a, b):
 
 
 @contextlib.contextmanager
-def _checked_converts(torch, np, checked, n_each=2):
-    """For the first ``n_each`` train and validation dispatches, holds what
-    ``train_forward_convert`` returns (from the pinned copies that
+def _checked_converts(torch, np, checked, detector, n_each=2):
+    """For the first ``n_each`` train and validation dispatches of
+    ``detector`` (``RetinaNetDetector`` or ``DetectionUNetDetector``), holds
+    what ``train_forward_convert`` returns (from the pinned copies that
     ``start_host_copies`` queued, waited for on its event) against the same
     convert of synchronous ``.cpu()`` reads of the same device tensors, with
     no event. Appends (kind, equal) to ``checked``."""
     from medicaldetectiontoolkit_torch.models import base
-    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
 
     real_copies = base.start_host_copies
-    real_dispatch = RetinaNetDetector.train_forward_dispatch
-    real_convert = RetinaNetDetector.train_forward_convert
+    real_dispatch = detector.train_forward_dispatch
+    real_convert = detector.train_forward_convert
     queued, pending, counts = [], [], {"train": 0, "val": 0}
 
     def copies(tensors):
@@ -1020,39 +1077,44 @@ def _checked_converts(torch, np, checked, n_each=2):
         for i, (held, kind, device_tensors) in enumerate(pending):
             if held is handles:
                 del pending[i]
-                img_shape, monitor, _, _, _, seg_preds, _ = handles
-                n = len(monitor)
                 read = [None if t is None else t.cpu() for t in device_tensors]
-                sync = (img_shape, dict(zip(monitor, read[:n])), read[n:-2], read[-2], read[-1], seg_preds, None)
+                if len(handles) == 3:  # Detection U-Net: (loss, softmax, event)
+                    sync = (*read, None)
+                else:
+                    img_shape, monitor, _, _, _, seg_preds, _ = handles
+                    n = len(monitor)
+                    sync = (img_shape, dict(zip(monitor, read[:n])), read[n:-2], read[-2], read[-1], seg_preds, None)
                 checked.append((kind, _same_tree(torch, np, out, real_convert(self, sync, batch, need_seg_preds))))
                 break
         return out
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(_class_attr(base, "start_host_copies", copies))
-        stack.enter_context(_class_attr(RetinaNetDetector, "train_forward_dispatch", dispatch))
-        stack.enter_context(_class_attr(RetinaNetDetector, "train_forward_convert", convert))
+        stack.enter_context(_class_attr(detector, "train_forward_dispatch", dispatch))
+        stack.enter_context(_class_attr(detector, "train_forward_convert", convert))
         yield
 
 
-def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=None, detector=None):
-    """One ``exec --mode {mode}`` run on the card with the launch counters
-    from 0: (result, per-dispatch launches, total launches, wall seconds).
-    ``detector`` is the class whose dispatches are recorded (default
-    ``RetinaNetDetector``). With a list ``checked``, the first converts are
-    held against synchronous reads (``_checked_converts``)."""
+def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=None, detector=None, exp="lidc_exp"):
+    """One ``exec --mode {mode}`` run of the experiment ``exp`` on the card
+    with the launch counters from 0: (result, per-dispatch launches, total
+    launches, wall seconds). ``detector`` is the class whose dispatches are
+    recorded (default ``RetinaNetDetector``). With a list ``checked``, the
+    first converts are held against synchronous reads
+    (``_checked_converts``)."""
     from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
     from medicaldetectiontoolkit_torch.testing import run_lidc_train
 
     steps = []
+    detector = detector or RetinaNetDetector
     for wrapper in counters.values():
         wrapper.launches = 0
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
-        stack.enter_context(_recorded_dispatches(counters, steps, detector or RetinaNetDetector))
+        stack.enter_context(_recorded_dispatches(counters, steps, detector))
         if checked is not None:
-            stack.enter_context(_checked_converts(torch, np, checked))
-        out = _quietly(log_path, run_lidc_train, cf, mode, device="cuda", resume=resume)
+            stack.enter_context(_checked_converts(torch, np, checked, detector))
+        out = _quietly(log_path, run_lidc_train, cf, mode, device="cuda", resume=resume, exp=exp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return out, steps, {k: w.launches for k, w in counters.items()}, wall
@@ -1080,6 +1142,35 @@ def _check_steps(cf, steps, n_epochs, expect=None):
     return {k: sum(d[k] for _, d in steps) for k in expect["train"]}
 
 
+def _test_chunks(np, cf):
+    """(test patients of fold 0, patches per patient, ranked checkpoints
+    tested, test chunks) of ``exec --mode test`` on phase 9's patients: each
+    patient's patch grid in chunks of ``cf.batch_size``, 4 mirrors, each
+    ranked checkpoint."""
+    import pickle
+
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
+
+    ranking = np.load(os.path.join(cf.exp_dir, "fold_0", "epoch_ranking.npy"))
+    n_ckpt = min(len(ranking), cf.test_n_epochs)
+    with open(os.path.join(cf.exp_dir, "fold_ids.pickle"), "rb") as handle:
+        n_patients = len(pickle.load(handle)[0][2])
+    z, y, x = TRAIN_PATIENT
+    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), cf.patch_size))
+    return n_patients, n_patches, n_ckpt, math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * n_patients
+
+
+def _finite_losses(cf, out, n_val):
+    """The monitored values of every train and validation step, each
+    finite."""
+    metrics = out["train"]["monitor_metrics"]
+    steps = [m for split in ("train", "val") for ep in metrics[split]["monitor_values"] for m in ep]
+    losses = [v for m in steps for v in m.values()]
+    if len(steps) != cf.num_epochs * (cf.num_train_batches + n_val) or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    return losses
+
+
 def _print_train_times(out, card):
     t, loader = out["times"], out["loader"]
     for epoch in sorted(t["epoch_s"]):
@@ -1096,10 +1187,7 @@ def _print_train_times(out, card):
 def _drive_training(torch, np, common, counters, card, root):
     """Phase 9: 3D Retina U-Net training at LIDC width through
     ``exec --mode train_test``, then a resume. Returns the launch counts."""
-    import pickle
-
     from medicaldetectiontoolkit_torch import native
-    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
     from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
     from medicaldetectiontoolkit_torch.models import build_model
     from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
@@ -1128,13 +1216,8 @@ def _drive_training(torch, np, common, counters, card, root):
     # the test on fold 0's test patients with the ranked checkpoints
     fold_dir = os.path.join(cf.exp_dir, "fold_0")
     ranking = np.load(os.path.join(fold_dir, "epoch_ranking.npy"))
-    n_ckpt = min(len(ranking), cf.test_n_epochs)
     test = out["test"]
-    with open(os.path.join(cf.exp_dir, "fold_ids.pickle"), "rb") as handle:
-        n_patients = len(pickle.load(handle)[0][2])
-    z, y, x = TRAIN_PATIENT
-    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), cf.patch_size))
-    n_chunks = math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * n_patients
+    n_patients, n_patches, n_ckpt, n_chunks = _test_chunks(np, cf)
     if len(test["results"]) != n_patients:
         raise AssertionError(f"the test mode gave {len(test['results'])} patients, fold 0 tests {n_patients}")
     rest = {k: totals[k] - per_step[k] for k in totals}
@@ -1150,12 +1233,7 @@ def _drive_training(torch, np, common, counters, card, root):
     if not calls["wbc_greedy"] or not os.path.isfile(info["path"]):
         raise AssertionError("the test's WBC did not run in the native host library")
 
-    metrics = out["train"]["monitor_metrics"]
-    losses = [v for split in ("train", "val") for ep in metrics[split]["monitor_values"] for m in ep
-              for v in m.values()]
-    if len(losses) != 2 * cf.num_epochs * (cf.num_train_batches + cf.num_val_batches) or \
-            not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite or missing losses: {losses}")
+    losses = _finite_losses(cf, out, cf.num_val_batches)
     files = sorted(os.listdir(fold_dir))
     best = [f"{e}_best_checkpoint" for e in ranking]
     print(f"  fold_0: {files}; epoch_ranking {ranking.tolist()}; {len(losses)} finite monitored losses")
@@ -1219,9 +1297,6 @@ def _drive_two_stage_training(torch, np, common, counters, card, root):
     """Phase 10: 3D Mask R-CNN training at LIDC width through ``exec --mode
     train_test`` on phase 9's patients, then bfloat16 steps of the Mask
     R-CNN slice. Returns the launch counts and step times."""
-    import pickle
-
-    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
     from medicaldetectiontoolkit_torch.models.mrcnn import MaskRCNNDetector
     from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
 
@@ -1241,12 +1316,7 @@ def _drive_two_stage_training(torch, np, common, counters, card, root):
 
     fold_dir = os.path.join(cf.exp_dir, "fold_0")
     ranking = np.load(os.path.join(fold_dir, "epoch_ranking.npy"))
-    n_ckpt = min(len(ranking), cf.test_n_epochs)
-    with open(os.path.join(cf.exp_dir, "fold_ids.pickle"), "rb") as handle:
-        n_patients = len(pickle.load(handle)[0][2])
-    z, y, x = TRAIN_PATIENT
-    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), (y, x, z)), cf.patch_size))
-    n_chunks = math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * n_patients
+    n_patients, _, n_ckpt, n_chunks = _test_chunks(np, cf)
     per_chunk = two_stage_launches(cf, cf.batch_size, "test")
     rest = {k: totals[k] - per_step[k] for k in totals}
     want = {k: v * n_chunks for k, v in per_chunk.items()}
@@ -1254,12 +1324,7 @@ def _drive_two_stage_training(torch, np, common, counters, card, root):
           f"train and val dispatches {rest} (expected {want})")
     if len(out["test"]["results"]) != n_patients or rest != want:
         raise AssertionError(f"mrcnn test mode: expected {want} launches for {n_patients} patients, counted {rest}")
-    metrics = out["train"]["monitor_metrics"]
-    losses = [v for split in ("train", "val") for ep in metrics[split]["monitor_values"] for m in ep
-              for v in m.values()]
-    if len(losses) != 2 * cf.num_epochs * (cf.num_train_batches + cf.num_val_batches) or \
-            not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite or missing losses: {losses}")
+    losses = _finite_losses(cf, out, cf.num_val_batches)
     files = sorted(os.listdir(fold_dir))
     print(f"  fold_0: {files}; epoch_ranking {ranking.tolist()}; {len(losses)} finite monitored losses")
     if not ({f"{e}_best_checkpoint" for e in ranking} <= set(files) and
@@ -1295,6 +1360,157 @@ def _drive_two_stage_training(torch, np, common, counters, card, root):
             "bf16_step_ms": [t * 1e3 for t in times]}
 
 
+def _drive_det_unet_training(torch, np, common, counters, card, root):
+    """Phase 11: 3D Detection U-Net at LIDC width through ``exec --mode
+    train_test`` on phase 9's patients, then steps of the Detection U-Net
+    slice in float32 and bfloat16. Returns the launch counts and times."""
+    from medicaldetectiontoolkit_torch.models.detection_unet import DetectionUNetDetector
+    from medicaldetectiontoolkit_torch.testing import make_lidc_experiment
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    log_path = os.path.join(root, "exec_console.log")
+    env = dict(TRAIN_ENV, MDT_MODEL="detection_unet", MDT_LIDC_EPOCHS="1")
+    cf = _quietly(log_path, make_lidc_experiment, root, env, {}, seeds=(), epochs=(), device="cuda",
+                  data_dir=os.path.join(root, "data_train"), exp_name="exp_train_det_unet")
+    print(f"== phase 11: exec --mode train_test, 3D detection_unet at LIDC width (patch {cf.patch_size}, sf "
+          f"{cf.start_filts}, ef {cf.end_filts}, batch {cf.batch_size}, {cf.compute_dtype}, MDT_STEM_PALLAS=1, "
+          f"{cf.n_roi_candidates} RoI candidates, {cf.seg_loss_mode}); phase 9's patients; {cf.num_epochs} epochs x "
+          f"{cf.num_train_batches} batches, {cf.num_val_batches} val_sampling batches")
+    checked = []
+    out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test", checked=checked,
+                                          detector=DetectionUNetDetector)
+    expect = {"train": {"stem_fwd": 2, "stem_wgrad": 1, "nms": 0}, "val": {"stem_fwd": 1, "stem_wgrad": 0, "nms": 0}}
+    per_step = _check_steps(cf, steps, cf.num_epochs, expect)
+    print(f"  convert from the queued pinned copies vs synchronous .cpu() reads of the same device tensors "
+          f"(results dict: boxes, seg_preds, loss): {checked}")
+    if sorted(k for k, _ in checked) != ["train", "train", "val", "val"] or not all(same for _, same in checked):
+        raise AssertionError(f"Detection U-Net's train_forward_convert differs from synchronous reads: {checked}")
+    n_patients, _, _, n_chunks = _test_chunks(np, cf)
+    rest = {k: totals[k] - per_step[k] for k in totals}
+    want = {"stem_fwd": n_chunks, "stem_wgrad": 0, "nms": 0}
+    print(f"  test: {n_patients} patients, {n_chunks} chunks; launches outside the train and val dispatches {rest} "
+          f"(expected {want})")
+    if len(out["test"]["results"]) != n_patients or rest != want:
+        raise AssertionError(f"detection_unet test mode: expected {want} launches for {n_patients} patients, "
+                             f"counted {rest}")
+    losses = _finite_losses(cf, out, cf.num_val_batches)
+    fold_dir = os.path.join(cf.exp_dir, "fold_0")
+    files = sorted(os.listdir(fold_dir))
+    print(f"  fold_0: {files}; {len(losses)} finite monitored losses; results.txt "
+          f"{os.path.isfile(os.path.join(cf.exp_dir, 'results.txt'))}")
+    if not (os.path.isfile(os.path.join(fold_dir, "last_checkpoint", "params.pkl")) and
+            os.path.isfile(os.path.join(cf.exp_dir, "results.txt"))):
+        raise AssertionError("detection_unet: last_checkpoint or results.txt was not written")
+    with open(os.path.join(fold_dir, "exec.log")) as handle:
+        logged = [line.split("|| ")[-1].strip() for line in handle if "tr. batch" in line]
+    print(f"  train steps as logged: {logged[:2]} ...")
+    _print_train_times(out["train"], card)
+    step_ms = [s * 1e3 for ep in out["train"]["times"]["step_s"].values() for s in ep]
+    print(f"  train_test: {wall:.1f} s; test {out['test']['predictor'].times['forward'] * 1e3:.1f} ms forward "
+          f"(dispatch and convert, with the components)")
+
+    # the device and the host per step at LIDC width
+    slice_steps = {}
+    for dtype in ("float32", "bfloat16"):
+        net = common.slice_net(dtype, seed=0, model="detection_unet")
+        batches = common.slice_batches(3, "detection_unet")
+        net.train_forward(batches[0], need_seg_preds=False)  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: w.launches for k, w in counters.items()}
+        device_ms, host_ms, n_boxes = [], [], []
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handles = net.train_forward_dispatch(b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = net.train_forward_convert(handles, b, need_seg_preds=False)
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            device_ms.append((t1 - t0) * 1e3)
+            n_boxes.append(sum(bx["box_type"] == "det" for el in r["boxes"] for bx in el))
+            if not math.isfinite(r["loss"]):
+                raise AssertionError(f"detection_unet slice {dtype}: non-finite loss")
+        counted = {k: w.launches - before[k] for k, w in counters.items()}
+        n = len(batches) - 1
+        if counted != {"stem_fwd": 2 * n, "stem_wgrad": n, "nms": 0}:
+            raise AssertionError(f"detection_unet slice {dtype}: launches {counted} for {n} steps")
+        for k in totals:
+            totals[k] += counted[k]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  slice {dtype}: dispatch to synchronise {', '.join(f'{t:.1f}' for t in device_ms)} ms per step of 8; "
+              f"convert (softmax copy waited for, argmax, components, boxes) {', '.join(f'{t:.1f}' for t in host_ms)} "
+              f"ms; det boxes {n_boxes}; launches {counted}; peak {peak:.2f} GiB ({card})")
+        slice_steps[dtype] = {"device_ms": device_ms, "host_ms": host_ms}
+        del net
+        torch.cuda.empty_cache()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    if loaded:
+        raise AssertionError(f"the port's Detection U-Net training loaded {loaded}")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": totals, "step_ms": step_ms, "slice": slice_steps}
+
+
+TOY_ENV = {"MDT_TOY_NTRAINVAL": "48", "MDT_TOY_EPOCHS": "2", "MDT_TOY_NTB": "4", "MDT_TOY_MAXVAL": "4",
+           "MDT_TOY_MAXTEST": "4", "MDT_TOY_TEST_N": "2"}
+
+
+def _drive_toy(torch, np, common, counters, card, root):
+    """Phase 12: the toy experiment at full width through ``exec --mode
+    train_test`` for Retina U-Net and Detection U-Net. Returns K1's
+    launches and the logged step times."""
+    from medicaldetectiontoolkit_torch.models.detection_unet import DetectionUNetDetector
+    from medicaldetectiontoolkit_torch.models.retina_net import RetinaNetDetector
+    from medicaldetectiontoolkit_torch.testing import make_toy_experiment
+
+    t_phase = time.perf_counter()
+    log_path = os.path.join(root, "exec_console.log")
+    launches, step_ms = 0, {}
+    for model, detector in (("retina_unet", RetinaNetDetector), ("detection_unet", DetectionUNetDetector)):
+        cf = _quietly(log_path, make_toy_experiment, root, dict(TOY_ENV, MDT_MODEL=model), {}, n_train=48, n_test=4,
+                      exp_name=f"exp_toy_{model}")
+        n_val = min(cf.max_val_patients, cf.n_train_val_data - 2 * cf.n_train_val_data // 3)
+        print(f"== phase 12: toy experiment, 2D {model} (patch {cf.patch_size}, sf {cf.start_filts}, ef "
+              f"{cf.end_filts}, batch {cf.batch_size}, {cf.compute_dtype}) through exec --mode train_test: "
+              f"{cf.num_epochs} epochs x {cf.num_train_batches} batches, {n_val} val images, {cf.max_test_patients} "
+              f"test images")
+        out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test", detector=detector,
+                                              exp="toy_exp")
+        k1 = 1 if model == "retina_unet" else 0
+        # per epoch the train batches; the val images and the plotted val_sampling batch
+        n_expect = {"train": cf.num_epochs * cf.num_train_batches, "val": cf.num_epochs * (n_val + 1)}
+        for kind in ("train", "val"):
+            got = [d["nms"] for k, d in steps if k == kind]
+            print(f"  {len(got)} {kind} dispatches, K1 launches each {got[0] if got else None} (expected "
+                  f"{n_expect[kind]} of {k1})")
+            if len(got) != n_expect[kind] or any(g != k1 for g in got):
+                raise AssertionError(f"toy {model} {kind} dispatches: expected {n_expect[kind]} of K1 {k1}, got {got}")
+        ranking = np.load(os.path.join(cf.exp_dir, "fold_0", "epoch_ranking.npy"))
+        n_forwards = cf.max_test_patients * min(len(ranking), cf.test_n_epochs) * 4
+        rest = totals["nms"] - sum(d["nms"] for _, d in steps)
+        print(f"  test: {cf.max_test_patients} images x {min(len(ranking), cf.test_n_epochs)} checkpoints x 4 mirrors; "
+              f"K1 launches outside the dispatches {rest} (expected {n_forwards * k1})")
+        if rest != n_forwards * k1 or totals["stem_fwd"] or totals["stem_wgrad"]:
+            raise AssertionError(f"toy {model} test: K1 {rest} (expected {n_forwards * k1}), launches {totals}")
+        _finite_losses(cf, out, n_val)
+        results = os.path.join(cf.exp_dir, "results.txt")
+        raw = [f for f in os.listdir(os.path.join(cf.exp_dir, "fold_0")) if f.startswith("raw_pred_boxes")]
+        if not (os.path.isfile(results) and raw and len(out["test"]["results"]) == cf.max_test_patients):
+            raise AssertionError(f"toy {model}: the results files were not written")
+        with open(results) as handle:
+            ap = [line.strip() for line in handle if "average_foreground_roi" in line]
+        step_ms[model] = [s * 1e3 for ep in out["train"]["times"]["step_s"].values() for s in ep]
+        print(f"  results.txt {ap}; {raw}; steps {', '.join(f'{t:.1f}' for t in step_ms[model])} ms as logged; "
+              f"train_test {wall:.1f} s ({card})")
+        launches += totals["nms"]
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    if loaded:
+        raise AssertionError(f"the port's toy experiment loaded {loaded}")
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"nms": launches, "step_ms": step_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1316,6 +1532,10 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align, time_roi_align_bwd, time_stem
 
     t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"-- phase {phase} starts at {time.perf_counter() - t_start:.1f} s")
+
     print("== phase 1: device")
     card = common.card_line()
     name = torch.cuda.get_device_name(0)
@@ -1342,6 +1562,7 @@ def main() -> int:
         if log.exists():
             print("  " + log.read_text().strip().replace("\n", "\n  "))
 
+    lap("3: kernel checks")
     nms_entry, nms_times = _check_nms(torch, np, common, nms_ops, nms_cuda, time_nms)
     roi_entry, roi_times = _check_roi_align(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align)
     stem_entries, stem_times = _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem,
@@ -1349,6 +1570,7 @@ def main() -> int:
     bwd_entry, bwd_times = _check_roi_align_bwd(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
                                                 time_roi_align_bwd)
 
+    lap("4: inference slices")
     batches = common.slice_batches(3)
     runs = {}
     for dtype in ("float32", "bfloat16"):
@@ -1369,6 +1591,8 @@ def main() -> int:
         print(f"  bfloat16 vs float32 mrcnn {hname}: max abs diff {float((a - b).abs().max()):.3e}")
     for model in ("mrcnn", "ufrcnn"):
         _small_two_stage(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
+    _small_det_unet(torch, np, make_config, make_batch, build_model, common.QuietLog())
+    lap("7: one-stage training")
 
     counters = {"stem_fwd": stem_conv_cuda.stem_conv3d, "stem_wgrad": stem_conv_cuda.stem_wgrad,
                 "nms": nms_cuda.batched_nms}
@@ -1377,16 +1601,24 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         truns[dtype] = _drive_train(torch, np, dtype, train_batches, common, counters, card)
         torch.cuda.empty_cache()
-    for model in ("retina_unet", "retina_net", "mrcnn", "ufrcnn"):
+    for model in ("retina_unet", "retina_net", "mrcnn", "ufrcnn", "detection_unet"):
         _small_train(torch, np, make_config, make_batch, build_model, common.QuietLog(), model)
 
+    lap("8: whole patients")
     with tempfile.TemporaryDirectory() as root:
         patients = _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root)
     with tempfile.TemporaryDirectory() as root:
+        lap("9: one-stage training through exec")
         training = _drive_training(torch, np, common, counters, card, root)
+        lap("10: two-stage training through exec")
         two_stage = _drive_two_stage_training(
             torch, np, common, dict(counters, roi_align=roi_align_cuda.pyramid_roi_align,
                                     roi_align_bwd=roi_align_cuda.pyramid_roi_align_backward), card, root)
+        lap("11: Detection U-Net through exec")
+        det_unet = _drive_det_unet_training(torch, np, common, counters, card, root)
+    lap("12: the toy experiment through exec")
+    with tempfile.TemporaryDirectory() as root:
+        toy = _drive_toy(torch, np, common, counters, card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -1420,6 +1652,14 @@ def main() -> int:
     print(f"  exec --mode train_test, mrcnn 3D float32 at LIDC width: {sum(ms) / len(ms):.1f} ms per step of 8 as the "
           f"loop logs it (median {sorted(ms)[len(ms) // 2]:.1f}); mrcnn slice bfloat16: "
           f"{', '.join(f'{t:.1f}' for t in two_stage['bf16_step_ms'])} ms per step")
+    ms = det_unet["step_ms"]
+    print(f"  exec --mode train_test, detection_unet 3D float32 at LIDC width: {sum(ms) / len(ms):.1f} ms per step of 8 "
+          f"as the loop logs it (median {sorted(ms)[len(ms) // 2]:.1f})")
+    for dtype, t in det_unet["slice"].items():
+        print(f"  detection_unet slice {dtype}: device {', '.join(f'{v:.1f}' for v in t['device_ms'])} ms, host "
+              f"convert {', '.join(f'{v:.1f}' for v in t['host_ms'])} ms per step of 8")
+    for model, ms in toy["step_ms"].items():
+        print(f"  toy {model} 2D 320x320 batch 20: median {sorted(ms)[len(ms) // 2]:.1f} ms per step as logged")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -1431,7 +1671,7 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
-        + training["launches"]["nms"] + two_stage["launches"]["nms"],
+        + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -1454,7 +1694,7 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
         "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
-        + two_stage["launches"]["stem_fwd"],
+        + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
@@ -1462,7 +1702,7 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
         "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"]
-        + two_stage["launches"]["stem_wgrad"],
+        + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

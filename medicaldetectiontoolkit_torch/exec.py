@@ -9,6 +9,7 @@ Counterpart of the root ``exec.py``, with the same CLI (--mode, --folds,
     python -m medicaldetectiontoolkit_torch.exec --mode train_test \\
         --exp_source medicaldetectiontoolkit_torch/experiments/lidc_exp --exp_dir EXP [--folds 0]
 
+(or ``--exp_source medicaldetectiontoolkit_torch/experiments/toy_exp``).
 ``train`` trains each fold on the CUDA card with the root ``exec.py``'s epoch
 structure: the per-epoch lr, the train batches (a one-step-deep pipeline:
 step i+1 is dispatched before step i's results are converted on the host;
@@ -18,7 +19,7 @@ whole patients), model selection (ranked best checkpoints, ``last_checkpoint``
 with the Adam state), the monitoring plots and a ``val_sampling``
 prediction plot. ``--resume_to_checkpoint`` continues from a
 ``last_checkpoint``. Every registered detector trains (``retina_net``,
-``retina_unet``, ``mrcnn``, ``ufrcnn``); one card only. ``test`` runs whole-patient inference of
+``retina_unet``, ``mrcnn``, ``ufrcnn``, ``detection_unet``); one card only. ``test`` runs whole-patient inference of
 each fold (tiling, mirror TTA, temporal ensembling over the fold's ranked
 checkpoints, WBC, 2D->3D merging) and scores it (``results.txt``);
 ``train_test`` does both; ``analysis`` re-scores the raw prediction pickles;
@@ -216,6 +217,8 @@ def train(cf, data_loader, logger, device=None):
 
                 _, monitor_metrics["val"] = val_evaluator.evaluate_predictions(
                     val_results_list, monitor_metrics["val"])
+                logger.info(f"val results epoch {epoch}: " + ", ".join(
+                    f"{k} {v[-1]}" for k, v in monitor_metrics["val"].items() if k != "monitor_values"))
             # without validation, selection reads the train metrics
             model_selector.run_model_selection(net, monitor_metrics, epoch)
 

@@ -204,7 +204,10 @@ def accum_backward(params, loss_fn, n_micro: int):
     microbatches: ``loss_fn(i) -> (loss, aux)`` for microbatch ``i``, one
     backward each, the gradients summed into ``.grad`` and divided by
     ``n_micro``, as JAX sums then averages. Batch-global reductions inside
-    ``loss_fn`` see one microbatch, as in JAX. Returns (mean loss, [aux])."""
+    ``loss_fn`` see one microbatch, as in JAX. A parameter the loss does not
+    reach (Detection U-Net's P2.. output convs) gets a zero gradient, as in
+    JAX, so that Adam keeps state for it and decays it. Returns (mean loss,
+    [aux])."""
     for p in params:
         p.grad = None
     losses, auxs = [], []
@@ -213,10 +216,11 @@ def accum_backward(params, loss_fn, n_micro: int):
         loss.backward()
         losses.append(loss.detach())
         auxs.append(aux)
-    if n_micro > 1:
-        for p in params:
-            if p.grad is not None:
-                p.grad.div_(n_micro)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif n_micro > 1:
+            p.grad.div_(n_micro)
     return torch.stack(losses).mean(), auxs
 
 

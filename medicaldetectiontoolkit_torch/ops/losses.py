@@ -99,11 +99,14 @@ def anchor_bbox_loss(target_deltas, pred_deltas, matches):
     return masked_mean(per_elem, (matches > 0)[..., None].expand_as(per_elem))
 
 
-def fused_seg_loss(seg_logits, seg, n_classes: int):
+def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float = 1.0, class_weights=None):
     """Soft batch dice over the foreground classes + CE (``losses.py:155-212``).
 
     seg_logits (b, C, *spatial), seg (b, 1, *spatial) int labels. The dice
-    sums run over the whole batch, as the reference's batch dice does.
+    sums run over the whole batch, as the reference's batch dice does;
+    ``false_positive_weight`` weights the predictions in the dice
+    denominator. ``class_weights`` (C,) make the CE a weighted mean,
+    normalised by the weights applied (``F.cross_entropy``'s ``weight=``).
     Returns (1 - mean foreground dice, CE), float32 scalars.
     """
     lab = seg[:, 0]
@@ -121,6 +124,12 @@ def fused_seg_loss(seg_logits, seg, n_classes: int):
         psum.append(probs_c.sum())
         count.append(m.sum())
         lp_y = lp_y + logp_c * m
-    denom = torch.stack(psum) + torch.stack(count)  # false-positive weight 1
+    denom = false_positive_weight * torch.stack(psum) + torch.stack(count)
     dice = (2.0 * torch.stack(intersect) + 1e-6) / (denom + 1e-6)
-    return 1.0 - dice[1:].mean(), -lp_y.mean()
+    if class_weights is None:
+        ce = -lp_y.mean()
+    else:
+        w = torch.as_tensor(class_weights, dtype=torch.float32, device=lp_y.device)
+        w_vox = w[lab.long()]
+        ce = -(lp_y * w_vox).sum() / torch.clamp_min(w_vox.sum(), 1e-8)
+    return 1.0 - dice[1:].mean(), ce

@@ -1,8 +1,7 @@
 """Small synthetic configs and batches for the port's scripts and tests.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/testing.py``, cut to what the
-ported paths read (inference and training of the one-stage and two-stage
-detectors). ``make_config``
+ported paths read (inference and training of every detector). ``make_config``
 gives the same values as the JAX package's ``make_config``
 (``testing.py:10-95``) for every attribute it sets, and ``make_batch`` draws
 the same arrays from the same seed (``testing.py:98-131``);
@@ -14,6 +13,7 @@ The config is a plain attribute bag, so an experiment's own config object
 whole-patient test mode on synthetic LIDC patients (the tests, the smoke
 script's phase 8 and ``tools/time_patient.py``), ``run_lidc_train`` its
 training modes on such an experiment (phase 9, ``tools/time_train.py``);
+``make_toy_experiment`` does the same for the toy experiment;
 ``assert_same`` is the tests' exact comparison of two results.
 """
 
@@ -83,9 +83,20 @@ def make_config(model="retina_net", dim=2, patch_size=None, start_filts=4, end_f
         return_masks_in_val=True,
         return_masks_in_test=False,
         frcnn_mode=model == "ufrcnn",
+        # detection_unet extras (``testing.py:78-94``)
+        class_dict={1: "benign", 2: "malignant"},
+        n_roi_candidates=3,
+        seg_loss_mode="dice_wce",
+        fp_dice_weight=1,
+        aggregation_operation="max",
+        detection_min_confidence=0.1,
+        min_det_thresh=0.1,
     )
-    if model == "ufrcnn":
+    if model in ("ufrcnn", "detection_unet"):
         cf.num_seg_classes = 3
+    if model == "detection_unet":
+        cf.head_classes = cf.num_seg_classes
+    cf.wce_weights = [1] * cf.num_seg_classes
     if retina_scales:
         for ax in ("xy", "z"):
             cf.rpn_anchor_scales[ax] = [[s[0], s[0] * 2 ** (1 / 3), s[0] * 2 ** (2 / 3)]
@@ -149,6 +160,19 @@ def make_mrcnn_slice_config(compute_dtype="float32"):
     return cf
 
 
+def make_det_unet_slice_config(compute_dtype="float32"):
+    """3D Detection U-Net at LIDC width (``experiments/lidc_exp/configs.py``:
+    patch 128x128x64, start_filts 18, end_filts 36, resnet50, 30 RoI
+    candidates per class in 3D), batch 8 as one microbatch, remat on (the
+    3D default)."""
+    cf = make_config(model="detection_unet", dim=3, patch_size=[128, 128, 64], start_filts=18, end_filts=36,
+                     batch_size=8)
+    cf.n_roi_candidates = 30
+    cf.use_remat = True
+    cf.compute_dtype = compute_dtype
+    return cf
+
+
 def make_batch(cf, seed=42):
     """Synthetic batch dict in the framework's data contract: channel-first
     float32 ``data`` in [0, 1), one box-shaped lesion per element in ``seg``,
@@ -203,22 +227,22 @@ def assert_same(a, b, path="value"):
         assert type(a) is type(b) and (a == b or (a != a and b != b)), (path, a, b)
 
 
-_PINNED_CONFIGS = '''"""LIDC configs pinned to one setting (written by testing.make_lidc_experiment)."""
+_PINNED_CONFIGS = '''"""{exp} configs pinned to one setting (written by medicaldetectiontoolkit_torch.testing)."""
 
 import os
 
-from medicaldetectiontoolkit_torch.experiments.lidc_exp.configs import configs as _lidc_configs
+from medicaldetectiontoolkit_torch.experiments.{exp}.configs import configs as _base_configs
 
 ENV = {env!r}
 OVERRIDES = {overrides!r}
 
 
-class configs(_lidc_configs):
+class configs(_base_configs):
     def __init__(self, server_env=None):
         saved = {{k: os.environ.get(k) for k in ENV}}
         os.environ.update(ENV)
         try:
-            _lidc_configs.__init__(self, server_env)
+            _base_configs.__init__(self, server_env)
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -228,6 +252,28 @@ class configs(_lidc_configs):
         for k, v in OVERRIDES.items():
             setattr(self, k, v)
 '''
+
+
+def _exp_source(exp):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", exp)
+
+
+def _pinned_experiment(exp, exp_dir, env, overrides):
+    """``exec --mode create_exp`` of the port's experiment ``exp`` into
+    ``exp_dir``, its ``configs.py`` snapshot pinned to the ``MDT_*``
+    settings in ``env`` and to the attribute ``overrides``, and the model
+    sources snapshotted for the pinned model. Returns the exp dir's config."""
+    from medicaldetectiontoolkit_torch import exec as port_exec
+    from medicaldetectiontoolkit_torch.utils import exp_utils
+
+    port_exec.main(["--mode", "create_exp", "--exp_source", _exp_source(exp), "--exp_dir", exp_dir])
+    with open(os.path.join(exp_dir, "configs.py"), "w") as handle:
+        handle.write(_PINNED_CONFIGS.format(exp=exp, env=env, overrides=overrides))
+    for name in ("model.py", "backbone.py"):  # create_exp snapshotted the default model's
+        if os.path.isfile(os.path.join(exp_dir, name)):
+            os.remove(os.path.join(exp_dir, name))
+    exp_utils.prep_exp(_exp_source(exp), exp_dir, use_stored_settings=True)
+    return exp_utils.prep_exp(_exp_source(exp), exp_dir, is_training=False)
 
 
 def make_lidc_experiment(root, env, overrides=None, n_patients=4, shape=(16, 48, 48), seeds=(0, 1), epochs=(3, 1),
@@ -241,15 +287,16 @@ def make_lidc_experiment(root, env, overrides=None, n_patients=4, shape=(16, 48,
     LIDC experiment, and its ``configs.py``
     snapshot is then pinned to the ``MDT_*`` settings in ``env`` (read while
     the config is built; ``MDT_LIDC_PP`` is set to the data) and to the
-    attribute ``overrides``. Fold 0 gets one best checkpoint per entry of
-    ``seeds`` (random weights drawn from it, saved by ``save_checkpoint`` as
-    epoch ``epochs[i]``) and ``epoch_ranking.npy``; the CV split is
-    ``fold_ids.pickle`` from ``fold_generator``, or with ``hold_out`` every
-    patient is tested (``hold_out_test_set``). Returns the exp dir's config.
+    attribute ``overrides``; ``model.py`` and ``backbone.py`` are the
+    snapshot of the pinned model's sources. Fold 0 gets one best checkpoint
+    per entry of ``seeds`` (random weights drawn from it, saved by
+    ``save_checkpoint`` as epoch ``epochs[i]``) and ``epoch_ranking.npy``;
+    the CV split is ``fold_ids.pickle`` from ``fold_generator``, or with
+    ``hold_out`` every patient is tested (``hold_out_test_set``). Returns
+    the exp dir's config.
     """
     import pickle
 
-    from medicaldetectiontoolkit_torch import exec as port_exec
     from medicaldetectiontoolkit_torch.data.dataloader_utils import fold_generator
     from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc
     from medicaldetectiontoolkit_torch.models import build_model
@@ -259,12 +306,8 @@ def make_lidc_experiment(root, env, overrides=None, n_patients=4, shape=(16, 48,
     if not (os.path.isdir(data_dir) and any("meta_info" in f for f in os.listdir(data_dir))):
         generate_synthetic_lidc(data_dir, n_patients=n_patients, shape=tuple(shape))
     n_patients = sum("meta_info" in f for f in os.listdir(data_dir))
-    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
-    port_exec.main(["--mode", "create_exp", "--exp_source", exp_source, "--exp_dir", exp_dir])
     overrides = dict(overrides or {}, hold_out_test_set=bool(hold_out))
-    with open(os.path.join(exp_dir, "configs.py"), "w") as handle:
-        handle.write(_PINNED_CONFIGS.format(env=dict(env, MDT_LIDC_PP=data_dir), overrides=overrides))
-    cf = exp_utils.prep_exp(exp_source, exp_dir, is_training=False)
+    cf = _pinned_experiment("lidc_exp", exp_dir, dict(env, MDT_LIDC_PP=data_dir), overrides)
     if not hold_out:
         with open(os.path.join(exp_dir, "fold_ids.pickle"), "wb") as handle:
             pickle.dump(fold_generator(cf.seed, cf.n_cv_splits, n_patients).get_fold_names(), handle)
@@ -285,22 +328,37 @@ def run_lidc_test(cf, device="cpu", folds=(0,)):
     returns ``exec.main``'s result for fold ``folds[0]``."""
     from medicaldetectiontoolkit_torch import exec as port_exec
 
-    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
-    argv = ["--mode", "test", "--exp_source", exp_source, "--exp_dir", cf.exp_dir, "--folds", *map(str, folds)]
+    argv = ["--mode", "test", "--exp_source", _exp_source("lidc_exp"), "--exp_dir", cf.exp_dir,
+            "--folds", *map(str, folds)]
     return port_exec.main(argv, device=device)[folds[0]]
 
 
-def run_lidc_train(cf, mode="train_test", device="cpu", folds=(0,), resume=None):
+def run_lidc_train(cf, mode="train_test", device="cpu", folds=(0,), resume=None, exp="lidc_exp"):
     """``exec --mode train | train_test`` on the experiment of
-    ``make_lidc_experiment`` (made with no checkpoints), with its pinned
-    config snapshot (``--use_stored_settings``), optionally resuming from
-    the checkpoint directory ``resume``; returns ``exec.main``'s result for
-    fold ``folds[0]``."""
+    ``make_lidc_experiment`` (made with no checkpoints; ``exp="toy_exp"``
+    for one of ``make_toy_experiment``), with its pinned config snapshot
+    (``--use_stored_settings``), optionally resuming from the checkpoint
+    directory ``resume``; returns ``exec.main``'s result for fold
+    ``folds[0]``."""
     from medicaldetectiontoolkit_torch import exec as port_exec
 
-    exp_source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "lidc_exp")
-    argv = ["--mode", mode, "--exp_source", exp_source, "--exp_dir", cf.exp_dir, "--use_stored_settings",
+    argv = ["--mode", mode, "--exp_source", _exp_source(exp), "--exp_dir", cf.exp_dir, "--use_stored_settings",
             "--folds", *map(str, folds)]
     if resume:
         argv += ["--resume_to_checkpoint", resume]
     return port_exec.main(argv, device=device)[folds[0]]
+
+
+def make_toy_experiment(root, env, overrides=None, n_train=24, n_test=4, exp_name="toy_exp"):
+    """An experiment directory of the port's toy experiment for ``exec
+    --mode train | train_test`` (``run_lidc_train(cf, mode, exp="toy_exp")``):
+    ``root/donuts_shape/{train,test}`` get ``n_train`` / ``n_test`` toy
+    images (``generate_toys.generate_experiment``) unless they hold some
+    already, and ``root/exp_name``'s config is pinned to ``env`` (with
+    ``MDT_TOY_ROOT`` set to ``root``) and ``overrides``. Returns its config."""
+    from medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys import generate_experiment
+
+    train_dir = os.path.join(root, "donuts_shape", "train")
+    if not (os.path.isdir(train_dir) and any("meta_info" in f for f in os.listdir(train_dir))):
+        generate_experiment(root, "donuts_shape", n_train, n_test, "donuts_shape")
+    return _pinned_experiment("toy_exp", os.path.join(root, exp_name), dict(env, MDT_TOY_ROOT=root), overrides or {})

@@ -12,7 +12,7 @@ import torch
 
 from medicaldetectiontoolkit_torch.models import build_model
 from medicaldetectiontoolkit_torch.testing import (make_batch, make_mrcnn_slice_config, make_slice_config,
-                                                   make_train_slice_config)
+                                                   make_det_unet_slice_config, make_train_slice_config)
 
 # the H100's device-memory rate and peak arithmetic rates by operand type
 # (NVIDIA's data sheet, SXM, dense): a bound is the larger of bytes over the
@@ -21,9 +21,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 # the served slices: 3D Retina U-Net and 3D Mask R-CNN at LIDC width, batch
-# 8; and the training slice: 3D Retina U-Net at LIDC width, batch 2 x 4
+# 8; the training slice: 3D Retina U-Net at LIDC width, batch 2 x 4; and
+# 3D Detection U-Net at LIDC width, batch 8
 SLICE_CONFIGS = {"retina_unet": make_slice_config, "mrcnn": make_mrcnn_slice_config,
-                 "retina_unet_train": make_train_slice_config}
+                 "retina_unet_train": make_train_slice_config, "detection_unet": make_det_unet_slice_config}
 
 
 class QuietLog:

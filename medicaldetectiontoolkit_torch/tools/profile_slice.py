@@ -2,8 +2,8 @@
 CUDA card.
 
     python3 -m medicaldetectiontoolkit_torch.tools.profile_slice [--model retina_unet|mrcnn] [--out-dir DIR]
-    python3 -m medicaldetectiontoolkit_torch.tools.profile_slice --train [--model retina_unet|mrcnn] [--stem 0|1]
-        [--out-dir DIR]
+    python3 -m medicaldetectiontoolkit_torch.tools.profile_slice --train [--model retina_unet|mrcnn|detection_unet]
+        [--stem 0|1] [--out-dir DIR]
 
 For float32 and bfloat16, on the 3D Retina U-Net slice (``make_slice_config``)
 or the 3D Mask R-CNN slice (``make_mrcnn_slice_config``), batch 8, random
@@ -24,7 +24,11 @@ weights from seed 0:
 
 With ``--train``, the training slice (``make_train_slice_config``: 3D Retina
 U-Net at LIDC width, batch 2 x 4, remat; with ``--model mrcnn`` the Mask
-R-CNN slice, ``make_mrcnn_slice_config``, batch 8 as one microbatch, remat)
+R-CNN slice, ``make_mrcnn_slice_config``, batch 8 as one microbatch, remat;
+with ``--model detection_unet`` the Detection U-Net slice,
+``make_det_unet_slice_config``, the same layout, whose "refine" stage is the
+softmax's copy to the host, queued as its dispatch queues it, and whose
+profiled steps include the host's connected components in each convert)
 with ``MDT_STEM_PALLAS`` set to
 ``--stem`` (default 1: the stem kernels K3/K4): per-step CUDA-event stage
 times (upload, forward + loss and backward summed over the microbatches,
@@ -42,7 +46,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from medicaldetectiontoolkit_torch.models.base import host_to_device, merge_microbatch_aux, resolve_grad_accum
+from medicaldetectiontoolkit_torch.models.base import (host_to_device, merge_microbatch_aux, resolve_grad_accum,
+                                                       start_host_copies)
 from medicaldetectiontoolkit_torch.models.mrcnn import refine_detections
 from medicaldetectiontoolkit_torch.ops.losses import softmax
 from medicaldetectiontoolkit_torch.tools.common import (run_window, setup_card, slice_batches, slice_net,
@@ -144,6 +149,7 @@ def train_stage_times(net, batches):
     and backward summed over the microbatches; for Mask R-CNN "refine" is
     the refinement per microbatch and the merge)."""
     two_stage = hasattr(net, "_merge")
+    seg_only = not hasattr(net, "draws")  # Detection U-Net: no draws, no refinement
     sums = dict.fromkeys(TRAIN_STAGES, 0.0)
     params = list(net.module.parameters())
     for b in batches:
@@ -160,13 +166,15 @@ def train_stage_times(net, batches):
         bsz = inputs[0].shape[0]
         n_micro = resolve_grad_accum(net.cf, bsz)
         m = bsz // n_micro
-        draws = net.draws(n_micro, m)
+        draws = None if seg_only else net.draws(n_micro, m)
         for p in params:
             p.grad = None
         auxs = []
         for i in range(n_micro):
             part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
-            if two_stage:
+            if seg_only:
+                loss, aux = net._losses(*part)
+            elif two_stage:
                 loss, aux = net._losses(part, [d[i] for d in draws])
             else:
                 loss, aux = net._losses_and_outputs(*part, *(d[i] for d in draws))
@@ -175,11 +183,16 @@ def train_stage_times(net, batches):
             mark("backward")
             auxs.append(aux)
         for p in params:
-            p.grad.div_(n_micro)
+            if p.grad is None:  # not reached by the loss: zero, as accum_backward gives it
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.div_(n_micro)
         net._update()
         mark("optimizer")
         with torch.no_grad():
-            if two_stage:
+            if seg_only:
+                start_host_copies([loss.detach(), torch.cat(auxs)])
+            elif two_stage:
                 net._merge(auxs, m)
             else:
                 net._finalize_outputs(*merge_microbatch_aux(auxs)["heads"])
@@ -283,7 +296,8 @@ def main_train(args):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("retina_unet", "mrcnn"), default="retina_unet")
+    ap.add_argument("--model", choices=("retina_unet", "mrcnn", "detection_unet"), default="retina_unet",
+                    help="detection_unet with --train only")
     ap.add_argument("--chunks", type=int, default=3)
     ap.add_argument("--out-dir", default=None, help="where the profiler's kernel tables go")
     ap.add_argument("--train", action="store_true", help="profile the training slice instead")
@@ -295,6 +309,8 @@ def main() -> int:
     if args.train:
         print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
         return main_train(args)
+    if args.model == "detection_unet":
+        raise SystemExit("detection_unet is profiled with --train")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off; model {args.model}")
     batches = slice_batches(args.chunks, args.model)
     for dtype in ("float32", "bfloat16"):

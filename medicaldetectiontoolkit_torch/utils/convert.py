@@ -1,10 +1,12 @@
-"""JAX param tree <-> the port's ``state_dict``, for the one-stage and
-two-stage detectors, and optax's Adam state <-> torch Adam's.
+"""JAX param tree <-> the port's ``state_dict``, for every detector, and
+optax's Adam state <-> torch Adam's.
 
 The JAX tree is what ``Detector.state_dict()["params"]`` of the JAX package
 and its ``params.pkl`` hold: nested dicts of numpy arrays keyed by flax's
 names. ``RetinaModule`` is a compact module, so its tree is keyed by
-auto-names (``FPN_0/ConvND_3/Conv_0/kernel``, ``DenseHead_1/...``);
+auto-names (``FPN_0/ConvND_3/Conv_0/kernel``, ``DenseHead_1/...``), and so
+is Detection U-Net's ``SegUNetModule`` (``FPN_0/...``, its seg head
+``ConvND_0/Conv_0`` with ``GroupNorm_0`` under a norm);
 ``MRCNNModule`` is built with ``setup()``, so its tree is keyed by attribute
 name (``fpn/...``, ``rpn/ConvND_0..2``, ``classifier/{Conv_0, GroupNorm_0,
 ConvND_0, Dense_0, Dense_1}``, ``mask/{ConvND_0..4, ConvTranspose_0}``,
@@ -72,8 +74,9 @@ def _fpn_map(fpn, root: str, stage_mode: str):
 
 def _conv_map(module, stage_mode: str):
     """[(flax path, stack index or None, torch prefix, kind)] for a
-    ``RetinaModule`` or an ``MRCNNModule``; kind is "convnd" (a ConvND or a
-    flax Conv_0 + GroupNorm_0 pair), "dense" or "deconv"."""
+    ``RetinaModule``, a ``SegUNetModule`` or an ``MRCNNModule``; kind is
+    "convnd" (a ConvND or a flax Conv_0 + GroupNorm_0 pair), "dense" or
+    "deconv"."""
     if hasattr(module, "classifier"):  # MRCNNModule
         out = _fpn_map(module.fpn, "fpn", stage_mode)
         out += [(("rpn", f"ConvND_{j}"), None, f"rpn.{name}", "convnd")
@@ -95,6 +98,8 @@ def _conv_map(module, stage_mode: str):
     out = _fpn_map(module.fpn, "FPN_0", stage_mode)
     if module.seg_head is not None:
         out.append((("ConvND_0",), None, "seg_head", "convnd"))
+    if not hasattr(module, "cls_head"):  # SegUNetModule: FPN + seg head
+        return out
     for flax_name, head in (("DenseHead_0", "cls_head"), ("DenseHead_1", "box_head")):
         out += [((flax_name, f"ConvND_{j}"), None, f"{head}.convs.{j}", "convnd") for j in range(4)]
         out.append(((flax_name, "ConvND_4"), None, f"{head}.final", "convnd"))
@@ -151,8 +156,8 @@ def _unflatten(flat):
 
 
 def jax_to_torch(params, module):
-    """JAX param tree -> ``state_dict`` for ``module`` (a ``RetinaModule`` or
-    an ``MRCNNModule``).
+    """JAX param tree -> ``state_dict`` for ``module`` (a ``RetinaModule``, a
+    ``SegUNetModule`` or an ``MRCNNModule``).
 
     Accepts "unroll"/"scan" trees (stacked identity blocks) and "loop" trees.
     Raises if a JAX leaf is left unused or a shape does not fit.

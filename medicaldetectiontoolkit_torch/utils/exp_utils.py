@@ -6,9 +6,8 @@ pandas and no jax:
   * ``prep_exp``: experiment dir creation and the snapshot of the configs
     (``configs.py``, ``default_configs.py``) and of the model sources
     (``model.py``, ``backbone.py``), whose paths it sets as
-    ``cf.model_source_path`` / ``cf.backbone_source_path``. The port's
-    ``build_model`` does not import the snapshotted sources yet: it builds
-    the installed ones (ROADMAP.md, Queue 1);
+    ``cf.model_source_path`` / ``cf.backbone_source_path``, from which the
+    port's ``build_model`` builds the detector;
   * ``get_logger``: file + ANSI-coloured console logging;
   * ``save_checkpoint`` / ``load_checkpoint_state``: ``params.pkl`` with the
     JAX package's layout, ``{"params": tree of numpy arrays, "epoch": int}``,

@@ -240,14 +240,17 @@ def test_csv_output_matches_jax(runs, tmp_path):
 @pytest.mark.parametrize("mode", ["train", "train_test"])
 def test_training_modes_are_not_ported(mode, tmp_path):
     """Every detector the port registers trains (``tests/test_torch_exec_train.py``,
-    ``tests/test_torch_mrcnn_train.py``); for a model it does not register
-    (``detection_unet``, ROADMAP.md Queue 1) exec's train modes raise,
-    naming the models it has, instead of running another model."""
+    ``tests/test_torch_mrcnn_train.py``, ``tests/test_torch_detection_unet.py``);
+    for a model nothing registers exec's train modes raise, naming the five
+    models the port has, instead of running another model."""
     from medicaldetectiontoolkit_torch.testing import run_lidc_train
 
-    env = dict(ENV, MDT_MODEL="detection_unet", MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="1", MDT_LIDC_NVB="1")
-    cf = make_lidc_experiment(str(tmp_path), env, dict(SMALL, n_workers=1), seeds=(), epochs=())
-    with pytest.raises(KeyError, match="unknown model 'detection_unet'.*'mrcnn'"):
+    # the LIDC config is built for Retina U-Net, then names a model nothing registers
+    env = dict(ENV, MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="1", MDT_LIDC_NVB="1")
+    cf = make_lidc_experiment(str(tmp_path), env, dict(SMALL, n_workers=1, model="no_such_model"), seeds=(),
+                              epochs=())
+    have = ", ".join(repr(m) for m in sorted(["detection_unet", "mrcnn", "retina_net", "retina_unet", "ufrcnn"]))
+    with pytest.raises(KeyError, match=f"unknown model 'no_such_model', the PyTorch package has \\[{have}\\]"):
         run_lidc_train(cf, mode, device="cpu")
 
 

@@ -1,11 +1,11 @@
 """The port and ``chip_smoke.py`` import without jax, flax, optax, pandas,
 sklearn or matplotlib and without any module of the JAX package (and
 without building the native host library), running
-the one-stage and two-stage detectors (a training step of the one-stage
-ones with the opt-in stem path included) and the port's test mode
-(``exec --mode test``, then ``--mode analysis``) on a tiny synthetic LIDC
-set loads none of them either, and ``chip_smoke.py`` refuses to run without
-a GPU."""
+every detector (a training step of the one-stage ones with the opt-in stem
+path included, and of Detection U-Net), the port's test mode (``exec
+--mode test``, then ``--mode analysis``) on a tiny synthetic LIDC set and
+the toy generator and loader load none of them either, and
+``chip_smoke.py`` refuses to run without a GPU."""
 
 import os
 import shutil
@@ -40,6 +40,7 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.models.base",
     "medicaldetectiontoolkit_torch.models.retina_net",
     "medicaldetectiontoolkit_torch.models.mrcnn",
+    "medicaldetectiontoolkit_torch.models.detection_unet",
     "medicaldetectiontoolkit_torch.utils",
     "medicaldetectiontoolkit_torch.utils.convert",
     "medicaldetectiontoolkit_torch.tools",
@@ -58,6 +59,11 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.configs",
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.data_loader",
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing",
+    "medicaldetectiontoolkit_torch.experiments.toy_exp",
+    "medicaldetectiontoolkit_torch.experiments.toy_exp.configs",
+    "medicaldetectiontoolkit_torch.experiments.toy_exp.data_loader",
+    "medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys",
+    "medicaldetectiontoolkit_torch.tools.convergence",
     "medicaldetectiontoolkit_torch.utils.exp_utils",
     "medicaldetectiontoolkit_torch.predictor",
     "medicaldetectiontoolkit_torch.evaluator",
@@ -85,11 +91,12 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "print('NATIVE_AT_IMPORT', native._lib, native.lib_info())\n"
         "from medicaldetectiontoolkit_torch.models import build_model\n"
         "from medicaldetectiontoolkit_torch.testing import make_batch, make_config\n"
-        "for model in ('retina_unet', 'mrcnn', 'ufrcnn'):\n"
+        "for model in ('retina_unet', 'mrcnn', 'ufrcnn', 'detection_unet'):\n"
         "    cf = make_config(model=model, dim=2)\n"
         "    net = build_model(cf, None, device='cpu')\n"
         "    net.initialize(seed=0)\n"
         "    net.test_forward(make_batch(cf, seed=0), return_masks=True)\n"
+        "net.train_forward(make_batch(cf, seed=0))\n"
         "import os\n"
         "os.environ['MDT_STEM_PALLAS'] = '1'\n"
         "cf = make_config(model='retina_unet', dim=3, batch_size=2)\n"
@@ -109,6 +116,13 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "    assert any(b['box_type'] == 'det' for r in out['results'] for bl in r[0] for b in bl)\n"
         "    port_exec.main(['--mode', 'analysis', '--exp_source', os.path.join('medicaldetectiontoolkit_torch',\n"
         "                   'experiments', 'lidc_exp'), '--exp_dir', cf.exp_dir, '--folds', '0'])\n"
+        "    from medicaldetectiontoolkit_torch.experiments.toy_exp import configs as toy_configs, data_loader\n"
+        "    from medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys import generate_experiment\n"
+        "    generate_experiment(root, 'donuts_shape', 3, 1, 'donuts_shape')\n"
+        "    os.environ['MDT_TOY_ROOT'] = root\n"
+        "    tcf = toy_configs.configs()\n"
+        "    batch = next(data_loader.PatientBatchIterator(data_loader.load_dataset(tcf, None), tcf))\n"
+        "    assert batch['data'].shape == (1, 1, 320, 320)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
         "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"

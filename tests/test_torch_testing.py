@@ -26,6 +26,8 @@ CASES = [
     dict(model="mrcnn", dim=2, retina_scales=False),
     dict(model="mrcnn", dim=3, retina_scales=False),
     dict(model="ufrcnn", dim=3, retina_scales=False),
+    dict(model="detection_unet", dim=2),
+    dict(model="detection_unet", dim=3),
 ]
 
 
@@ -90,6 +92,17 @@ def test_mrcnn_slice_config_is_lidc_mrcnn_on_the_bench_geometry():
     assert cf.n_anchors_per_pos == len(cf.rpn_anchor_ratios) == 3
     assert generate_pyramid_anchors(cf).shape == (224640, 6)
     assert ttesting.make_mrcnn_slice_config().compute_dtype == "float32"
+
+
+def test_det_unet_slice_config_is_lidc_width():
+    """``experiments/lidc_exp/configs.py``'s 3D Detection U-Net: patch
+    128x128x64, start_filts 18, end_filts 36, 30 RoI candidates; batch 8 as
+    one microbatch, remat."""
+    cf = ttesting.make_det_unet_slice_config("bfloat16")
+    assert (cf.model, cf.dim, cf.patch_size, cf.start_filts, cf.end_filts, cf.batch_size) == (
+        "detection_unet", 3, [128, 128, 64], 18, 36, 8)
+    assert (cf.n_roi_candidates, cf.num_seg_classes, cf.grad_accum_steps, cf.use_remat) == (30, 3, 1, True)
+    assert cf.compute_dtype == "bfloat16" and cf.operate_stride1 and cf.seg_loss_mode == "dice_wce"
 
 
 @pytest.mark.parametrize("kwargs", CASES)
