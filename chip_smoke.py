@@ -35,7 +35,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      pass's 240), with times and bounds;
   3c. stem conv kernels K3 (forward) and K4 (weight gradient) vs their plain
      PyTorch versions on the card: Retina U-Net's conv0 and Retina Net's C1
-     stem at LIDC width in float32 and bfloat16 (timed), odd Y/X and cin 2
+     stem at LIDC width in float32 and bfloat16 (timed), PET-CT's conv0 at
+     cin 2 (8x2x192x192x32, float32 and bfloat16, timed) and its Retina Net
+     C1 stem, odd Y/X and cin 2
      in both dtypes, cout 32 with Z 61 (K3's widest instance and its store
      tails), and K4's
      grid with fewer chunks than blocks and with chunks no multiple of it;
@@ -143,7 +145,22 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      validation images, for Retina U-Net (K1 counted: once per train and
      validation dispatch and per test forward) and Detection U-Net (no
      kernel of the table: the stem kernels are 3D only); the results files
-     are written and each test's mean foreground roi-AP printed.
+     are written and each test's mean foreground roi-AP printed;
+ 13. the PET-CT experiment through ``exec --mode train_test`` at its
+     published width (3D Retina U-Net, CT and PET as two channels, patch
+     192x192x32 from a 280x280x48 pre-crop, start_filts 18, end_filts 36,
+     resnet50, batch 8, float32, ``MDT_STEM_PALLAS=1``) on four synthetic
+     patients of z 48 x 288 x 288: one epoch of 3 train batches with no
+     validation (model selection on the train metrics), the hold-out test of
+     every patient, then ``--mode analysis`` (fold ensembling). Each train
+     dispatch must launch K1 once, K3 twice and K4 once, every K3/K4 call on
+     an input of 2 channels; each test chunk K1 and K3 once; losses finite,
+     ``results.txt`` written. Then, after a warm-up, two timed train steps
+     each of the PET-CT Retina U-Net and Retina Net at the same geometry
+     (K3/K4 on conv0 and on Retina Net's k-7 C1 stem, stride (2, 2, 1), at
+     cin 2; launches asserted) and a small two-channel Retina U-Net train
+     step on the card against the CPU (phase 7b's tolerances). ms per logged
+     step, the peak device memory and the phase's time are printed.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -219,9 +236,14 @@ def _stem_cases(torch):
     multiple of it (2,039 chunks, a prime); with "fewer", every block of the
     grid takes one chunk (14 chunks)."""
     f32, bf16 = torch.float32, torch.bfloat16
-    lidc = (128, 128, 64)
+    lidc, petct = (128, 128, 64), (192, 192, 32)
     return [
         ("conv0_2x1x128x128x64_k3", (2, 1, *lidc), 3, 1, 1, 18, f32, True, None),
+        # PET-CT (CT and PET as two channels) as exec's training runs it: conv0 of Retina U-Net, and Retina
+        # Net's C1 stem
+        ("conv0_cin2_8x2x192x192x32_k3", (8, 2, *petct), 3, 1, 1, 18, f32, True, None),
+        ("conv0_cin2_8x2x192x192x32_k3_bf16", (8, 2, *petct), 3, 1, 1, 18, bf16, True, None),
+        ("c1_cin2_8x2x192x192x32_k7_s2", (8, 2, *petct), 7, 2, 2, 18, f32, False, None),
         # conv0 as exec's LIDC training runs it: batch 8 as one microbatch
         ("conv0_8x1x128x128x64_k3", (8, 1, *lidc), 3, 1, 1, 18, f32, True, None),
         ("c1_8x1x128x128x64_k7_s2", (8, 1, *lidc), 7, 2, 2, 18, f32, True, None),
@@ -639,7 +661,7 @@ def _drive_train(torch, np, dtype, batches, common, kernels, card):
             "ab_ms": ab_ms}
 
 
-def _small_train(torch, np, make_config, make_batch, build_model, log, model):
+def _small_train(torch, np, make_config, make_batch, build_model, log, model, n_channels=1):
     """A small 3D train step (2 microbatches of 2, remat, the stem kernels)
     on the card against the CPU run of the same weights and draws. Float32
     with TF32 off: loss within 1e-5 relative, gradients within 1e-3 of each
@@ -649,12 +671,13 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
     ``tests/test_torch_mrcnn_train.py``'s 3D mrcnn case (positive RoIs are
     sampled), and their sampled RoIs must be the same slots and classes on
     both, the boxes within 1e-5."""
-    print(f"== phase 7b: small 3D {model} train step, card vs CPU plain path")
+    print(f"== phase {'7b' if n_channels == 1 else 13}: small 3D {model} train step at {n_channels} input "
+          f"channel(s), card vs CPU plain path")
     os.environ["MDT_STEM_PALLAS"] = "1"
     two_stage = model in ("mrcnn", "ufrcnn")
     seg_only = model == "detection_unet"  # no draws: a loss of the seg head alone
     cf = make_config(model=model, dim=3, batch_size=4, retina_scales=not two_stage)
-    cf.grad_accum_steps = 2
+    cf.grad_accum_steps, cf.n_channels = 2, n_channels
     if two_stage:
         cf.pre_nms_limit, cf.post_nms_rois_training = 2000, 300
     batch = make_batch(cf, seed=1 if two_stage else 5)
@@ -681,8 +704,8 @@ def _small_train(torch, np, make_config, make_batch, build_model, log, model):
             if not same:
                 raise AssertionError(f"small {model} train step: the card sampled other RoIs than the CPU")
     stem = gpu.module.fpn.stem0[0] if cf.operate_stride1 else gpu.module.fpn.stem1
-    if not stem.stem_kernel:
-        raise AssertionError("the small net's stem did not take the stem kernels")
+    if not stem.stem_kernel or stem.conv.weight.shape[1] != n_channels:
+        raise AssertionError(f"the small net's stem (cin {n_channels}) did not take the stem kernels")
     loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     grad_err, worst = _grad_errors(torch, out["cuda"][1], out["cpu"][1])
     p_err = 0.0
@@ -1120,19 +1143,21 @@ def _train_run(torch, np, cf, counters, log_path, mode, resume=None, checked=Non
     return out, steps, {k: w.launches for k, w in counters.items()}, wall
 
 
-def _check_steps(cf, steps, n_epochs, expect=None):
+def _check_steps(cf, steps, n_epochs, expect=None, n_val=None):
     """Each dispatch launched the kernels ``expect`` gives per kind ("train",
     "val"); by default Retina U-Net's: each train dispatch K3 twice per
     microbatch (forward and remat recompute), K4 once per microbatch, K1
     once (refinement of the merged heads); each validation dispatch K3 once
-    and K1 once."""
+    and K1 once. ``n_val`` validation batches per epoch (default
+    ``cf.num_val_batches``), besides the plotted one."""
     from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
 
     n_micro = resolve_grad_accum(cf, cf.batch_size)
     expect = expect or {"train": {"stem_fwd": 2 * n_micro, "stem_wgrad": n_micro, "nms": 1},
                         "val": {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1}}
     # per epoch: the train batches, the val_sampling batches and the plotted prediction
-    n_expect = {"train": n_epochs * cf.num_train_batches, "val": n_epochs * (cf.num_val_batches + 1)}
+    n_val = cf.num_val_batches if n_val is None else n_val
+    n_expect = {"train": n_epochs * cf.num_train_batches, "val": n_epochs * (n_val + 1)}
     for kind in ("train", "val"):
         got = [d for k, d in steps if k == kind]
         print(f"  {len(got)} {kind} dispatches, launches each {got[0] if got else None} (expected {n_expect[kind]} "
@@ -1511,6 +1536,150 @@ def _drive_toy(torch, np, common, counters, card, root):
     return {"nms": launches, "step_ms": step_ms}
 
 
+PETCT_PATIENT = (48, 288, 288)  # z, y, x: holds the pre-crop 280 x 280 x 48 without padding
+PETCT_ENV = {"MDT_MODEL": "retina_unet", "MDT_PETCT_EPOCHS": "1", "MDT_PETCT_NTB": "3"}
+
+
+def _petct_config(model):
+    """The port's PET-CT config for ``model`` at its published geometry."""
+    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.configs import configs
+
+    saved = os.environ.get("MDT_MODEL")
+    os.environ["MDT_MODEL"] = model
+    try:
+        return configs()
+    finally:
+        os.environ.pop("MDT_MODEL") if saved is None else os.environ.__setitem__("MDT_MODEL", saved)
+
+
+@contextlib.contextmanager
+def _stem_inputs(shapes):
+    """Record the input shape of every stem kernel call (K3 and K4) of the
+    port's stem path in ``shapes``, as ("K3" | "K4", shape)."""
+    from medicaldetectiontoolkit_torch.ops import stem_conv
+
+    def recorded(name, real):
+        def call(x, *args):
+            shapes.append((name, tuple(x.shape)))
+            return real(x, *args)
+        return call
+
+    with _class_attr(stem_conv, "stem_conv3d", recorded("K3", stem_conv.stem_conv3d)), \
+            _class_attr(stem_conv, "stem_wgrad", recorded("K4", stem_conv.stem_wgrad)):
+        yield
+
+
+def _drive_petct(torch, np, common, counters, card, root):
+    """Phase 13: the PET-CT experiment's 3D Retina U-Net at its published
+    width through ``exec --mode train_test`` (no validation, hold-out test)
+    and ``--mode analysis``, then timed train steps of its Retina U-Net and
+    Retina Net (the C1 stem at cin 2) and a small cin-2 step against the
+    CPU. Returns the launch counts and times."""
+    from medicaldetectiontoolkit_torch import exec as port_exec
+    from medicaldetectiontoolkit_torch.data.dataloader_utils import get_patch_crop_coords
+    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing import (
+        generate_synthetic_petct,
+    )
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.testing import make_batch, make_config, make_petct_experiment
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    log_path = os.path.join(root, "exec_console.log")
+    data_dir = os.path.join(root, "petct_data")
+    _quietly(log_path, generate_synthetic_petct, data_dir, n_patients=4, shape=PETCT_PATIENT)
+    cf = _quietly(log_path, make_petct_experiment, root, PETCT_ENV, {}, data_dir=data_dir, exp_name="exp_petct")
+    print(f"== phase 13: PET-CT through exec --mode train_test, 3D retina_unet (patch {cf.patch_size}, pre-crop "
+          f"{cf.pre_crop_size}, {cf.n_channels} channels, sf {cf.start_filts}, ef {cf.end_filts}, batch "
+          f"{cf.batch_size}, {cf.compute_dtype}, MDT_STEM_PALLAS=1), {cf.n_workers} loader workers; 4 synthetic "
+          f"patients {PETCT_PATIENT} (z y x); {cf.num_epochs} epoch x {cf.num_train_batches} batches, no "
+          f"validation, hold-out test of every patient")
+    shapes = []
+    torch.cuda.reset_peak_memory_stats()
+    with _stem_inputs(shapes):
+        out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test",
+                                              exp="pet_ct_tnm_classification")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = _check_steps(cf, steps, cf.num_epochs, n_val=0)
+    cins = sorted({(name, shape[1]) for name, shape in shapes})
+    print(f"  stem kernel calls {len(shapes)}, (kernel, cin): {cins}; K3 inputs "
+          f"{sorted({s for n, s in shapes if n == 'K3'})}")
+    if cins != [("K3", 2), ("K4", 2)] or len(shapes) != totals["stem_fwd"] + totals["stem_wgrad"]:
+        raise AssertionError(f"PET-CT: the stem kernels ran at {cins}, {len(shapes)} calls for {totals}")
+
+    fold_dir = os.path.join(cf.exp_dir, "fold_0")
+    ranking = np.load(os.path.join(fold_dir, "epoch_ranking.npy"))
+    n_patches = len(get_patch_crop_coords(np.broadcast_to(np.uint8(0), PETCT_PATIENT[1:] + PETCT_PATIENT[:1]),
+                                          cf.patch_size))
+    n_ckpt = min(len(ranking), cf.test_n_epochs)
+    n_chunks = math.ceil(n_patches / cf.batch_size) * 4 * n_ckpt * 4
+    rest = {k: totals[k] - per_step[k] for k in totals}
+    print(f"  test: 4 patients of {n_patches} patches x {n_ckpt} checkpoints (ranked {ranking.tolist()} on the train "
+          f"metrics) x 4 mirrors, {n_chunks} chunks; launches outside the dispatches {rest} (expected K1 and K3 1 "
+          f"per chunk)")
+    if len(out["test"]["results"]) != 4 or rest != {"stem_fwd": n_chunks, "stem_wgrad": 0, "nms": n_chunks}:
+        raise AssertionError(f"PET-CT test mode: expected {n_chunks} K1 and K3 launches for 4 patients, counted "
+                             f"{rest} for {len(out['test']['results'])}")
+    losses = _finite_losses(cf, out, 0)
+    results = os.path.join(cf.exp_dir, "results.txt")
+    with open(results) as handle:
+        ap = [line.strip() for line in handle if "average_foreground_roi" in line]
+    _quietly(log_path, port_exec.main, ["--mode", "analysis", "--exp_source", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "medicaldetectiontoolkit_torch", "experiments",
+        "pet_ct_tnm_classification"), "--exp_dir", cf.exp_dir, "--folds", "0"], device="cuda")
+    csv_path = os.path.join(cf.exp_dir, "results_hold_out.csv")
+    with open(csv_path) as handle:
+        n_rows = len(handle.read().splitlines()) - 1
+    print(f"  {len(losses)} finite monitored losses; results.txt {ap}; analysis (fold ensembling, WBC): "
+          f"{n_rows} boxes in results_hold_out.csv")
+    if not ap or not os.path.isfile(os.path.join(fold_dir, "last_checkpoint", "params.pkl")):
+        raise AssertionError("PET-CT: results.txt or last_checkpoint was not written")
+    _print_train_times(out["train"], card)
+    step_ms = [s * 1e3 for ep in out["train"]["times"]["step_s"].values() for s in ep]
+    print(f"  train_test: {wall:.1f} s; peak device memory {peak:.2f} GiB; test "
+          f"{out['test']['predictor'].times['forward'] * 1e3:.1f} ms forward ({card})")
+
+    # train steps at the same geometry, after a warm-up: Retina U-Net's conv0 and Retina Net's C1 stem (k 7,
+    # stride (2, 2, 1)) at cin 2
+    slice_ms = {}
+    for model in ("retina_unet", "retina_net"):
+        mcf = _petct_config(model)
+        net = build_model(mcf, common.QuietLog(), device="cuda")
+        net.initialize(seed=0)
+        batches = [make_batch(mcf, seed=i) for i in range(3)]
+        common.train_steps(net, batches[:1])  # warm-up: cuDNN plans
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: w.launches for k, w in counters.items()}
+        shapes = []
+        with _stem_inputs(shapes):
+            results, times = common.train_steps(net, batches[1:])
+        counted = {k: w.launches - before[k] for k, w in counters.items()}
+        n = len(batches) - 1
+        stem = net.module.fpn.stem0[0] if mcf.operate_stride1 else net.module.fpn.stem1
+        slice_ms[model] = [t * 1e3 for t in times]
+        print(f"  {model} steps (stem k {stem.conv.kernel_size[0]}, stride {stem.conv.stride}, cin "
+              f"{stem.conv.in_channels}): {n} steps of {mcf.batch_size}, "
+              f"{', '.join(f'{t:.1f}' for t in slice_ms[model])} ms; launches {counted}; stem inputs "
+              f"{sorted(set(shapes))}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+        if counted != {"stem_fwd": 2 * n, "stem_wgrad": n, "nms": n} or not stem.stem_kernel or \
+                {s[1] for _, s in shapes} != {2}:
+            raise AssertionError(f"PET-CT {model}: launches {counted} for {n} steps, stem inputs {shapes}")
+        for r in results:
+            if not all(math.isfinite(v) for v in (r["loss"], *r["monitor_values"].values())):
+                raise AssertionError(f"PET-CT {model}: non-finite losses {r['logger_string']}")
+        for k in totals:
+            totals[k] += counted[k]
+        del net, batches
+        torch.cuda.empty_cache()
+
+    _small_train(torch, np, make_config, make_batch, build_model, common.QuietLog(), "retina_unet", n_channels=2)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+    if loaded:
+        raise AssertionError(f"the port's PET-CT experiment loaded {loaded}")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": totals, "step_ms": step_ms, "peak_gib": peak, "slice_ms": slice_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1619,6 +1788,9 @@ def main() -> int:
     lap("12: the toy experiment through exec")
     with tempfile.TemporaryDirectory() as root:
         toy = _drive_toy(torch, np, common, counters, card, root)
+    lap("13: the PET-CT experiment through exec")
+    with tempfile.TemporaryDirectory() as root:
+        petct = _drive_petct(torch, np, common, counters, card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -1660,6 +1832,11 @@ def main() -> int:
               f"convert {', '.join(f'{v:.1f}' for v in t['host_ms'])} ms per step of 8")
     for model, ms in toy["step_ms"].items():
         print(f"  toy {model} 2D 320x320 batch 20: median {sorted(ms)[len(ms) // 2]:.1f} ms per step as logged")
+    ms = petct["step_ms"]
+    print(f"  exec --mode train_test, PET-CT retina_unet 3D float32 (192x192x32, 2 channels, batch 8): "
+          f"{', '.join(f'{t:.1f}' for t in ms)} ms per step as logged, peak {petct['peak_gib']:.2f} GiB; after a "
+          f"warm-up, {'; '.join(f'{m} ' + ', '.join(f'{t:.1f}' for t in v) for m, v in petct['slice_ms'].items())} "
+          f"ms per step")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -1671,7 +1848,7 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
-        + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"],
+        + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"] + petct["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -1694,7 +1871,7 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
         "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
-        + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"],
+        + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"] + petct["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
@@ -1702,7 +1879,7 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
         "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"]
-        + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"],
+        + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"] + petct["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

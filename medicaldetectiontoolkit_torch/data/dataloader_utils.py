@@ -7,14 +7,18 @@ Counterpart of ``medicaldetectiontoolkit_tpu/data/dataloader_utils.py``
 picks), ``fold_generator`` (the same (seed, n_splits, len_data) give the
 same fold memberships), ``get_patch_crop_coords`` with its
 ``_axis_intervals`` (overlapping patch grid with a minimum overlap, per-slice
-z-tiling for patch z == 1), ``pad_nd_image``, and the npz -> npy unpacking
-that staging a packed data set to ``cf.data_dest`` uses.
+z-tiling for patch z == 1), ``pad_nd_image``, the npy <-> npz packing of a
+preprocessed data set (``pack_dataset``, ``unpack_dataset``, ``delete_npy``;
+unpacking is what staging a packed data set to ``cf.data_dest`` uses), and
+``dataframe_pickle``, the bytes of a pandas ``DataFrame`` pickle written
+without pandas (the experiments' ``info_df.pickle``).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -197,3 +201,34 @@ def unpack_dataset(folder, threads=8):
     npz_files = [os.path.join(folder, i + ".npz") for i in get_case_identifiers(folder)]
     with ThreadPoolExecutor(max_workers=threads) as pool:
         list(pool.map(convert_to_npy, npz_files))
+
+
+def pack_dataset(folder, threads=8):
+    """Every ``{id}.npy`` in ``folder`` packed to a compressed ``{id}.npz``
+    beside it (the array under the key ``id``), unless that exists."""
+
+    def pack_one(npy_file):
+        identifier = os.path.split(npy_file)[1][:-4]
+        npz_file = npy_file[:-4] + ".npz"
+        if not os.path.isfile(npz_file):
+            np.savez_compressed(npz_file, **{identifier: np.load(npy_file)})
+
+    npy_files = [os.path.join(folder, i) for i in os.listdir(folder) if i.endswith(".npy")]
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(pack_one, npy_files))
+
+
+def delete_npy(folder):
+    """Remove the ``.npy`` of every ``.npz`` in ``folder`` (after packing)."""
+    for ident in get_case_identifiers(folder):
+        f = os.path.join(folder, ident + ".npy")
+        if os.path.isfile(f):
+            os.remove(f)
+
+
+def dataframe_pickle(rows, columns):
+    """Pickle bytes that unpickle to ``pandas.DataFrame(rows, None,
+    columns)``: a reference to the class, then the pickled arguments, then
+    REDUCE (the call). Nothing of pandas is imported to write them."""
+    args = pickle.dumps((rows, None, columns), protocol=2)  # PROTO 2 ... STOP
+    return b"\x80\x02cpandas.core.frame\nDataFrame\n" + args[2:-1] + pickle.REDUCE + pickle.STOP

@@ -21,8 +21,11 @@ argsort (``nargsort``, numpy quicksort on the reversed column) for
 ``average_precision_score`` and ``precision_recall_curve`` are numpy
 versions of scikit-learn's binary ones (stable descending sort, thresholds
 at distinct scores, ``drop_intermediate`` as its defaults, float64 counts).
-The figures (prediction histograms, stat curves) are not drawn: plotting
-comes with the training drivers.
+With ``cf.plot_prediction_histograms`` each (class, score level) draws a
+prediction histogram, with ``cf.plot_stat_curves`` the ROC and PRC curves,
+through the port's ``plotting.py``, under the JAX package's file names;
+where matplotlib does not import, ``plotting`` logs that once and draws
+nothing.
 """
 
 from __future__ import annotations
@@ -316,6 +319,19 @@ class Evaluator:
         if level == "patient":
             monitor_metrics[series + "_auc"].append(stats["auc"] if stats["auc"] > 0 else None)
 
+    def _plot_hist(self, spec_df, level, cl):
+        from medicaldetectiontoolkit_torch import plotting
+
+        fname = "pred_hist_{}_{}_{}_cl{}".format(
+            getattr(self.cf, "fold", 0), "val" if "val" in self.mode else self.mode, level, cl
+        )
+        plotting.plot_prediction_hist(
+            spec_df["class_label"].tolist(),
+            spec_df["pred_score"].tolist(),
+            spec_df["det_type"].tolist() if level == "rois" else None,
+            os.path.join(self.cf.plot_dir, fname),
+        )
+
     def _scan_det_threshs(self, spec_df):
         threshs = list(np.arange(0.9, 1, 0.01))
         with ThreadPoolExecutor(max_workers=10) as pool:
@@ -348,8 +364,16 @@ class Evaluator:
 
                 if monitor_metrics is not None:
                     self._update_monitor(monitor_metrics, level, cl, stats)
+                if self.cf.plot_prediction_histograms:
+                    self._plot_hist(spec_df, level, cl)
                 if self.cf.scan_det_thresh:
                     self._scan_det_threshs(spec_df)
+
+        if self.cf.plot_stat_curves:
+            from medicaldetectiontoolkit_torch import plotting
+
+            out_filename = os.path.join(self.cf.plot_dir, f"{getattr(self.cf, 'fold', 0)}_{self.mode}_stat_curves")
+            plotting.plot_stat_curves(all_stats, out_filename)
 
         # foreground-average summary row over roi-level entries
         roi_rows = [d for d in all_stats if "rois" in d["name"]]

@@ -9,7 +9,10 @@ Counterpart of the root ``exec.py``, with the same CLI (--mode, --folds,
     python -m medicaldetectiontoolkit_torch.exec --mode train_test \\
         --exp_source medicaldetectiontoolkit_torch/experiments/lidc_exp --exp_dir EXP [--folds 0]
 
-(or ``--exp_source medicaldetectiontoolkit_torch/experiments/toy_exp``).
+(or ``--exp_source medicaldetectiontoolkit_torch/experiments/toy_exp``, or
+``medicaldetectiontoolkit_torch/experiments/pet_ct_tnm_classification``: two
+input channels, no validation, so that model selection ranks the train
+metrics, and a hold-out test set whose ``analysis`` ensembles the folds).
 ``train`` trains each fold on the CUDA card with the root ``exec.py``'s epoch
 structure: the per-epoch lr, the train batches (a one-step-deep pipeline:
 step i+1 is dispatched before step i's results are converted on the host;

@@ -98,11 +98,12 @@ def get_train_generators(cf, logger):
     return gens
 
 
-def create_data_gen_pipeline(patient_data, cf, is_training=True):
-    """``BatchGenerator`` + transforms in ``cf.n_workers`` threads: mirror and
-    spatial augmentation to ``patch_size`` in training, a center crop
-    otherwise, then seg -> boxes."""
-    data_gen = BatchGenerator(patient_data, batch_size=cf.batch_size, cf=cf)
+def create_data_gen_pipeline(patient_data, cf, is_training=True, generator_cls=None):
+    """``generator_cls`` (default ``BatchGenerator``; an experiment's own
+    subclass) + transforms in ``cf.n_workers`` threads: mirror and spatial
+    augmentation to ``patch_size`` in training, a center crop otherwise, then
+    seg -> boxes."""
+    data_gen = (generator_cls or BatchGenerator)(patient_data, batch_size=cf.batch_size, cf=cf)
     transforms = []
     if is_training:
         def mirror_t(batch, rng):

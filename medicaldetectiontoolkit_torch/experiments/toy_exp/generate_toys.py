@@ -8,7 +8,7 @@ each directory gets ``info_df.pickle``, the aggregated index, with its rows
 in ``os.listdir`` order of the meta files, as JAX's ``aggregate_meta_info``
 writes it. The index is a pandas ``DataFrame`` pickle, so that the JAX
 loader reads a directory written here; it is written without importing
-pandas (``_dataframe_pickle``). The port's loader reads the meta files
+pandas (``dataloader_utils.dataframe_pickle``). The port's loader reads the meta files
 themselves, in the same order, so it needs no pandas either.
 
 Usage: python -m medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys [--root_dir DIR]
@@ -22,6 +22,8 @@ import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from medicaldetectiontoolkit_torch.data.dataloader_utils import dataframe_pickle
 
 IMG_SIZE = 320
 INDEX_COLUMNS = ["path", "class_id", "pid"]
@@ -67,18 +69,10 @@ def read_meta_info(data_dir):
     return rows
 
 
-def _dataframe_pickle(rows, columns):
-    """Pickle bytes that unpickle to ``pandas.DataFrame(rows, None,
-    columns)``: a reference to the class, then the pickled arguments, then
-    REDUCE (the call). Nothing of pandas is imported to write them."""
-    args = pickle.dumps((rows, None, columns), protocol=2)  # PROTO 2 ... STOP
-    return b"\x80\x02cpandas.core.frame\nDataFrame\n" + args[2:-1] + pickle.REDUCE + pickle.STOP
-
-
 def aggregate_meta_info(data_dir):
     rows = read_meta_info(data_dir)
     with open(os.path.join(data_dir, "info_df.pickle"), "wb") as handle:
-        handle.write(_dataframe_pickle(rows, INDEX_COLUMNS))
+        handle.write(dataframe_pickle(rows, INDEX_COLUMNS))
     print(f"aggregated meta info to df with length {len(rows)}")
 
 

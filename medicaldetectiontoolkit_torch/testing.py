@@ -13,7 +13,8 @@ The config is a plain attribute bag, so an experiment's own config object
 whole-patient test mode on synthetic LIDC patients (the tests, the smoke
 script's phase 8 and ``tools/time_patient.py``), ``run_lidc_train`` its
 training modes on such an experiment (phase 9, ``tools/time_train.py``);
-``make_toy_experiment`` does the same for the toy experiment;
+``make_toy_experiment`` and ``make_petct_experiment`` do the same for the
+toy and PET-CT experiments;
 ``assert_same`` is the tests' exact comparison of two results.
 """
 
@@ -323,12 +324,14 @@ def make_lidc_experiment(root, env, overrides=None, n_patients=4, shape=(16, 48,
     return cf
 
 
-def run_lidc_test(cf, device="cpu", folds=(0,)):
-    """``exec --mode test`` on the experiment of ``make_lidc_experiment``;
-    returns ``exec.main``'s result for fold ``folds[0]``."""
+def run_lidc_test(cf, device="cpu", folds=(0,), exp="lidc_exp"):
+    """``exec --mode test`` on the experiment of ``make_lidc_experiment``
+    (``exp="pet_ct_tnm_classification"`` for one of
+    ``make_petct_experiment``); returns ``exec.main``'s result for fold
+    ``folds[0]``."""
     from medicaldetectiontoolkit_torch import exec as port_exec
 
-    argv = ["--mode", "test", "--exp_source", _exp_source("lidc_exp"), "--exp_dir", cf.exp_dir,
+    argv = ["--mode", "test", "--exp_source", _exp_source(exp), "--exp_dir", cf.exp_dir,
             "--folds", *map(str, folds)]
     return port_exec.main(argv, device=device)[folds[0]]
 
@@ -336,7 +339,8 @@ def run_lidc_test(cf, device="cpu", folds=(0,)):
 def run_lidc_train(cf, mode="train_test", device="cpu", folds=(0,), resume=None, exp="lidc_exp"):
     """``exec --mode train | train_test`` on the experiment of
     ``make_lidc_experiment`` (made with no checkpoints; ``exp="toy_exp"``
-    for one of ``make_toy_experiment``), with its pinned config snapshot
+    for one of ``make_toy_experiment``, ``exp="pet_ct_tnm_classification"``
+    for one of ``make_petct_experiment``), with its pinned config snapshot
     (``--use_stored_settings``), optionally resuming from the checkpoint
     directory ``resume``; returns ``exec.main``'s result for fold
     ``folds[0]``."""
@@ -362,3 +366,24 @@ def make_toy_experiment(root, env, overrides=None, n_train=24, n_test=4, exp_nam
     if not (os.path.isdir(train_dir) and any("meta_info" in f for f in os.listdir(train_dir))):
         generate_experiment(root, "donuts_shape", n_train, n_test, "donuts_shape")
     return _pinned_experiment("toy_exp", os.path.join(root, exp_name), dict(env, MDT_TOY_ROOT=root), overrides or {})
+
+
+def make_petct_experiment(root, env, overrides=None, n_patients=4, shape=(12, 48, 48), exp_name="petct_exp",
+                          data_dir=None):
+    """An experiment directory of the port's PET-CT experiment for ``exec
+    --mode train | train_test`` (``run_lidc_train(cf, mode,
+    exp="pet_ct_tnm_classification")``): ``data_dir`` (default
+    ``root/petct_data``) gets ``n_patients`` synthetic two-modality patients
+    of ``shape`` (z, y, x) (``generate_synthetic_petct``) unless it holds
+    some already, and ``root/exp_name``'s config is pinned to ``env`` (with
+    ``MDT_PETCT_PP`` set to the data, which is the hold-out test set too)
+    and ``overrides``. Returns its config."""
+    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing import (
+        generate_synthetic_petct,
+    )
+
+    data_dir = data_dir or os.path.join(root, "petct_data")
+    if not (os.path.isdir(data_dir) and any("meta_info" in f for f in os.listdir(data_dir))):
+        generate_synthetic_petct(data_dir, n_patients=n_patients, shape=tuple(shape))
+    return _pinned_experiment("pet_ct_tnm_classification", os.path.join(root, exp_name),
+                              dict(env, MDT_PETCT_PP=data_dir), overrides or {})

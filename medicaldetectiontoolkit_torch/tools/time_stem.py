@@ -12,8 +12,9 @@ First the registers and spills ``ptxas`` reports for each K3 instance of the
 build. Then for each case: the kernel's output against the plain version,
 float32 within 1e-5 and bfloat16 within 1e-2 of the plain version's max
 |value| (``chip_smoke.py`` phase 3c's tolerances; exit 1 if not). The timed
-cases are Retina U-Net's conv0 (2x1x128x128x64, k 3, cout 18) and Retina
-Net's C1 stem (8x1x128x128x64, k 7, stride (2, 2, 1)), each in float32 and
+cases are Retina U-Net's conv0 (2x1x128x128x64, k 3, cout 18), Retina
+Net's C1 stem (8x1x128x128x64, k 7, stride (2, 2, 1)) and PET-CT's conv0
+at two input channels (8x2x192x192x32, k 3, cout 18), each in float32 and
 bfloat16; for each it prints the CUDA-event time of the launch alone
 (arguments prepared once), of the whole wrapper, the host's time per wrapper
 call, the plain version's and ``F.conv3d``'s times and the bound; after all
@@ -32,10 +33,13 @@ from pathlib import Path
 def stem_cases(torch):
     """(name, (B, cin, Y, X, Z), k, sy, sx, cout, dtype, timed)."""
     f32, bf16 = torch.float32, torch.bfloat16
-    lidc = (128, 128, 64)
+    lidc, petct = (128, 128, 64), (192, 192, 32)
     return [
         ("conv0_f32", (2, 1, *lidc), 3, 1, 1, 18, f32, True),
         ("conv0_bf16", (2, 1, *lidc), 3, 1, 1, 18, bf16, True),
+        # PET-CT's conv0: CT and PET as two channels, batch 8 as exec's training runs it
+        ("conv0_cin2_f32", (8, 2, *petct), 3, 1, 1, 18, f32, True),
+        ("conv0_cin2_bf16", (8, 2, *petct), 3, 1, 1, 18, bf16, True),
         ("c1_f32", (8, 1, *lidc), 7, 2, 2, 18, f32, True),
         ("c1_bf16", (8, 1, *lidc), 7, 2, 2, 18, bf16, True),
         ("cout32_z61_bf16", (2, 1, 33, 47, 61), 3, 1, 1, 32, bf16, False),

@@ -2,7 +2,9 @@
 ``Evaluator`` on seeded results lists, and its numpy ROC / PR metrics against
 scikit-learn's, ties included. All exact: the same rows in the same order,
 the same AP / AUC / curves, the same lines in results.txt and
-results_table.txt."""
+results_table.txt, the same figure calls (prediction histograms, stat
+curves) with the same arguments and file names, the same figure files, and
+none without matplotlib."""
 
 import os
 from types import SimpleNamespace
@@ -182,3 +184,86 @@ def test_det_threshold_scan_matches_jax(tmp_path):
         ev.return_metrics()
     scans = [[m for m in logs[mod].lines if "scanning" in m] for mod in (jev, tev)]
     assert len(scans[1]) == 2 and scans[1] == scans[0]
+
+
+def _recorded_figures(monkeypatch, plotting, calls):
+    """Record the evaluator's figure calls of ``plotting`` in ``calls``."""
+    monkeypatch.setattr(plotting, "plot_prediction_hist", lambda *args: calls.append(("hist", args)))
+    monkeypatch.setattr(plotting, "plot_stat_curves", lambda stats, outfile: calls.append(("curves", stats, outfile)))
+
+
+@pytest.mark.parametrize("mode,fold", [("test", 0), ("val_patient", 1), ("train", 0)])
+def test_figure_calls_match_jax(tmp_path, monkeypatch, mode, fold):
+    """With prediction histograms and stat curves on: the same figures
+    under the same file names, each histogram with the same labels, scores
+    and detection types, the curves with the same stats."""
+    from medicaldetectiontoolkit_torch import plotting as tplot
+    from medicaldetectiontoolkit_tpu import plotting as jplot
+
+    calls = {}
+    for name, module, plotting in (("jax", jev, jplot), ("port", tev, tplot)):
+        calls[name] = []
+        _recorded_figures(monkeypatch, plotting, calls[name])
+        cf = _cf(str(tmp_path), fold)
+        cf.plot_prediction_histograms = cf.plot_stat_curves = True
+        ev = module.Evaluator(cf, _Log(), mode=mode)
+        if mode == "train":
+            batches = [[[r[0][0] for r in _patient_results(9, n_patients=3)], ["a", "b", "c"]]]
+            ev.evaluate_predictions(batches)
+        else:
+            ev.evaluate_predictions(_patient_results(8 + fold))
+        ev.return_metrics()
+    assert [c[0] for c in calls["port"]] == [c[0] for c in calls["jax"]] == ["hist"] * 4 + ["curves"]
+    for ours, theirs in zip(calls["port"][:4], calls["jax"][:4]):
+        assert ours == theirs
+    _, stats, outfile = calls["port"][4]
+    _assert_stats_match(stats, calls["jax"][4][1])
+    assert outfile == calls["jax"][4][2] == os.path.join(str(tmp_path), f"{fold}_{mode}_stat_curves")
+    names = [os.path.basename(c[1][3]) for c in calls["port"][:4]]
+    kind = "val" if "val" in mode else mode
+    assert names == [f"pred_hist_{fold}_{kind}_{level}_cl{cl}" for cl in (1, 2) for level in ("patient", "rois")]
+
+
+def test_figures_written_as_jax_writes_them(tmp_path):
+    """Drawn with matplotlib: the same files as the JAX package's."""
+    pytest.importorskip("matplotlib")
+    files = {}
+    for name, module in (("jax", jev), ("port", tev)):
+        plot_dir = tmp_path / name
+        os.makedirs(plot_dir)
+        cf = _cf(str(plot_dir), 0)
+        cf.plot_prediction_histograms = cf.plot_stat_curves = True
+        ev = module.Evaluator(cf, _Log(), mode="test")
+        ev.evaluate_predictions(_patient_results(6))
+        ev.return_metrics()
+        files[name] = sorted(os.listdir(plot_dir))
+    assert files["port"] == files["jax"] and len(files["port"]) == 6
+
+
+def test_no_figures_without_matplotlib(tmp_path, monkeypatch, caplog):
+    """Where matplotlib does not import (the card's machine): no file, one
+    warning, and the scores as with figures off."""
+    import logging
+    import sys
+
+    from medicaldetectiontoolkit_torch import plotting as tplot
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    tplot._pyplot.cache_clear()
+    try:
+        stats = []
+        for figures in (True, False):
+            cf = _cf(str(tmp_path), 0)
+            cf.plot_prediction_histograms = cf.plot_stat_curves = figures
+            ev = tev.Evaluator(cf, _Log(), mode="test")
+            with caplog.at_level(logging.WARNING, logger=tplot.__name__):
+                for seed in (6, 7):
+                    ev.evaluate_predictions(_patient_results(seed))
+                    stats.append(ev.return_metrics()[0])
+    finally:
+        tplot._pyplot.cache_clear()
+    assert os.listdir(tmp_path) == []
+    warnings = [r for r in caplog.records if r.name == tplot.__name__]
+    assert len(warnings) == 1 and "matplotlib" in warnings[0].getMessage()
+    _assert_stats_match(stats[0], stats[2])
+    _assert_stats_match(stats[1], stats[3])

@@ -3,8 +3,9 @@ sklearn or matplotlib and without any module of the JAX package (and
 without building the native host library), running
 every detector (a training step of the one-stage ones with the opt-in stem
 path included, and of Detection U-Net), the port's test mode (``exec
---mode test``, then ``--mode analysis``) on a tiny synthetic LIDC set and
-the toy generator and loader load none of them either, and
+--mode test``, then ``--mode analysis``, figures off: they import
+matplotlib where it is installed) on a tiny synthetic LIDC set and
+the toy and PET-CT generators and loaders load none of them either, and
 ``chip_smoke.py`` refuses to run without a GPU."""
 
 import os
@@ -59,10 +60,15 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.configs",
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.data_loader",
     "medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing",
+    "medicaldetectiontoolkit_torch.experiments.lidc_exp.pack_dataset",
     "medicaldetectiontoolkit_torch.experiments.toy_exp",
     "medicaldetectiontoolkit_torch.experiments.toy_exp.configs",
     "medicaldetectiontoolkit_torch.experiments.toy_exp.data_loader",
     "medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys",
+    "medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification",
+    "medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.configs",
+    "medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.data_loader",
+    "medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing",
     "medicaldetectiontoolkit_torch.tools.convergence",
     "medicaldetectiontoolkit_torch.utils.exp_utils",
     "medicaldetectiontoolkit_torch.predictor",
@@ -74,6 +80,8 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.plotting",
     "medicaldetectiontoolkit_torch.tools.time_train",
     "medicaldetectiontoolkit_torch.tools.time_roi_align_bwd",
+    "medicaldetectiontoolkit_torch.tools.time_stem",
+    "medicaldetectiontoolkit_torch.tools.time_roi_align",
     "chip_smoke",
 ]
 
@@ -111,7 +119,7 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "    cf = make_lidc_experiment(root, {'MDT_DIM': '3', 'MDT_MODEL': 'retina_unet', 'MDT_LIDC_PATCH': '32,32,8',\n"
         "                                     'MDT_LIDC_BS': '4'},\n"
         "                              {'start_filts': 4, 'end_filts': 8, 'n_rpn_features': 8, 'pre_nms_limit': 500,\n"
-        "                               'n_cv_splits': 4})\n"
+        "                               'n_cv_splits': 4, 'plot_prediction_histograms': False})\n"
         "    out = run_lidc_test(cf, device='cpu')\n"
         "    assert any(b['box_type'] == 'det' for r in out['results'] for bl in r[0] for b in bl)\n"
         "    port_exec.main(['--mode', 'analysis', '--exp_source', os.path.join('medicaldetectiontoolkit_torch',\n"
@@ -123,6 +131,15 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "    tcf = toy_configs.configs()\n"
         "    batch = next(data_loader.PatientBatchIterator(data_loader.load_dataset(tcf, None), tcf))\n"
         "    assert batch['data'].shape == (1, 1, 320, 320)\n"
+        "    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification import configs as petct_configs\n"
+        "    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification import data_loader as petct_dl\n"
+        "    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing import (\n"
+        "        generate_synthetic_petct)\n"
+        "    generate_synthetic_petct(os.path.join(root, 'petct'), n_patients=2, shape=(8, 40, 40))\n"
+        "    os.environ.update(MDT_PETCT_PP=os.path.join(root, 'petct'), MDT_PETCT_PATCH='32,32,8')\n"
+        "    pcf = petct_configs.configs()\n"
+        "    batch = next(petct_dl.PatientBatchIterator(petct_dl.load_dataset(pcf, None), pcf))\n"
+        "    assert batch['data'].shape[1:] == (2, 32, 32, 8)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
         "print('BANNED', bad)\n"
         "print('JAX_PACKAGE', sorted(m for m in sys.modules if m.startswith('medicaldetectiontoolkit_tpu')))\n"

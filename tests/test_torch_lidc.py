@@ -20,10 +20,13 @@ sys.path.insert(0, REPO)
 from experiments.lidc_exp import configs as jax_lidc_configs  # noqa: E402
 from experiments.lidc_exp import data_loader as jax_dl  # noqa: E402
 from experiments.lidc_exp.preprocessing import generate_synthetic_lidc as jax_generate  # noqa: E402
+from medicaldetectiontoolkit_tpu.data import dataloader_utils as jax_dutils  # noqa: E402
 from medicaldetectiontoolkit_tpu import config as jax_config  # noqa: E402
 from medicaldetectiontoolkit_tpu.data.dataloader_utils import fold_generator as jax_fold_generator  # noqa: E402
 from medicaldetectiontoolkit_torch import config as port_config  # noqa: E402
+from medicaldetectiontoolkit_torch.data import dataloader_utils as port_dutils  # noqa: E402
 from medicaldetectiontoolkit_torch.data.dataloader_utils import fold_generator  # noqa: E402
+from medicaldetectiontoolkit_torch.experiments.lidc_exp import pack_dataset as port_pack  # noqa: E402
 from medicaldetectiontoolkit_torch.experiments.lidc_exp import configs as port_lidc_configs  # noqa: E402
 from medicaldetectiontoolkit_torch.experiments.lidc_exp import data_loader as port_dl  # noqa: E402
 from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import generate_synthetic_lidc  # noqa: E402
@@ -162,3 +165,34 @@ def test_load_dataset_stages_to_data_dest(jax_set, tmp_path):
     for pid, v in data.items():
         assert_same(np.load(v["seg"]), np.load(os.path.join(jax_set, f"{pid}_rois.npy")))
     assert [v["pid"] for v in data.values()] == [v["pid"] for v in port_dl.load_dataset(cf, _Log()).values()]
+
+
+@pytest.mark.parametrize("packer", ["port", "jax"])
+def test_pack_dataset_round_trip(tmp_path, packer):
+    """npy files packed by one package (the port through its CLI), their
+    npy deleted, unpacked by the other: the same arrays; packing again
+    keeps an existing npz."""
+    rng = np.random.RandomState(4)
+    arrays = {"p0_img": rng.randn(5, 7, 6).astype(np.float32), "p0_rois": (rng.rand(5, 7, 6) > 0.7).astype(np.uint8),
+              "p1_img": rng.randn(3, 4, 8).astype(np.float32)}
+    for name, a in arrays.items():
+        np.save(tmp_path / f"{name}.npy", a)
+    (tmp_path / "meta_info_p0.pickle").write_bytes(b"meta")
+    if packer == "port":
+        port_pack.main(["--mode", "pack", "--dir", str(tmp_path), "--threads", "2"])
+        port_pack.main(["--mode", "clean_npy", "--dir", str(tmp_path)])
+        jax_dutils.unpack_dataset(str(tmp_path), threads=2)
+    else:
+        jax_dutils.pack_dataset(str(tmp_path), threads=2)
+        jax_dutils.delete_npy(str(tmp_path))
+        port_pack.main(["--mode", "unpack", "--dir", str(tmp_path), "--threads", "2"])
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [f"{n}.npy" for n in arrays] + [f"{n}.npz" for n in arrays] + ["meta_info_p0.pickle"])
+    for name, a in arrays.items():
+        assert_same(np.load(tmp_path / f"{name}.npy"), a)
+        with np.load(tmp_path / f"{name}.npz") as z:
+            assert list(z) == [name]
+            assert_same(z[name], a)
+    stamp = os.path.getmtime(tmp_path / "p0_img.npz")
+    port_dutils.pack_dataset(str(tmp_path), threads=2)
+    assert os.path.getmtime(tmp_path / "p0_img.npz") == stamp

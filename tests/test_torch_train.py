@@ -123,8 +123,11 @@ def port_step(cf, params, opt_state, batch, key, monkeypatch, stem):
     return tnet, grads, aux, inputs
 
 
-def check_step(tnet, grads, aux, jout, first_step):
-    rel, p_atol = (1e-4, 1e-6) if first_step else (5e-3, 1e-6 + 5e-2 * LR)
+def check_step(tnet, grads, aux, jout, first_step, loose=()):
+    """The port's step against JAX's, at the module docstring's tolerances;
+    tensors whose names start with a prefix in ``loose`` are held to the
+    resumed step's 5e-3 on the first step as well."""
+    rel_all, p_atol = (1e-4, 1e-6) if first_step else (5e-3, 1e-6 + 5e-2 * LR)
     opt_state, monitor, heads, anchor_info, det, new_params = jout
     for k, v in monitor.items():
         np.testing.assert_allclose(float(aux["monitor"][k]), float(v), rtol=1e-5, err_msg=k)
@@ -133,6 +136,7 @@ def check_step(tnet, grads, aux, jout, first_step):
     mu, nu = convert.jax_to_torch(adam.mu, tnet.module), convert.jax_to_torch(adam.nu, tnet.module)
     want_p = convert.jax_to_torch(new_params, tnet.module)
     for name, p in tnet.module.named_parameters():
+        rel = 5e-3 if name.startswith(tuple(loose)) else rel_all
         st = tnet.optimizer.state[p]
         assert _rel_err(st["exp_avg"], mu[name]) <= rel, name
         assert _rel_err(st["exp_avg_sq"], nu[name]) <= rel, name
