@@ -160,7 +160,25 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      (K3/K4 on conv0 and on Retina Net's k-7 C1 stem, stride (2, 2, 1), at
      cin 2; launches asserted) and a small two-channel Retina U-Net train
      step on the card against the CPU (phase 7b's tolerances). ms per logged
-     step, the peak device memory and the phase's time are printed.
+     step, the peak device memory and the phase's time are printed;
+ 14. data parallelism (``parallel/mesh.py``). 14a: two ranks on the one card
+     over gloo (NCCL puts no two ranks of a group on one device), started by
+     ``mesh.spawn_ranks``, each taking its 4 rows of a global batch of 8 (one
+     microbatch) for a step of the LIDC config's 3D Retina U-Net and of its 3D
+     Mask R-CNN at full width (float32, remat, ``MDT_STEM_PALLAS=1``): loss
+     within 1e-5 relative and gradients within 1e-3 of each tensor's max of
+     the single-process step on the whole batch (phase 7b's tolerances), the
+     two ranks' summed gradients bit-identical, and per rank and step the
+     launches Retina U-Net K1 1, K3 2, K4 1 and Mask R-CNN K1 2, K2 3, K2's
+     backward 2, K3 2, K4 1; ms per step per rank (two ranks sharing one
+     card: not a scaling figure), the gradient buffer's MB and its
+     all-reduce's ms. 14b: ``exec --mode train_test`` through the
+     data-parallel path at world size 1 over NCCL (the ``MDT_DIST_*`` triple
+     with ``NPROCS=1``) on phase 9's patients at LIDC width, one epoch of 3
+     train and 2 ``val_sampling`` batches and the test, with phase 9's
+     launches per dispatch and chunk; the data-parallel log line,
+     ``results.txt`` and ``last_checkpoint`` written; ms per logged step
+     beside phase 9's; then the gradient all-reduce over NCCL at world size 1.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -1680,6 +1698,204 @@ def _drive_petct(torch, np, common, counters, card, root):
     return {"launches": totals, "step_ms": step_ms, "peak_gib": peak, "slice_ms": slice_ms}
 
 
+DP_MODELS = ("retina_unet", "mrcnn")
+
+
+def _dp_config(model):
+    """Phase 14a's configurations: the LIDC width of phases 7 and 10 (patch
+    128x128x64, sf 18, ef 36, remat), float32, a global batch of 8 as one
+    microbatch (4 rows per rank)."""
+    from medicaldetectiontoolkit_torch.testing import make_mrcnn_slice_config, make_train_slice_config
+
+    cf = make_train_slice_config("float32") if model == "retina_unet" else make_mrcnn_slice_config("float32")
+    cf.grad_accum_steps, cf.use_remat = 1, True
+    return cf
+
+
+def _dp_counters():
+    from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv_cuda
+
+    return {"stem_fwd": stem_conv_cuda.stem_conv3d, "stem_wgrad": stem_conv_cuda.stem_wgrad,
+            "nms": nms_cuda.batched_nms, "roi_align": roi_align_cuda.pyramid_roi_align,
+            "roi_align_bwd": roi_align_cuda.pyramid_roi_align_backward}
+
+
+def _reduce_ms(torch, net, params, iters=5):
+    """Wall ms of one gradient all-reduce (``DataParallel.reduce_gradients``)
+    over ``iters`` calls after a warm-up, ending in a synchronise; every rank
+    calls it."""
+    sync = torch.cuda.synchronize if params[0].is_cuda else (lambda: None)
+    net.dp.reduce_gradients(params)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        net.dp.reduce_gradients(params)
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _dp_rank(out_dir, configs, device):
+    """A rank of phase 14a (started by ``mesh.spawn_ranks``): joins the two
+    ranks' gloo group on the one card and, per model of ``configs``, takes
+    one checked step (launches counted from 0; the summed gradients and the
+    loss saved) and two timed steps of its rows of the global batch, then
+    times the gradient all-reduce alone."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch
+    from medicaldetectiontoolkit_torch.tools import common
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    mesh.maybe_initialize_distributed(device=device, backend="gloo")
+    rank, world = mesh.rank_and_world()
+    counters = _dp_counters()
+    try:
+        for model, cf in configs.items():
+            net = build_model(cf, common.QuietLog(), device=device)
+            net.initialize(seed=0)
+            net.enable_data_parallel()
+            local = mesh.shard_batch(make_batch(cf, seed=0), rank, world)
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            loss = net.train_forward_convert(net.train_forward_dispatch(local), local, need_seg_preds=False)["loss"]
+            launches = {k: w.launches for k, w in counters.items()}
+            grads = {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()}
+            _, times = common.train_steps(net, [local, local])
+            params = [p for p in net.module.parameters()]
+            n_bytes = sum(p.grad.numel() * p.grad.element_size() for p in params)
+            reduce_ms = _reduce_ms(torch, net, params)
+            torch.save({"loss": loss, "grads": grads, "launches": launches, "step_ms": [t * 1e3 for t in times],
+                        "grad_mb": n_bytes / 1e6, "reduce_ms": reduce_ms},
+                       os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+            del net, grads
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+def _drive_data_parallel(torch, np, common, counters, card, root):
+    """Phase 14: data-parallel training (``parallel/mesh.py``). 14a: two
+    ranks share the one card over gloo and take a step of 3D Retina U-Net
+    and of 3D Mask R-CNN at LIDC width on their rows of a global batch of
+    8, held against the single-process step on the whole batch (loss 1e-5
+    relative, gradients 1e-3 of each tensor's max: phase 7b's tolerances;
+    the two ranks' summed gradients bit-identical), with each rank's kernel
+    launches counted. 14b: ``exec --mode train_test`` through the
+    data-parallel path at world size 1 over NCCL (the ``MDT_DIST_*`` triple)
+    on phase 9's patients. Returns the launch counts and times."""
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch, make_lidc_experiment
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    print("== phase 14a: two data-parallel ranks on the one card over gloo (NCCL puts no two ranks of a group on "
+          "one device; gloo's all-reduce and broadcast take CUDA tensors), LIDC width, float32, TF32 off, "
+          "MDT_STEM_PALLAS=1, global batch 8 = 4 rows per rank, one microbatch, remat")
+    ref, configs = {}, {model: _dp_config(model) for model in DP_MODELS}
+    for model, cf in configs.items():
+        net = build_model(cf, common.QuietLog(), device="cuda")
+        net.initialize(seed=0)
+        batch = make_batch(cf, seed=0)
+        loss = net.train_forward_convert(net.train_forward_dispatch(batch), batch, need_seg_preds=False)["loss"]
+        ref[model] = (loss, {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()})
+        del net
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "dp_ranks")
+    os.makedirs(out_dir)
+    os.environ.setdefault("MDT_DIST_INIT_TIMEOUT", "300")
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_dp_rank, 2, (out_dir, configs, "cuda"))
+    print(f"  two ranks started, stepped and stopped in {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in _dp_counters()}
+    dp_times = {}
+    for model, cf in configs.items():
+        if model == "retina_unet":
+            expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
+        else:
+            expect = two_stage_launches(cf, cf.batch_size // 2, "train")
+        loss, grads = ref[model]
+        ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
+        for r, res in enumerate(ranks):
+            loss_err = abs(res["loss"] - loss) / abs(loss)
+            grad_err, worst = _grad_errors(torch, res["grads"], grads)
+            print(f"  {model} rank {r}: loss {res['loss']:.6f} vs one process {loss:.6f} (relative {loss_err:.2e}); "
+                  f"worst gradient {grad_err:.2e} of its tensor's max ({worst}); launches {res['launches']} "
+                  f"(expected {expect}); {', '.join(f'{t:.1f}' for t in res['step_ms'])} ms per step of 4 rows "
+                  f"(two ranks sharing one card: not a scaling figure); gradient buffer {res['grad_mb']:.2f} MB, "
+                  f"its all-reduce over gloo {res['reduce_ms']:.2f} ms ({card})")
+            if not (loss_err <= 1e-5 and grad_err <= 1e-3):
+                raise AssertionError(f"{model} rank {r}: the data-parallel step differs from the single-process step")
+            if {k: res["launches"][k] for k in expect} != expect:
+                raise AssertionError(f"{model} rank {r}: launches {res['launches']}, expected {expect}")
+            for k in launches:
+                launches[k] += res["launches"].get(k, 0)
+        if any(not torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in grads):
+            raise AssertionError(f"{model}: the two ranks hold different summed gradients")
+        dp_times[model] = ranks
+    del ref
+
+    print("== phase 14b: exec --mode train_test through the data-parallel path at world size 1 over NCCL "
+          "(MDT_DIST_COORD / _NPROCS=1 / _RANK=0), phase 9's patients and width")
+    log_path = os.path.join(root, "exec_console.log")
+    cf = _quietly(log_path, make_lidc_experiment, root, dict(TRAIN_ENV, MDT_LIDC_EPOCHS="1"), {}, seeds=(),
+                  epochs=(), device="cuda", data_dir=os.path.join(root, "data_train"), exp_name="exp_dp")
+    os.environ.update(MDT_DIST_COORD=f"127.0.0.1:{mesh.free_port()}", MDT_DIST_NPROCS="1", MDT_DIST_RANK="0")
+    try:
+        out, steps, totals, wall = _train_run(torch, np, cf, counters, log_path, "train_test")
+    finally:
+        for key in ("MDT_DIST_COORD", "MDT_DIST_NPROCS", "MDT_DIST_RANK"):
+            os.environ.pop(key)
+    if mesh.dist.is_initialized():
+        raise AssertionError("exec left its process group up")
+    per_step = _check_steps(cf, steps, cf.num_epochs)
+    fold_dir = os.path.join(cf.exp_dir, "fold_0")
+    with open(os.path.join(fold_dir, "exec.log")) as handle:
+        log = handle.read()
+    results = os.path.join(cf.exp_dir, "results.txt")
+    if "data-parallel training: rank 0 of 1" not in log or not os.path.isfile(results) or \
+            not os.path.isfile(os.path.join(fold_dir, "last_checkpoint", "params.pkl")):
+        raise AssertionError("exec over NCCL: no data-parallel log line, results.txt or last_checkpoint")
+    n_patients, _, _, n_chunks = _test_chunks(np, cf)
+    rest = {k: totals[k] - per_step[k] for k in totals}
+    if len(out["test"]["results"]) != n_patients or rest != {"stem_fwd": n_chunks, "stem_wgrad": 0, "nms": n_chunks}:
+        raise AssertionError(f"exec over NCCL test: {len(out['test']['results'])} patients, launches {rest}")
+    _finite_losses(cf, out, cf.num_val_batches)
+    step_ms = [s * 1e3 for ep in out["train"]["times"]["step_s"].values() for s in ep]
+    print(f"  {cf.num_epochs} epoch x {cf.num_train_batches} batches of {cf.batch_size}, {cf.num_val_batches} "
+          f"val_sampling batches, the test of {n_patients} patients: {wall:.1f} s; steps "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} ms as the loop logs them; results.txt written ({card})")
+    for k in totals:
+        launches[k] = launches.get(k, 0) + totals[k]
+
+    # the gradient all-reduce of phase 14a's Retina U-Net over NCCL at world size 1
+    os.environ.update(MDT_DIST_COORD=f"127.0.0.1:{mesh.free_port()}", MDT_DIST_NPROCS="1", MDT_DIST_RANK="0")
+    try:
+        mesh.maybe_initialize_distributed(device="cuda")
+        net = build_model(_dp_config("retina_unet"), common.QuietLog(), device="cuda")
+        net.enable_data_parallel()
+        params = list(net.module.parameters())
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        nccl_ms = _reduce_ms(torch, net, params)
+        mb = sum(p.numel() * p.element_size() for p in params) / 1e6
+        gloo_ms = ", ".join(f"{r['reduce_ms']:.2f}" for r in dp_times["retina_unet"])
+        print(f"  gradient all-reduce of the Retina U-Net ({mb:.2f} MB) over NCCL at world size 1: {nccl_ms:.3f} ms; "
+              f"over gloo between the two ranks of 14a: {gloo_ms} ms ({card})")
+        del net, params
+    finally:
+        if mesh.dist.is_initialized():
+            mesh.dist.destroy_process_group()
+        for key in ("MDT_DIST_COORD", "MDT_DIST_NPROCS", "MDT_DIST_RANK"):
+            os.environ.pop(key)
+    torch.cuda.empty_cache()
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "step_ms": step_ms, "ranks": dp_times, "nccl_ms": nccl_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1776,21 +1992,23 @@ def main() -> int:
     lap("8: whole patients")
     with tempfile.TemporaryDirectory() as root:
         patients = _drive_patients(torch, np, common, nms_cuda, roi_align_cuda, nms_ops, card, root)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as train_root:  # phase 9's patients, read again by 10, 11 and 14
         lap("9: one-stage training through exec")
-        training = _drive_training(torch, np, common, counters, card, root)
+        training = _drive_training(torch, np, common, counters, card, train_root)
         lap("10: two-stage training through exec")
         two_stage = _drive_two_stage_training(
             torch, np, common, dict(counters, roi_align=roi_align_cuda.pyramid_roi_align,
-                                    roi_align_bwd=roi_align_cuda.pyramid_roi_align_backward), card, root)
+                                    roi_align_bwd=roi_align_cuda.pyramid_roi_align_backward), card, train_root)
         lap("11: Detection U-Net through exec")
-        det_unet = _drive_det_unet_training(torch, np, common, counters, card, root)
-    lap("12: the toy experiment through exec")
-    with tempfile.TemporaryDirectory() as root:
-        toy = _drive_toy(torch, np, common, counters, card, root)
-    lap("13: the PET-CT experiment through exec")
-    with tempfile.TemporaryDirectory() as root:
-        petct = _drive_petct(torch, np, common, counters, card, root)
+        det_unet = _drive_det_unet_training(torch, np, common, counters, card, train_root)
+        lap("12: the toy experiment through exec")
+        with tempfile.TemporaryDirectory() as root:
+            toy = _drive_toy(torch, np, common, counters, card, root)
+        lap("13: the PET-CT experiment through exec")
+        with tempfile.TemporaryDirectory() as root:
+            petct = _drive_petct(torch, np, common, counters, card, root)
+        lap("14: data parallelism")
+        dp = _drive_data_parallel(torch, np, common, counters, card, train_root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -1837,6 +2055,16 @@ def main() -> int:
           f"{', '.join(f'{t:.1f}' for t in ms)} ms per step as logged, peak {petct['peak_gib']:.2f} GiB; after a "
           f"warm-up, {'; '.join(f'{m} ' + ', '.join(f'{t:.1f}' for t in v) for m, v in petct['slice_ms'].items())} "
           f"ms per step")
+    for model, ranks in dp["ranks"].items():
+        print(f"  data-parallel {model}, 2 ranks of 4 rows sharing one card over gloo: "
+              f"{'; '.join(', '.join(f'{t:.1f}' for t in r['step_ms']) for r in ranks)} ms per step per rank "
+              f"(not a scaling figure); gradient buffer {ranks[0]['grad_mb']:.2f} MB, all-reduce "
+              f"{', '.join(str(round(r['reduce_ms'], 2)) for r in ranks)} ms")
+    ms = dp["step_ms"]
+    print(f"  exec --mode train_test data-parallel at world size 1 over NCCL, retina_unet 3D float32 at LIDC width: "
+          f"{', '.join(f'{t:.1f}' for t in ms)} ms per step as logged (phase 9: median "
+          f"{sorted(training['step_ms'])[len(training['step_ms']) // 2]:.1f}); gradient all-reduce over NCCL "
+          f"{dp['nccl_ms']:.3f} ms")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -1848,7 +2076,8 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/nms_pallas.py:84",
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
-        + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"] + petct["launches"]["nms"],
+        + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"] + petct["launches"]["nms"]
+        + dp["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -1856,14 +2085,14 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
         "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"]
-        + two_stage["launches"]["roi_align"],
+        + two_stage["launches"]["roi_align"] + dp["launches"]["roi_align"],
         **roi_entry,
     }, {
         "name": "roi_align_bwd",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:269",
-        "launches": two_stage["launches"]["roi_align_bwd"],
+        "launches": two_stage["launches"]["roi_align_bwd"] + dp["launches"]["roi_align_bwd"],
         **bwd_entry,
     }, {
         "name": "stem_fwd",
@@ -1871,7 +2100,8 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
         "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
-        + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"] + petct["launches"]["stem_fwd"],
+        + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"] + petct["launches"]["stem_fwd"]
+        + dp["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
@@ -1879,7 +2109,8 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/stem_conv.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
         "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"]
-        + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"] + petct["launches"]["stem_wgrad"],
+        + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"] + petct["launches"]["stem_wgrad"]
+        + dp["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

@@ -114,8 +114,10 @@ class DefaultConfigs:
         self.use_remat = None
         # a trace of train steps 2-6 (torch.profiler here, jax.profiler in JAX)
         self.profile = False
-        # the TPU mesh's data-parallel and spatial factors (MDT_DP, MDT_SP);
-        # the port trains on one card and raises above 1
+        # data-parallel ranks, one per card (MDT_DP; parallel/mesh.py): exec
+        # starts them itself, or each joins an MDT_DIST_* job; batch_size
+        # stays the global batch. Spatial partitioning (MDT_SP) above 1 is
+        # refused: not ported (ROADMAP.md, Queue 1)
         self.n_data_parallel = (
             int(os.environ["MDT_DP"]) if os.environ.get("MDT_DP") else None
         )

@@ -22,7 +22,7 @@ whole patients), model selection (ranked best checkpoints, ``last_checkpoint``
 with the Adam state), the monitoring plots and a ``val_sampling``
 prediction plot. ``--resume_to_checkpoint`` continues from a
 ``last_checkpoint``. Every registered detector trains (``retina_net``,
-``retina_unet``, ``mrcnn``, ``ufrcnn``, ``detection_unet``); one card only. ``test`` runs whole-patient inference of
+``retina_unet``, ``mrcnn``, ``ufrcnn``, ``detection_unet``). ``test`` runs whole-patient inference of
 each fold (tiling, mirror TTA, temporal ensembling over the fold's ranked
 checkpoints, WBC, 2D->3D merging) and scores it (``results.txt``);
 ``train_test`` does both; ``analysis`` re-scores the raw prediction pickles;
@@ -30,12 +30,29 @@ checkpoints, WBC, 2D->3D merging) and scores it (``results.txt``);
 JAX package's (``{epoch}_best_checkpoint/params.pkl``, loaded as they are).
 From Python, ``main(argv, device="cpu")`` runs on the CPU with the plain
 PyTorch versions of the kernels.
+
+Data parallelism (``parallel/mesh.py``): with ``cf.n_data_parallel = W > 1``
+(``MDT_DP=W``) and no ``MDT_DIST_*`` in the environment, ``main`` runs the
+command in W new processes, rank r on ``cuda:r`` over NCCL (on the CPU over
+gloo with ``device="cpu"``); with the ``MDT_DIST_*`` triple set (one process
+per card, on one host or several) the process joins that job on ``cuda:(rank
+% device_count)``. ``cf.batch_size`` is the global batch: each rank trains on
+its ``cf.batch_size / W`` rows, and a step equals the single-card step on the
+whole batch. The ranks' train and validation results are gathered for the
+evaluators; each rank predicts the whole test (and ``val_patient``) patients
+of its slice ``pids[rank::W]``, whose results are gathered in the data set's
+order. Only rank 0 writes the exp dir (log file, checkpoints,
+``epoch_ranking.npy``, monitoring, plots, prediction pickles,
+``results.txt``). A rank that raises, or a collective that outlasts
+``MDT_DIST_INIT_TIMEOUT``, fails the run. Spatial partitioning
+(``cf.n_space_parallel > 1``) is refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import tempfile
 import time
 
@@ -43,16 +60,41 @@ import medicaldetectiontoolkit_torch.utils.exp_utils as utils
 from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.evaluator import Evaluator
 from medicaldetectiontoolkit_torch.models import build_model
+from medicaldetectiontoolkit_torch.parallel import mesh
 from medicaldetectiontoolkit_torch.plotting import plot_batch_prediction
 from medicaldetectiontoolkit_torch.predictor import Predictor
 
 
-def _check_one_device(cf):
-    for attr in ("n_data_parallel", "n_space_parallel"):
-        if (getattr(cf, attr, None) or 1) > 1:
-            raise NotImplementedError(
-                f"cf.{attr} = {getattr(cf, attr)}: the port trains on one card; data and spatial parallelism "
-                "are ROADMAP.md's scale-out item (Queue 1, slice 7b)")
+def _check_parallel(cf, device):
+    """Refuse spatial partitioning, and more ranks than cards where this
+    command starts the ranks itself."""
+    if (getattr(cf, "n_space_parallel", None) or 1) > 1:
+        raise NotImplementedError(
+            f"cf.n_space_parallel = {cf.n_space_parallel}: spatial partitioning is not ported; it is the next "
+            "scale-out item of ROADMAP.md (Queue 1)")
+    n = getattr(cf, "n_data_parallel", None) or 1
+    if n > 1 and not mesh.dist.is_initialized() and (device is None or str(device).startswith("cuda")):
+        import torch
+
+        if n > torch.cuda.device_count():
+            raise ValueError(f"cf.n_data_parallel = {n} ranks, but {torch.cuda.device_count()} CUDA card(s) are "
+                             "visible: one rank per card")
+
+
+def _data_parallel(cf, net):
+    """Make ``net`` a rank of the process group's data-parallel run; on one
+    card nothing. ``cf.n_data_parallel``, where set, must be the group's
+    size."""
+    _, world = mesh.rank_and_world()
+    n = getattr(cf, "n_data_parallel", None)
+    if not mesh.dist.is_initialized():
+        if (n or 1) > 1:
+            raise RuntimeError(f"cf.n_data_parallel = {n} needs a process group: run through exec.main, which starts "
+                               "the ranks, or under MDT_DIST_*")
+        return
+    if (n or world) != world:
+        raise ValueError(f"cf.n_data_parallel = {n}, but the process group has {world} ranks")
+    net.enable_data_parallel()
 
 
 class _StepProfiler:
@@ -100,7 +142,8 @@ def train(cf, data_loader, logger, device=None):
     (``step_s``) and the host seconds the loop waited for each train batch
     (``load_s``); the train loader's worker count, batch size and host
     seconds per generated batch."""
-    _check_one_device(cf)
+    _check_parallel(cf, device)
+    writer = mesh.is_writer()
     logger.info(
         "performing training in {}D over fold {} on experiment {} with model {}".format(
             cf.dim, cf.fold, cf.exp_dir, cf.model
@@ -108,6 +151,7 @@ def train(cf, data_loader, logger, device=None):
     )
     net = build_model(cf, logger, device=device)
     net.initialize()
+    _data_parallel(cf, net)
     model_selector = utils.ModelSelector(cf, logger)
     train_evaluator = Evaluator(cf, logger, mode="train")
     val_evaluator = Evaluator(cf, logger, mode=cf.val_mode)
@@ -147,7 +191,7 @@ def train(cf, data_loader, logger, device=None):
             step_s = times["step_s"][epoch] = []
             load_s = times["load_s"][epoch] = []
             profiler = _StepProfiler(cf, logger, net.device) if getattr(cf, "profile", False) and \
-                epoch == starting_epoch else None
+                epoch == starting_epoch and writer else None
             pending = None
 
             def _finish(handles, fbatch, fbix, tic, foreign=0.0):
@@ -188,9 +232,12 @@ def train(cf, data_loader, logger, device=None):
             if profiler is not None:
                 profiler.stop()
 
-            _, monitor_metrics["train"] = train_evaluator.evaluate_predictions(
-                train_results_list, monitor_metrics["train"]
-            )
+            # every rank's rows; rank 0 scores them, selects and writes
+            train_results_list = mesh.gather_objects(train_results_list)
+            if writer:
+                _, monitor_metrics["train"] = train_evaluator.evaluate_predictions(
+                    train_results_list, monitor_metrics["train"]
+                )
             train_time = time.time() - start_time
 
             logger.info(f"starting validation in mode {cf.val_mode}.")
@@ -200,8 +247,7 @@ def train(cf, data_loader, logger, device=None):
                 pending_val = None  # val_sampling pipelines one-deep like training
 
                 def _record_val(results_dict, fbatch):
-                    val_results_list.append([results_dict["boxes"], fbatch["pid"]])
-                    monitor_metrics["val"]["monitor_values"][epoch].append(results_dict["monitor_values"])
+                    val_results_list.append(([results_dict["boxes"], fbatch["pid"]], results_dict["monitor_values"]))
 
                 for _ in range(batch_gen["n_val"]):
                     batch = next(batch_gen[cf.val_mode])
@@ -217,23 +263,31 @@ def train(cf, data_loader, logger, device=None):
                         _record_val(net.train_forward(batch, is_validation=True, need_seg_preds=False), batch)
                 if pending_val is not None:
                     _record_val(net.train_forward_convert(*pending_val, need_seg_preds=False), pending_val[1])
-
-                _, monitor_metrics["val"] = val_evaluator.evaluate_predictions(
-                    val_results_list, monitor_metrics["val"])
-                logger.info(f"val results epoch {epoch}: " + ", ".join(
-                    f"{k} {v[-1]}" for k, v in monitor_metrics["val"].items() if k != "monitor_values"))
-            # without validation, selection reads the train metrics
-            model_selector.run_model_selection(net, monitor_metrics, epoch)
-
-            training_plot.update_and_save(monitor_metrics, epoch)
+                if cf.val_mode == "val_patient":  # each rank validated patients of its own
+                    val_results_list = mesh.gather_interleaved(val_results_list)
+                entries = [entry for entry, _ in val_results_list]
+                # a val_sampling step's monitor values are the global batch's on every rank
+                monitor_metrics["val"]["monitor_values"][epoch] += [monitor for _, monitor in val_results_list]
+                if cf.val_mode != "val_patient":
+                    entries = mesh.gather_objects(entries)
+                if writer:
+                    _, monitor_metrics["val"] = val_evaluator.evaluate_predictions(entries, monitor_metrics["val"])
+                    logger.info(f"val results epoch {epoch}: " + ", ".join(
+                        f"{k} {v[-1]}" for k, v in monitor_metrics["val"].items() if k != "monitor_values"))
+            if writer:
+                # without validation, selection reads the train metrics
+                model_selector.run_model_selection(net, monitor_metrics, epoch)
+                training_plot.update_and_save(monitor_metrics, epoch)
             epoch_time = time.time() - start_time
             times["epoch_s"][epoch], times["train_s"][epoch] = epoch_time, train_time
             logger.info(f"trained epoch {epoch}: took {epoch_time:.1f} sec. ({train_time:.1f} train / "
                         f"{epoch_time - train_time:.1f} val)")
             batch = next(batch_gen["val_sampling"])
             results_dict = net.train_forward(batch, is_validation=True)
-            logger.info("plotting predictions from validation sampling.")
-            plot_batch_prediction(batch, results_dict, cf)
+            if writer:
+                logger.info("plotting predictions from validation sampling.")
+                plot_batch_prediction(batch, results_dict, cf)
+        mesh.barrier()  # the last checkpoints are written before any rank tests
     finally:
         for key in ("train", "val_sampling"):
             if key in batch_gen:
@@ -247,7 +301,10 @@ def test(cf, data_loader, logger, device=None):
     """Testing for one fold (or the hold-out set): predict, consolidate,
     score. Returns {"results": consolidated results per patient,
     "predictor", "evaluator", "evaluation_s": host seconds of the scoring};
-    the predictor's ``times`` hold the other stages."""
+    the predictor's ``times`` hold the other stages. In a data-parallel run
+    each rank predicts the patients of its slice, the results are gathered
+    and rank 0 scores them."""
+    _check_parallel(cf, device)
     logger.info(f"starting testing model of fold {cf.fold} in exp {cf.exp_dir}")
     net = build_model(cf, logger, device=device)
     net.initialize()
@@ -256,8 +313,9 @@ def test(cf, data_loader, logger, device=None):
     batch_gen = data_loader.get_test_generator(cf, logger)
     test_results_list = test_predictor.predict_test_set(batch_gen, return_results=True)
     t0 = time.perf_counter()
-    test_evaluator.evaluate_predictions(test_results_list)
-    test_evaluator.score_test_df()
+    if mesh.is_writer():
+        test_evaluator.evaluate_predictions(test_results_list)
+        test_evaluator.score_test_df()
     return {"results": test_results_list, "predictor": test_predictor, "evaluator": test_evaluator,
             "evaluation_s": time.perf_counter() - t0}
 
@@ -303,16 +361,50 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _prep_exp(*args, **kwargs):
+    """``utils.prep_exp`` on rank 0 first; the other ranks then read the
+    configuration it wrote and write nothing."""
+    if mesh.is_writer():
+        cf = utils.prep_exp(*args, **kwargs)
+        mesh.barrier()
+        return cf
+    mesh.barrier()
+    return utils.prep_exp(*args, write=False, **kwargs)
+
+
+def _spawned(cf, argv, device):
+    """With ``cf.n_data_parallel = W > 1`` and no process group: run this
+    command in W new processes (``mesh.spawn_ranks``) and wait. Returns
+    whether it did."""
+    if (getattr(cf, "n_data_parallel", None) or 1) == 1 or mesh.dist.is_initialized():
+        return False
+    _check_parallel(cf, device)
+    mesh.spawn_ranks(main, cf.n_data_parallel, (argv, device))
+    return True
+
+
 def main(argv=None, device=None):
     """Run the CLI on ``argv``; ``device`` None is the CUDA card. Returns
     ``{fold: result}``: train()'s in train mode, test()'s in test mode, both
-    as ``{"train", "test"}`` in train_test mode."""
-    args = parse_args(argv)
+    as ``{"train", "test"}`` in train_test mode; ``{}`` where it started the
+    ranks of a data-parallel run (their results stay in the exp dir)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    distributed = mesh.maybe_initialize_distributed(device=device)
+    try:
+        return _run(parse_args(argv), argv, device)
+    finally:
+        if distributed:
+            mesh.dist.destroy_process_group()
+
+
+def _run(args, argv, device):
     folds = args.folds
     out = {}
 
     if args.mode in ("train", "train_test"):
-        cf = utils.prep_exp(args.exp_source, args.exp_dir, args.server_env, args.use_stored_settings)
+        cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, args.use_stored_settings)
+        if _spawned(cf, argv, device):
+            return out
         folds = apply_dev_shrinkage(cf, args, folds)
         cf.data_dest = args.data_dest
         data_loader = utils.import_module("dl", os.path.join(args.exp_source, "data_loader.py"))
@@ -322,7 +414,8 @@ def main(argv=None, device=None):
             cf.fold_dir = os.path.join(cf.exp_dir, f"fold_{fold}")
             cf.fold = fold
             cf.resume_to_checkpoint = args.resume_to_checkpoint
-            os.makedirs(cf.fold_dir, exist_ok=True)
+            if mesh.is_writer():
+                os.makedirs(cf.fold_dir, exist_ok=True)
             logger = utils.get_logger(cf.fold_dir)
             try:
                 trained = train(cf, data_loader, logger, device=device)
@@ -335,7 +428,9 @@ def main(argv=None, device=None):
                 _close(logger)
 
     elif args.mode == "test":
-        cf = utils.prep_exp(args.exp_source, args.exp_dir, args.server_env, is_training=False, use_stored_settings=True)
+        cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, is_training=False, use_stored_settings=True)
+        if _spawned(cf, argv, device):
+            return out
         if args.dev:
             folds = [0, 1]
             cf.test_n_epochs = 1

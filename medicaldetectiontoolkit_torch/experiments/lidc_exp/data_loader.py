@@ -16,8 +16,9 @@ no jax:
     (``BatchGenerator`` -> mirror -> spatial augmentation -> boxes) and a
     ``val_sampling`` pipeline (center crop -> boxes), each a
     ``MultiThreadedGenerator`` of ``cf.n_workers`` threads seeded
-    ``0 .. n_workers - 1`` (rank 0 of 1 until the port scales out), and a
-    ``val_patient`` iterator in that mode;
+    ``rank * n_workers + w`` and yielding this rank's ``cf.batch_size / W``
+    rows of the global batch (``parallel/mesh.py::host_shard_info``; rank 0
+    of 1 on one card), and a ``val_patient`` iterator in that mode;
   * ``BatchGenerator``: class-balanced patients, fg-biased slices in 2D (with
     ``n_3D_context`` neighbours in channels), fg-anchored pre-crops; the same
     ``RandomState`` gives the JAX package's batches, array for array;
@@ -27,8 +28,9 @@ no jax:
   * ``PatientBatchIterator``: one whole patient per step, padded to patch
     size, with the 3D GT even for 2D models (merged 2D->3D evaluation), the
     overlapping patch grid stacked along the batch axis, z slices (with
-    ``n_3D_context`` neighbours in channels) in 2D. This process iterates
-    every patient: rank 0 of 1 until the port scales out.
+    ``n_3D_context`` neighbours in channels) in 2D. Each rank iterates its
+    slice ``pids[rank::world]``; ``n_test`` (and ``n_val`` of
+    ``val_patient``) count that slice, capped by ``max_test_patients``.
 
 Stored arrays are (z, y, x) and are transposed to (y, x, z) on load.
 """
@@ -46,6 +48,7 @@ from medicaldetectiontoolkit_torch.data import dataloader_utils as dutils
 from medicaldetectiontoolkit_torch.data.augmentation import center_crop_batch, mirror_batch, spatial_augment_batch
 from medicaldetectiontoolkit_torch.data.loader import BatchGeneratorBase, MultiThreadedGenerator
 from medicaldetectiontoolkit_torch.data.seg_to_boxes import convert_seg_to_bounding_box_coordinates
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 def _fold_splits(cf, n_pids):
@@ -53,15 +56,17 @@ def _fold_splits(cf, n_pids):
 
     ``fold_ids.pickle`` in the exp dir is the cross-run source of truth: the
     first fold of a fresh experiment writes it, and every later fold and run
-    of the same experiment reads the same split.
+    of the same experiment reads the same split. In a data-parallel run
+    rank 0 writes it; every rank draws the same split.
     """
     path = os.path.join(cf.exp_dir, "fold_ids.pickle")
     if cf.created_fold_id_pickle:
         with open(path, "rb") as fh:
             return pickle.load(fh)
     splits = dutils.fold_generator(seed=cf.seed, n_splits=cf.n_cv_splits, len_data=n_pids).get_fold_names()
-    with open(path, "wb") as fh:
-        pickle.dump(splits, fh)
+    if mesh.is_writer():
+        with open(path, "wb") as fh:
+            pickle.dump(splits, fh)
     cf.created_fold_id_pickle = True
     return splits
 
@@ -92,7 +97,8 @@ def get_train_generators(cf, logger):
     }
     if cf.val_mode == "val_patient":
         gens["val_patient"] = PatientBatchIterator(subset["val"], cf=cf)
-        gens["n_val"] = len(val_ix) if cf.max_val_patients is None else min(len(val_ix), cf.max_val_patients)
+        n = len(gens["val_patient"].dataset_pids)
+        gens["n_val"] = n if cf.max_val_patients is None else min(n, cf.max_val_patients)
     else:
         gens["n_val"] = cf.num_val_batches
     return gens
@@ -103,7 +109,7 @@ def create_data_gen_pipeline(patient_data, cf, is_training=True, generator_cls=N
     subclass) + transforms in ``cf.n_workers`` threads: mirror and spatial
     augmentation to ``patch_size`` in training, a center crop otherwise, then
     seg -> boxes."""
-    data_gen = (generator_cls or BatchGenerator)(patient_data, batch_size=cf.batch_size, cf=cf)
+    data_gen = (generator_cls or BatchGenerator)(patient_data, batch_size=mesh.local_batch_size(cf), cf=cf)
     transforms = []
     if is_training:
         def mirror_t(batch, rng):
@@ -130,8 +136,9 @@ def create_data_gen_pipeline(patient_data, cf, is_training=True, generator_cls=N
         )
 
     transforms.append(convert_t)
-    # worker seeds rank * n_workers + w, with this process rank 0 of 1
-    return MultiThreadedGenerator(data_gen, transforms, n_workers=cf.n_workers, seeds=range(cf.n_workers))
+    rank, _ = mesh.host_shard_info(cf)  # distinct sampling per rank
+    seeds = [rank * cf.n_workers + w for w in range(cf.n_workers)]
+    return MultiThreadedGenerator(data_gen, transforms, n_workers=cf.n_workers, seeds=seeds)
 
 
 def get_test_generator(cf, logger):
@@ -335,7 +342,8 @@ class PatientBatchIterator:
         self._data = data
         self.cf = cf
         self.patient_ix = 0
-        self.dataset_pids = [v["pid"] for v in data.values()]
+        rank, world = mesh.host_shard_info(cf)  # this rank's patient slice
+        self.dataset_pids = [v["pid"] for v in data.values()][rank::world]
         # patch grid is always computed in 3D; 2D mode tiles z slice-wise
         self.patch_size = list(cf.patch_size) + ([1] if len(cf.patch_size) == 2 else [])
 

@@ -13,13 +13,15 @@ volumes and sampling:
     pipeline (``BatchGenerator`` -> mirror -> spatial augmentation -> boxes)
     and a ``val_sampling`` pipeline (center crop -> boxes), each a
     ``MultiThreadedGenerator`` of ``cf.n_workers`` threads seeded
-    ``0 .. n_workers - 1`` (rank 0 of 1 until the port scales out);
+    ``rank * n_workers + w``, each rank sampling ``cf.batch_size / W`` rows
+    of the global batch (the LIDC pipeline's);
   * ``BatchGenerator``: patients drawn uniformly (``head_classes == 2``) or
     class-balanced, fg-anchored pre-crops; the same ``RandomState`` gives the
     JAX package's batches, array for array;
   * ``get_test_generator``: every patient of ``cf.pp_test_data_path`` (the
     hold-out set), one per step through ``PatientBatchIterator``: the whole
-    patient padded to patch size and its overlapping patch grid.
+    patient padded to patch size and its overlapping patch grid; each rank
+    iterates its slice ``pids[rank::world]``, which ``n_test`` counts.
 
 Stored volumes are (c, z, y, x) and are transposed to (c, y, x, z) on load,
 then ``cf.channels`` is selected (CT and PET); segs are (z, y, x).
@@ -57,7 +59,8 @@ def get_train_generators(cf, logger):
     }
     if cf.val_mode == "val_patient":
         gens["val_patient"] = PatientBatchIterator(val_data, cf=cf)
-        gens["n_val"] = len(val_pids) if cf.max_val_patients is None else min(len(val_pids), cf.max_val_patients)
+        n = len(gens["val_patient"].dataset_pids)
+        gens["n_val"] = n if cf.max_val_patients is None else min(n, cf.max_val_patients)
     else:
         gens["n_val"] = cf.num_val_batches
     return gens
@@ -66,9 +69,9 @@ def get_train_generators(cf, logger):
 def get_test_generator(cf, logger):
     test_data = load_dataset(cf, logger, pp_data_path=cf.pp_test_data_path)
     logger.info(f"data set loaded with: {len(test_data)} test patients")
-    n = len(test_data)
-    return {"test": PatientBatchIterator(test_data, cf=cf),
-            "n_test": n if cf.max_test_patients == "all" else min(cf.max_test_patients, n)}
+    it = PatientBatchIterator(test_data, cf=cf)
+    n = len(it.dataset_pids)  # this rank's slice
+    return {"test": it, "n_test": n if cf.max_test_patients == "all" else min(cf.max_test_patients, n)}
 
 
 def load_dataset(cf, logger, subset_ixs=None, pp_data_path=None):

@@ -12,8 +12,10 @@ images, no augmentation but the center crop, as the reference's
 ``meta_info_{pid}.pickle`` files in ``os.listdir`` order, which is the row
 order of the ``info_df.pickle`` that both generators aggregate from the same
 directory; the same seed gives the JAX package's batches, array for array.
-This process is rank 0 of 1: worker seeds ``0 .. n_workers - 1``, and every
-patient is iterated.
+Each rank (``parallel/mesh.py::host_shard_info``; rank 0 of 1 on one card)
+seeds its workers ``rank * n_workers + w``, samples ``cf.batch_size / W``
+rows of the global batch and iterates the patient slice
+``pids[rank::world]``, which ``n_test`` and ``n_val`` count.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from medicaldetectiontoolkit_torch.data.augmentation import center_crop_batch, m
 from medicaldetectiontoolkit_torch.data.loader import BatchGeneratorBase, MultiThreadedGenerator
 from medicaldetectiontoolkit_torch.data.seg_to_boxes import convert_seg_to_bounding_box_coordinates
 from medicaldetectiontoolkit_torch.experiments.toy_exp.generate_toys import read_meta_info
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 def get_train_generators(cf, logger):
@@ -52,7 +55,8 @@ def get_train_generators(cf, logger):
     batch_gen["val_sampling"] = create_data_gen_pipeline(val_data, cf=cf, do_aug=False)
     if cf.val_mode == "val_patient":
         batch_gen["val_patient"] = PatientBatchIterator(val_data, cf=cf)
-        batch_gen["n_val"] = len(val_pids) if cf.max_val_patients is None else min(len(val_pids), cf.max_val_patients)
+        n = len(batch_gen["val_patient"].dataset_pids)
+        batch_gen["n_val"] = n if cf.max_val_patients is None else min(n, cf.max_val_patients)
     else:
         batch_gen["n_val"] = cf.num_val_batches
     return batch_gen
@@ -62,11 +66,9 @@ def get_test_generator(cf, logger):
     """Hold-out test iterator (toy always uses a separate test dir)."""
     test_data = load_dataset(cf, logger, pp_data_path=cf.pp_test_data_path)
     logger.info(f"data set loaded with: {len(test_data)} test patients from {cf.pp_test_data_path}")
-    batch_gen = {
-        "test": PatientBatchIterator(test_data, cf=cf),
-        "n_test": len(test_data) if cf.max_test_patients == "all" else min(cf.max_test_patients, len(test_data)),
-    }
-    return batch_gen
+    it = PatientBatchIterator(test_data, cf=cf)
+    n = len(it.dataset_pids)  # this rank's slice
+    return {"test": it, "n_test": n if cf.max_test_patients == "all" else min(cf.max_test_patients, n)}
 
 
 def load_dataset(cf, logger, subset_ixs=None, pp_data_path=None):
@@ -145,10 +147,11 @@ def _make_transforms(cf, do_aug):
 
 
 def create_data_gen_pipeline(patient_data, cf, do_aug=True):
-    data_gen = BatchGenerator(patient_data, batch_size=cf.batch_size, cf=cf)
+    data_gen = BatchGenerator(patient_data, batch_size=mesh.local_batch_size(cf), cf=cf)
     transforms = _make_transforms(cf, do_aug)
-    # worker seeds rank * n_workers + w, with this process rank 0 of 1
-    return MultiThreadedGenerator(data_gen, transforms, n_workers=cf.n_workers, seeds=range(cf.n_workers))
+    rank, _ = mesh.host_shard_info(cf)  # distinct sampling per rank
+    seeds = [rank * cf.n_workers + w for w in range(cf.n_workers)]
+    return MultiThreadedGenerator(data_gen, transforms, n_workers=cf.n_workers, seeds=seeds)
 
 
 class PatientBatchIterator:
@@ -162,8 +165,8 @@ class PatientBatchIterator:
         self._data = data
         self.cf = cf
         self.patient_ix = 0
-        # every patient: this process is rank 0 of 1
-        self.dataset_pids = [v["pid"] for (k, v) in data.items()]
+        rank, world = mesh.host_shard_info(cf)  # this rank's patient slice
+        self.dataset_pids = [v["pid"] for (k, v) in data.items()][rank::world]
 
     def __iter__(self):
         return self

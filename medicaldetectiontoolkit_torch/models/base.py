@@ -22,11 +22,14 @@ seg_preds))`` for every detector: the one-stage detectors
 
 Every detector trains (``retina_net.py``, ``mrcnn.py``): Adam with the lr
 set per step, gradient accumulation over microbatches, and the optimizer
-state in ``state_dict``.
+state in ``state_dict``. After ``enable_data_parallel`` a detector is one
+rank of a data-parallel run (``parallel/mesh.py``): its batches hold this
+rank's rows, its steps equal the single-card step on the global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -251,6 +254,8 @@ class Detector:
 
     # per-epoch lr, set by the trainer (reference exec.py:59-60)
     current_lr = 1e-4
+    # this rank's mesh.DataParallel after enable_data_parallel; None on one card
+    dp = None
 
     def __init__(self, cf, logger, device: Optional[torch.device] = None):
         self.cf = cf
@@ -273,6 +278,7 @@ class Detector:
         and start a fresh optimizer state."""
         self.init_params(self.cf.seed if seed is None else seed)
         self.optimizer = make_optimizer(self.cf, self.module.parameters())
+        self._broadcast_params()
         n_params = sum(p.numel() for p in self.module.parameters())
         if self.logger is not None:
             self.logger.info(f"initialized {type(self).__name__} with {n_params/1e6:.2f}M parameters")
@@ -287,6 +293,7 @@ class Detector:
         self.module.load_state_dict(state["params"])
         if state.get("opt_state") is not None:
             self.optimizer.load_state_dict(state["opt_state"])
+        self._broadcast_params()
 
     def jax_params(self):
         """The parameters as a JAX param tree (nested dicts of numpy arrays
@@ -306,6 +313,59 @@ class Detector:
         self.module.load_state_dict(convert.jax_to_torch(params, self.module))
         if opt_state is not None:
             self.optimizer.load_state_dict(convert.jax_adam_to_torch(opt_state, self.module, self.optimizer))
+        self._broadcast_params()
+
+    # ---- data parallelism ----------------------------------------------
+    def enable_data_parallel(self, group=None):
+        """Make this detector one rank of data-parallel training over
+        ``group`` (default: the whole job; ``parallel/mesh.py``): rank 0's
+        parameters are broadcast now and after every load, each step's
+        batch-wide sums and its gradients are summed over the ranks, and
+        batches hold this rank's rows of the global batch. The Predictor's
+        whole patients stay on one rank (``single_card``)."""
+        from medicaldetectiontoolkit_torch.parallel import mesh
+
+        self.dp = mesh.DataParallel(group)
+        self._broadcast_params()
+        if self.logger is not None:
+            self.logger.info(f"data-parallel training: rank {self.dp.rank} of {self.dp.world}")
+        return self.dp
+
+    def _broadcast_params(self):
+        if self.dp is not None:
+            self.dp.broadcast_params(self.module)
+
+    @contextlib.contextmanager
+    def single_card(self):
+        """Steps run inside on this rank's batch alone, with no collective
+        (the Predictor's validation of its own whole patients)."""
+        dp, self.dp = self.dp, None
+        try:
+            yield
+        finally:
+            self.dp = dp
+
+    def step_layout(self, n_rows: int, n_micro: Optional[int] = None):
+        """(microbatches, rows of a global microbatch) of a step whose batch
+        holds ``n_rows`` rows on this rank: the accumulation count is
+        resolved on the global batch (``resolve_grad_accum``), unless given."""
+        world = 1 if self.dp is None else self.dp.world
+        bsz = n_rows * world
+        n_micro = n_micro or resolve_grad_accum(self.cf, bsz)
+        m = bsz // n_micro
+        if m % world:
+            raise ValueError(f"global batch {bsz} in {n_micro} microbatches of {m} rows does not split over {world} "
+                             "ranks")
+        return n_micro, m
+
+    def step_draws(self, n_micro: int, m: int):
+        """``self.draws(n_micro, m)`` of the global batch, this rank's rows."""
+        draws = self.draws(n_micro, m)
+        return draws if self.dp is None else tuple(self.dp.local_rows(d) for d in draws)
+
+    def data_parallel_step(self, n_micro: int):
+        """The span of one step (``mesh.DataParallel.step``); nothing on one card."""
+        return contextlib.nullcontext() if self.dp is None else self.dp.step(n_micro)
 
     # ---- inference -----------------------------------------------------
     def _predict(self, img):
@@ -355,7 +415,10 @@ class Detector:
         raise NotImplementedError
 
     def _update(self):
-        """One Adam step at ``current_lr``."""
+        """One Adam step at ``current_lr``, on the gradients summed over the
+        ranks in a data-parallel run."""
+        if self.dp is not None:
+            self.dp.reduce_gradients(list(self.module.parameters()))
         for group in self.optimizer.param_groups:
             group["lr"] = self.current_lr
         self.optimizer.step()

@@ -143,9 +143,10 @@ class DetectionUNetDetector(base.Detector):
 
     def _accumulate(self, img, seg):
         """Loss and gradients of one step over ``cf.grad_accum_steps``
-        microbatches; grads land in the params' ``.grad``. Returns (mean
-        loss, softmax of the whole batch)."""
-        n_micro = base.resolve_grad_accum(self.cf, img.shape[0])
+        microbatches (of the global batch in a data-parallel run); grads
+        land in the params' ``.grad``. Returns (mean loss, softmax of the
+        whole batch)."""
+        n_micro = self.step_layout(img.shape[0])[0]
         m = img.shape[0] // n_micro
         loss, smax = base.accum_backward(list(self.module.parameters()),
                                          lambda i: self._losses(img[i * m:(i + 1) * m], seg[i * m:(i + 1) * m]),
@@ -180,12 +181,14 @@ class DetectionUNetDetector(base.Detector):
         copies of its loss and softmax; return handles nothing has waited
         for yet."""
         img, seg = self._prep(batch)
-        if is_validation or not do_update:
-            with torch.no_grad():
-                loss, smax = self._losses(img, seg)
-        else:
-            loss, smax = self._accumulate(img, seg)
-            self._update()
+        validating = is_validation or not do_update
+        with self.data_parallel_step(self.step_layout(img.shape[0], 1 if validating else None)[0]):
+            if validating:
+                with torch.no_grad():
+                    loss, smax = self._losses(img, seg)
+            else:
+                loss, smax = self._accumulate(img, seg)
+                self._update()
         host, copied = base.start_host_copies([loss.detach(), smax])
         return host[0], host[1], copied
 

@@ -51,6 +51,7 @@ from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
 from medicaldetectiontoolkit_torch.ops.losses import softmax
 from medicaldetectiontoolkit_torch.ops.topk import top_k
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 class RPNHead(nn.Module):
@@ -359,8 +360,11 @@ def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_b
 
 
 def _flat_mean(values, mask):
-    """``masked_mean`` over all of ``values``, as JAX's over one flat batch."""
-    return loss_ops.masked_mean(values[None], mask[None])[0]
+    """``masked_mean`` over all of ``values``, as JAX's over one flat batch
+    (the global batch in a data-parallel step: ``mesh.batch_sum``)."""
+    mask = mask.to(values.dtype)
+    total, count = mesh.batch_sum(torch.stack([(values * mask).sum(), mask.sum()]))
+    return torch.where(count > 0, total / count.clamp_min(1.0), 0.0)
 
 
 def mrcnn_class_loss(target_class, logits, slot_valid):
@@ -591,8 +595,8 @@ class MaskRCNNDetector(base.Detector):
             cf.rpn_train_anchors_per_image, self.rpn_std)
         rpn_class_losses, neg_sel = loss_ops.anchor_class_loss(
             rpn_shem_rand, rpn_match, rpn_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
-        rpn_class_loss = rpn_class_losses.mean()
-        rpn_bbox_loss = loss_ops.anchor_bbox_loss(rpn_tdeltas, rpn_deltas, rpn_match).mean()
+        rpn_class_loss = mesh.batch_mean(rpn_class_losses)
+        rpn_bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(rpn_tdeltas, rpn_deltas, rpn_match))
 
         # detection targets, then the heads on the sampled RoIs
         probs_pe = softmax(cls_logits_all).reshape(bsz, -1, cls_logits_all.shape[-1])
@@ -686,16 +690,18 @@ class MaskRCNNDetector(base.Detector):
         inputs = self._prep(batch)
         bsz = inputs[0].shape[0]
         with_masks = bool(self.cf.return_masks_in_val) if is_validation else False
-        if is_validation or not do_update:
-            with torch.no_grad():
-                _, aux = self._losses(inputs, [d[0] for d in self.draws(1, bsz)], with_masks)
-            monitor, outs = self._merge([aux], bsz, with_masks)
-        else:
-            n_micro = base.resolve_grad_accum(self.cf, bsz)
-            m = bsz // n_micro
-            _, auxs = self._accumulate(inputs, self.draws(n_micro, m))
-            self._update()
-            monitor, outs = self._merge(auxs, m)
+        validating = is_validation or not do_update
+        n_micro, m = self.step_layout(bsz, 1 if validating else None)
+        draws = self.step_draws(n_micro, m)
+        with self.data_parallel_step(n_micro):
+            if validating:
+                with torch.no_grad():
+                    _, aux = self._losses(inputs, [d[0] for d in draws], with_masks)
+                monitor, outs = self._merge([aux], bsz, with_masks)
+            else:
+                _, auxs = self._accumulate(inputs, draws)
+                self._update()
+                monitor, outs = self._merge(auxs, bsz // n_micro)
         keys = list(monitor)
         small = ["det", "det_mask", "out_proposals", "sampled_rois", "sampled_valid", "sampled_class"]
         host, copied = base.start_host_copies([*monitor.values(), *outs["anchor_info"], *(outs[k] for k in small)])

@@ -35,6 +35,7 @@ from medicaldetectiontoolkit_torch.ops import losses as loss_ops
 from medicaldetectiontoolkit_torch.ops import matching as match_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 from medicaldetectiontoolkit_torch.ops.topk import top_k
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 class DenseHead(nn.Module):
@@ -102,12 +103,15 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     n_fg = C - 1
     dev = class_logits.device
     max_inst = cf.model_max_instances_per_batch_element
-    k = min(cf.pre_nms_limit, bsz * A * n_fg)
+    dp = mesh.current()
+    k = min(cf.pre_nms_limit, bsz * (1 if dp is None else dp.world) * A * n_fg)
 
     flat = loss_ops.softmax(class_logits)[..., 1:].reshape(-1)
     # exact top-k: flat index order is (elem, anchor, class), so an
-    # approximate selection would drop the weaker class of the same anchor
-    scores, flat_ix = top_k(flat, k)
+    # approximate selection would drop the weaker class of the same anchor;
+    # in a data-parallel step the selection spans the global batch, and
+    # ``own`` marks the candidates of this rank's rows
+    scores, flat_ix, own = mesh.batch_top_k(flat, k, A * n_fg)
     cand_elem = flat_ix // (A * n_fg)
     rem = flat_ix % (A * n_fg)
     cand_anchor = rem // n_fg
@@ -127,6 +131,8 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     lane_elem = torch.arange(bsz, device=dev).repeat_interleave(n_fg)
     lane_class = torch.arange(1, C, device=dev).repeat(bsz)
     lane_valid = (cand_elem[None, :] == lane_elem[:, None]) & (cand_class[None, :] == lane_class[:, None])
+    if own is not None:
+        lane_valid &= own[None, :]
     lane_idx, lane_mask = nms_fn(
         boxes.expand(n_lanes, k, boxes.shape[-1]), scores.expand(n_lanes, k),
         cf.detection_nms_threshold, max_inst, valid=lane_valid,
@@ -230,8 +236,8 @@ class RetinaNetDetector(base.Detector):
             cf.rpn_train_anchors_per_image, self.bbox_std)
         class_losses, neg_sel = loss_ops.anchor_class_loss(
             shem_rand, matches, class_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
-        class_loss = class_losses.mean()
-        bbox_loss = loss_ops.anchor_bbox_loss(tdeltas, bb_deltas, matches).mean()
+        class_loss = mesh.batch_mean(class_losses)
+        bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(tdeltas, bb_deltas, matches))
         loss = class_loss + bbox_loss
         monitor = {"class_loss": class_loss, "bbox_loss": bbox_loss}
         if seg_logits is not None:
@@ -268,17 +274,18 @@ class RetinaNetDetector(base.Detector):
         (monitor values, sampled anchors, detections); return handles that
         nothing has waited for yet."""
         inputs = self._prep(batch)
-        bsz = inputs[0].shape[0]
-        if is_validation or not do_update:
-            match_rand, shem_rand = self.draws(1, bsz)
+        validating = is_validation or not do_update
+        n_micro, m = self.step_layout(inputs[0].shape[0], 1 if validating else None)
+        draws = self.step_draws(n_micro, m)
+        with self.data_parallel_step(n_micro):
+            if validating:
+                with torch.no_grad():
+                    _, aux = self._losses_and_outputs(*inputs, *(d[0] for d in draws))
+            else:
+                _, aux = self._accumulate(inputs, draws)
+                self._update()
             with torch.no_grad():
-                _, aux = self._losses_and_outputs(*inputs, match_rand[0], shem_rand[0])
-        else:
-            n_micro = base.resolve_grad_accum(self.cf, bsz)
-            _, aux = self._accumulate(inputs, self.draws(n_micro, bsz // n_micro))
-            self._update()
-        with torch.no_grad():
-            det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
+                det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
         keys = list(aux["monitor"])
         host, copied = base.start_host_copies([*aux["monitor"].values(), *aux["anchor_info"], det, det_mask])
         return tuple(inputs[0].shape), dict(zip(keys, host)), host[len(keys):-2], host[-2], host[-1], seg_preds, copied

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from medicaldetectiontoolkit_torch.ops.topk import top_k
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 def softmax(logits):
@@ -103,7 +104,8 @@ def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float
     """Soft batch dice over the foreground classes + CE (``losses.py:155-212``).
 
     seg_logits (b, C, *spatial), seg (b, 1, *spatial) int labels. The dice
-    sums run over the whole batch, as the reference's batch dice does;
+    sums run over the whole batch, as the reference's batch dice does (the
+    global batch in a data-parallel step: ``parallel/mesh.py::batch_sum``);
     ``false_positive_weight`` weights the predictions in the dice
     denominator. ``class_weights`` (C,) make the CE a weighted mean,
     normalised by the weights applied (``F.cross_entropy``'s ``weight=``).
@@ -124,12 +126,15 @@ def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float
         psum.append(probs_c.sum())
         count.append(m.sum())
         lp_y = lp_y + logp_c * m
-    denom = false_positive_weight * torch.stack(psum) + torch.stack(count)
-    dice = (2.0 * torch.stack(intersect) + 1e-6) / (denom + 1e-6)
+    intersect, psum, count = mesh.batch_sum(torch.stack([torch.stack(intersect), torch.stack(psum),
+                                                         torch.stack(count)]))
+    denom = false_positive_weight * psum + count
+    dice = (2.0 * intersect + 1e-6) / (denom + 1e-6)
     if class_weights is None:
-        ce = -lp_y.mean()
+        ce = -mesh.batch_mean(lp_y)
     else:
         w = torch.as_tensor(class_weights, dtype=torch.float32, device=lp_y.device)
         w_vox = w[lab.long()]
-        ce = -(lp_y * w_vox).sum() / torch.clamp_min(w_vox.sum(), 1e-8)
+        num, den = mesh.batch_sum(torch.stack([(lp_y * w_vox).sum(), w_vox.sum()]))
+        ce = -num / torch.clamp_min(den, 1e-8)
     return 1.0 - dice[1:].mean(), ce

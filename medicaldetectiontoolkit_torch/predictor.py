@@ -29,6 +29,12 @@ sums host seconds per stage: ``forward`` (dispatch and convert, ending in the
 device->host copies), ``patient`` (all of ``predict_patient``; the rest of it
 beyond ``forward`` is stitching: mirroring, seg averaging, box offsets) and
 ``consolidation`` (WBC and 2D->3D merging).
+
+In a data-parallel run (``parallel/mesh.py``) each rank predicts the whole
+patients of its slice on its own card, with no collective (``Detector.
+single_card``), so a patient's results are the single-card ones; the test
+set's raw and consolidated results are gathered in the data set's order and
+rank 0 writes the prediction pickle.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from medicaldetectiontoolkit_torch import native
+from medicaldetectiontoolkit_torch.parallel import mesh
 from medicaldetectiontoolkit_torch.utils.exp_utils import load_checkpoint_state
 
 
@@ -75,7 +82,8 @@ class Predictor:
         self.logger.info(f"evaluating patient {batch['pid']} for fold {getattr(self.cf, 'fold', 0)}")
         t0 = time.perf_counter()
         self.patched_patient = "patch_crop_coords" in list(batch.keys())
-        results_dict = self.data_aug_forward(batch)
+        with self.net.single_card():  # this rank's patient, whole on its card
+            results_dict = self.data_aug_forward(batch)
         self.times["patient"] += time.perf_counter() - t0
 
         if self.mode == "val":
@@ -147,12 +155,13 @@ class Predictor:
             list_of_results_per_patient.append([results_dict["boxes"], pid])
 
         out_string = "raw_pred_boxes_hold_out_list" if self.cf.hold_out_test_set else "raw_pred_boxes_list"
-        with open(os.path.join(self.cf.fold_dir, f"{out_string}.pickle"), "wb") as handle:
-            pickle.dump(list_of_results_per_patient, handle)
+        every_patient = mesh.gather_interleaved(list_of_results_per_patient)  # the ranks' slices, in order
+        if mesh.is_writer():
+            with open(os.path.join(self.cf.fold_dir, f"{out_string}.pickle"), "wb") as handle:
+                pickle.dump(every_patient, handle)
 
         if return_results:
-            list_of_results_per_patient = self._consolidate(list_of_results_per_patient, self.n_ens)
-            return list_of_results_per_patient
+            return mesh.gather_interleaved(self._consolidate(list_of_results_per_patient, self.n_ens))
 
     def _consolidate(self, list_of_results_per_patient, n_ens):
         t0 = time.perf_counter()

@@ -387,3 +387,150 @@ def make_petct_experiment(root, env, overrides=None, n_patients=4, shape=(12, 48
         generate_synthetic_petct(data_dir, n_patients=n_patients, shape=tuple(shape))
     return _pinned_experiment("pet_ct_tnm_classification", os.path.join(root, exp_name),
                               dict(env, MDT_PETCT_PP=data_dir), overrides or {})
+
+
+#############################
+#   data-parallel ranks     #
+#############################
+
+DP_CASES = ("retina_unet", "mrcnn", "detection_unet")
+
+
+def dp_case(name):
+    """(cf, global batch, init seed) of a data-parallel parity case: a
+    global batch of 8 in 2 microbatches (2 rows per rank per microbatch on
+    2 ranks). Mask R-CNN takes the init seed, proposal counts and 3D
+    geometry of ``tests/test_torch_mrcnn_train.py``, under which positive
+    RoIs are sampled; Detection U-Net its class and false-positive
+    weights."""
+    if name == "retina_unet":
+        cf = make_config(model="retina_unet", dim=2, batch_size=8)
+        seed, init = 3, 1
+    elif name == "mrcnn":
+        cf = make_config(model="mrcnn", dim=3, batch_size=8, retina_scales=False)
+        cf.pre_nms_limit, cf.post_nms_rois_training, cf.use_remat = 2000, 300, True
+        seed, init = 1, 4
+    elif name == "detection_unet":
+        cf = make_config(model="detection_unet", dim=2, batch_size=8)
+        cf.fp_dice_weight, cf.wce_weights = 1.5, [0.5, 1.0, 2.0]
+        seed, init = 5, 1
+    else:
+        raise ValueError(f"unknown data-parallel case {name!r}")
+    cf.grad_accum_steps = 2
+    return cf, make_batch(cf, seed=seed), init
+
+
+def dp_step(cf, batch, init_seed, device="cpu", draws=None, lr=1e-3):
+    """One train step and one validation step of ``cf``'s detector on
+    ``batch``, the global batch: on this rank's rows (``mesh.shard_batch``)
+    and data-parallel when a process group is up, else the single-card
+    step. ``draws`` (the global tensors of ``Detector.draws``) replace the
+    train step's own. Returns the monitor values of both steps, the summed
+    gradients, the updated parameters (CPU tensors) and the train step's
+    detections (``box_type == "det"`` dicts per row)."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    net = build_model(cf, None, device=device)
+    net.initialize(seed=init_seed)
+    rank, world = mesh.rank_and_world()
+    if mesh.dist.is_initialized():
+        net.enable_data_parallel()
+    net.current_lr = lr
+    n_micro = resolve_grad_accum(cf, cf.batch_size)
+    out = {}
+    for key, local in (("train", mesh.shard_batch(batch, rank, world, n_micro)),
+                       ("val", mesh.shard_batch(batch, rank, world, 1))):
+        if key == "train" and draws is not None:
+            net.draws = lambda n_micro, m: tuple(d.to(net.device) for d in draws)
+        handles = net.train_forward_dispatch(local, is_validation=key == "val")
+        vars(net).pop("draws", None)  # the validation step draws its own
+        # the monitor dict of the one-stage and two-stage handles; Detection
+        # U-Net's handles start with its loss
+        monitor = handles[1] if isinstance(handles[1], dict) else {"loss": handles[0]}
+        res = net.train_forward_convert(handles, local, need_seg_preds=False)
+        out[key] = {k: float(v) for k, v in monitor.items()}
+        if key == "train":
+            out["grads"] = {n: p.grad.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
+            out["params"] = {n: p.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
+            out["dets"] = [[b for b in row if b["box_type"] == "det"] for row in res["boxes"]]
+    out["rows"] = mesh.shard_rows(cf.batch_size, rank, world, n_micro)
+    return out
+
+
+def dp_rank_main(argv=None):
+    """A rank of ``run_ranks``' parity runs: ``out_dir device case...``;
+    joins the ``MDT_DIST_*`` process group (gloo on the CPU) and writes
+    ``dp_step``'s result per case to ``out_dir/{case}_rank{r}.pt``; a case
+    ``name:path`` feeds the global draws saved at ``path``."""
+    import sys
+
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out_dir, device, *cases = sys.argv[2:] if argv is None else argv
+    torch.set_num_threads(2)
+    mesh.maybe_initialize_distributed(device=device, backend="gloo")
+    try:
+        for case in cases:
+            name, _, draws_path = case.partition(":")
+            cf, batch, init = dp_case(name)
+            draws = torch.load(draws_path) if draws_path else None
+            result = dp_step(cf, batch, init, device=device, draws=draws)
+            torch.save(result, os.path.join(out_dir, f"{name}_rank{mesh.rank_and_world()[0]}.pt"))
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+def run_ranks(argv, world=2, timeout=300.0, env=None):
+    """Run ``python argv...`` as ``world`` processes, each with the
+    ``MDT_DIST_*`` triple of its rank (a free port on 127.0.0.1) and 2
+    torch threads, and wait at most ``timeout`` seconds for them all. A rank
+    that fails or a run that times out kills every rank and raises with
+    their output. Returns each rank's output."""
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    port = mesh.free_port()
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            penv = dict(os.environ, **(env or {}), MDT_DIST_COORD=f"127.0.0.1:{port}", MDT_DIST_NPROCS=str(world),
+                        MDT_DIST_RANK=str(rank), OMP_NUM_THREADS="2", MDT_DIST_INIT_TIMEOUT=str(int(timeout)))
+            log = tempfile.TemporaryFile(mode="w+")
+            logs.append(log)
+            procs.append(subprocess.Popen([sys.executable, *argv], env=penv, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outputs = []
+    for log in logs:
+        log.seek(0)
+        outputs.append(log.read())
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"ranks exited {[p.returncode for p in procs]} (timeout {timeout} s):\n" +
+                           "\n".join(f"--- rank {r}\n{o[-4000:]}" for r, o in enumerate(outputs)))
+    return outputs
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["dp_rank"]:
+        dp_rank_main()

@@ -29,6 +29,10 @@ pandas and no jax:
     it on a machine with jax;
   * ``prepare_monitoring``: the monitor-metrics dicts and the training plot;
   * ``create_csv_output`` with the ``csv`` module.
+
+In a data-parallel run (``parallel/mesh.py``) only rank 0 writes: the
+snapshots of ``prep_exp`` (``write=False`` on the other ranks), the log
+file and the checkpoints of ``ModelSelector``.
 """
 
 from __future__ import annotations
@@ -63,19 +67,25 @@ class ColorHandler(logging.StreamHandler):
 
 
 def get_logger(exp_dir):
-    """One logger per exp/fold dir, writing ``exec.log`` there and to stdout."""
+    """One logger per exp/fold dir, writing ``exec.log`` there and to stdout;
+    on the other ranks of a data-parallel run warnings to stdout only."""
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
     tag = os.path.abspath(exp_dir).replace(".", "_")  # dots would imply logger hierarchy
     logger = logging.getLogger(f"medicaldetectiontoolkit_torch.{tag}")
     logger.setLevel(logging.DEBUG)
     for hdlr in list(logger.handlers):  # idempotent re-init for the same dir
         hdlr.close()
         logger.removeHandler(hdlr)
-    log_file = os.path.join(exp_dir, "exec.log")
-    logger.addHandler(logging.FileHandler(log_file))
     console = ColorHandler(sys.stdout)
     console.setFormatter(logging.Formatter("%(message)s"))
     logger.addHandler(console)
     logger.propagate = False
+    if not mesh.is_writer():
+        console.setLevel(logging.WARNING)
+        return logger
+    log_file = os.path.join(exp_dir, "exec.log")
+    logger.addHandler(logging.FileHandler(log_file))
     print(f"Logging to {log_file}")
     return logger
 
@@ -98,11 +108,13 @@ def model_source_file(model_name):
     return {"retina_unet": "retina_net.py", "ufrcnn": "mrcnn.py"}.get(model_name, f"{model_name}.py")
 
 
-def prep_exp(dataset_path, exp_path, server_env=False, use_stored_settings=True, is_training=True):
+def prep_exp(dataset_path, exp_path, server_env=False, use_stored_settings=True, is_training=True, write=True):
     """Create/enter an experiment dir; snapshot configs + model sources.
 
     At test time (``is_training=False``) the config is the snapshot in
-    ``exp_path``, as in the JAX package.
+    ``exp_path``, as in the JAX package. With ``write=False`` (the other
+    ranks of a data-parallel run, after rank 0's ``prep_exp``) the config is
+    read from where a writing call reads it, and nothing is written.
     """
     package_dir = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
     default_cfg_src = os.path.join(package_dir, "config.py")
@@ -112,7 +124,11 @@ def prep_exp(dataset_path, exp_path, server_env=False, use_stored_settings=True,
         _snapshot(os.path.join(package_dir, "models", "backbone.py"), os.path.join(exp_path, "backbone.py"))
 
     use_snapshot_sources = False
-    if is_training:
+    if is_training and not write:
+        cf_path = os.path.join(exp_path if use_stored_settings else dataset_path, "configs.py")
+        cf = import_module("cf", cf_path).configs(server_env)
+        use_snapshot_sources = use_stored_settings
+    elif is_training:
         if not os.path.exists(exp_path):
             os.makedirs(os.path.join(exp_path, "plots"))
             _snapshot(os.path.join(dataset_path, "configs.py"), os.path.join(exp_path, "configs.py"))
@@ -144,7 +160,8 @@ def prep_exp(dataset_path, exp_path, server_env=False, use_stored_settings=True,
     cf.experiment_name = os.path.basename(exp_path.rstrip("/"))
     cf.server_env = server_env
     cf.created_fold_id_pickle = False
-    os.makedirs(cf.plot_dir, exist_ok=True)
+    if write:
+        os.makedirs(cf.plot_dir, exist_ok=True)
     return cf
 
 
@@ -272,6 +289,12 @@ class ModelSelector:
         self.logger = logger
 
     def run_model_selection(self, net, monitor_metrics, epoch):
+        """Rank and save (rank 0 of a data-parallel run; the others write
+        nothing)."""
+        from medicaldetectiontoolkit_torch.parallel import mesh
+
+        if not mesh.is_writer():
+            return
         source = "val" if getattr(self.cf, "do_validation", True) else "train"
         non_nan_scores = np.mean(
             np.array([[0 if ii is None else ii for ii in monitor_metrics[source][sc]]

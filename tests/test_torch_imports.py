@@ -2,7 +2,8 @@
 sklearn or matplotlib and without any module of the JAX package (and
 without building the native host library), running
 every detector (a training step of the one-stage ones with the opt-in stem
-path included, and of Detection U-Net), the port's test mode (``exec
+path included, one of them data-parallel at world size 1 over gloo, and of
+Detection U-Net), the port's test mode (``exec
 --mode test``, then ``--mode analysis``, figures off: they import
 matplotlib where it is installed) on a tiny synthetic LIDC set and
 the toy and PET-CT generators and loaders load none of them either, and
@@ -82,6 +83,8 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.tools.time_roi_align_bwd",
     "medicaldetectiontoolkit_torch.tools.time_stem",
     "medicaldetectiontoolkit_torch.tools.time_roi_align",
+    "medicaldetectiontoolkit_torch.parallel",
+    "medicaldetectiontoolkit_torch.parallel.mesh",
     "chip_smoke",
 ]
 
@@ -112,6 +115,13 @@ def test_port_imports_no_jax_or_host_heavy_packages():
         "net.initialize(seed=0)\n"
         "net.train_forward(make_batch(cf, seed=0))\n"
         "assert net.module.fpn.stem0[0].stem_kernel\n"
+        "from medicaldetectiontoolkit_torch.parallel import mesh\n"
+        "os.environ.update(MDT_DIST_COORD=f'127.0.0.1:{mesh.free_port()}', MDT_DIST_NPROCS='1', MDT_DIST_RANK='0')\n"
+        "assert mesh.maybe_initialize_distributed(device='cpu')\n"
+        "net.enable_data_parallel()\n"
+        "net.train_forward(make_batch(cf, seed=0))\n"
+        "mesh.dist.destroy_process_group()\n"
+        "for k in ('MDT_DIST_COORD', 'MDT_DIST_NPROCS', 'MDT_DIST_RANK'): os.environ.pop(k)\n"
         "import tempfile\n"
         "from medicaldetectiontoolkit_torch import exec as port_exec\n"
         "from medicaldetectiontoolkit_torch.testing import make_lidc_experiment, run_lidc_test\n"
