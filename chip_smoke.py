@@ -178,7 +178,26 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      train and 2 ``val_sampling`` batches and the test, with phase 9's
      launches per dispatch and chunk; the data-parallel log line,
      ``results.txt`` and ``last_checkpoint`` written; ms per logged step
-     beside phase 9's; then the gradient all-reduce over NCCL at world size 1.
+     beside phase 9's; then the gradient all-reduce over NCCL at world size 1;
+ 15. spatial partitioning for inference (``parallel/mesh.py``). 15a/b: two
+     ranks share the one card over gloo as a space group (S = 2, each holding
+     a Y slab of every split level; TF32 off, ``MDT_STEM_PALLAS=1``) and run
+     a test forward of the LIDC-width 3D Retina U-Net and 3D Mask R-CNN (with
+     masks) on a chunk of 8 at 128x128x64, float32: the gathered heads (and
+     Mask R-CNN's pyramid levels) within atol 1e-5 of the one-process forward
+     on the card, the seg argmax equal where the top two logits differ by
+     more than 1e-5, detections equal as sets within 1e-5 in score and 1e-3
+     voxels, Mask R-CNN's mask union within 1e-4 of its voxels; per rank and
+     forward the launches K3 1 (on the haloed slab), K1 1 (Retina U-Net) or
+     K1 2 and K2 for the classify-all chunks plus the mask pass (Mask R-CNN,
+     on the gathered levels); the halo and gather collectives' calls, bytes
+     and ms (fenced by synchronises), the forward's ms (two ranks sharing one
+     card: not a scaling figure) and the peak device memory per rank against
+     one process. 15c: ``exec --mode test`` of one small patient over two
+     ranks that exec starts itself (``n_space_parallel`` 2, ``exec.main(...,
+     backend="gloo")``; enabling spatial inference turns TF32 off) against
+     a one-process test of the same checkpoints (TF32 off, as in the whole
+     script): raw detections equal as sets, ``results.txt`` scores equal.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -195,6 +214,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -275,6 +295,12 @@ def _stem_cases(torch):
         # bf16 at a small odd Z (one z tile of 2 blocks) and at cin 2
         ("odd_13x11x6_k7_s2_bf16", (2, 1, 13, 11, 6), 7, 2, 2, 6, bf16, False, None),
         ("cin2_64x64x32_k5_s2_bf16", (2, 2, 64, 64, 32), 5, 2, 2, 18, bf16, False, None),
+        # phase 15's haloed Y slabs (S = 2): conv0 takes 1 row on each side of its 64; Mask R-CNN's C1 stem 4
+        # before (its halo of 3 rounded up to the stride) and 2 after, 35 output rows of which 32 are kept
+        ("slab_conv0_8x1x66x128x64_k3", (8, 1, 66, 128, 64), 3, 1, 1, 18, f32, False, None),
+        ("slab_conv0_8x1x66x128x64_k3_bf16", (8, 1, 66, 128, 64), 3, 1, 1, 18, bf16, False, None),
+        ("slab_c1_8x1x70x128x64_k7_s2", (8, 1, 70, 128, 64), 7, 2, 2, 18, f32, False, None),
+        ("slab_c1_8x1x70x128x64_k7_s2_bf16", (8, 1, 70, 128, 64), 7, 2, 2, 18, bf16, False, None),
     ]
 
 
@@ -1896,6 +1922,250 @@ def _drive_data_parallel(torch, np, common, counters, card, root):
     return {"launches": launches, "step_ms": step_ms, "ranks": dp_times, "nccl_ms": nccl_ms}
 
 
+SP_MODELS = ("retina_unet", "mrcnn")
+SP_PATIENT = (16, 64, 64)  # z, y, x of phase 15c's small patient
+SP_ENV = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_PATCH": "64,64,8", "MDT_LIDC_BS": "4"}
+
+
+def _sp_config(model):
+    """Phase 15's configurations: the inference slices of phases 4 and 5
+    (LIDC width, patch 128x128x64, a chunk of 8), float32."""
+    from medicaldetectiontoolkit_torch.testing import make_mrcnn_slice_config, make_slice_config
+
+    return make_slice_config("float32") if model == "retina_unet" else make_mrcnn_slice_config("float32")
+
+
+def _sp_expected(cf, model):
+    """Launches of one spatial test forward per rank (masks asked for): the
+    refinement's K1 and K3 on conv0 (Retina U-Net) or on the C1 stem, K1
+    twice and K2 for the classify-all chunks and the mask pass (Mask R-CNN)."""
+    if model == "retina_unet":
+        return {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
+    expect = two_stage_launches(cf, cf.batch_size, "test")
+    return dict(expect, roi_align=expect["roi_align"] + 1)
+
+
+def _sp_forward(torch, net, batch):
+    """One test forward through the user's entry points, synchronised;
+    returns its results and wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = net.test_forward_convert(net.test_forward_dispatch(batch), batch)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _sp_rank(out_dir, configs, device):
+    """A rank of phase 15a/b (started by ``mesh.spawn_ranks``): joins the two
+    ranks' gloo group on the one card and, per model, makes the detector
+    spatial over them (S = 2), then runs: one test forward with the launches
+    counted from 0 and the peak device memory, the gathered heads, one
+    forward with the collectives fenced by synchronises (their seconds) and
+    one plain timed forward."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch, sp_heads_fn
+    from medicaldetectiontoolkit_torch.tools import common
+
+    os.environ["MDT_STEM_PALLAS"] = "1"  # TF32 left on: enabling spatial inference turns it off
+    mesh.maybe_initialize_distributed(device=device, backend="gloo")
+    rank, world = mesh.rank_and_world()
+    counters = _dp_counters()
+    try:
+        for model, cf in configs.items():
+            net = build_model(cf, common.QuietLog(), device=device)
+            net.initialize(seed=0)
+            net.enable_spatial_parallel_inference(n_space=world)
+            batch = make_batch(cf, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            net.space.reset_stats()
+            res, _ = _sp_forward(torch, net, batch)
+            launches = {k: w.launches for k, w in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            comm = {k: dict(v) for k, v in net.space.stats.items()}
+            with torch.inference_mode():
+                heads = net._spatial(sp_heads_fn(net), torch.from_numpy(batch["data"]).cuda())
+            heads = [t.cpu() for t in mesh.tensor_leaves(heads)]
+            net.space.reset_stats()
+            net.space.timing = True
+            _, fenced_s = _sp_forward(torch, net, batch)
+            net.space.timing = False
+            timed = {k: v["s"] for k, v in net.space.stats.items()}
+            _, wall_s = _sp_forward(torch, net, batch)
+            torch.save({"results": res, "heads": heads, "launches": launches, "peak": peak, "comm": comm,
+                        "comm_s": timed, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3},
+                       os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+            del net, heads
+            torch.cuda.empty_cache()
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _quiet_fd(log_path):
+    """File descriptor 1 sent to ``log_path`` inside: the console lines of
+    the processes started there too."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(log_path, "a") as handle:
+        os.dup2(handle.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _drive_spatial(torch, np, common, card, root):
+    """Phase 15: spatial partitioning for inference (``parallel/mesh.py``).
+    15a/b: two ranks share the one card over gloo as a space group (S = 2),
+    each holding a Y slab of every split level, and run a test forward of
+    the LIDC-width 3D Retina U-Net and 3D Mask R-CNN (masks) on a chunk of
+    8, held against the one-process forward on the card: the gathered heads
+    (and Mask R-CNN's pyramid levels) within atol 1e-5, the seg argmax equal
+    where the top two logits differ by more than 1e-5, the detections equal
+    as sets within 1e-5 in score and 1e-3 voxels, Mask R-CNN's mask union
+    differing in at most 1e-4 of its voxels; the launches per rank and
+    forward (K3 on the haloed slab, K1 on the gathered heads, K2 on the
+    gathered levels). 15c: ``exec --mode test`` of a small patient over the
+    two ranks against a one-process test of the same checkpoints. Returns
+    the launch counts and the figures."""
+    import shutil
+
+    from medicaldetectiontoolkit_torch import exec as port_exec
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch, make_lidc_experiment, same_detections, sp_heads_fn
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    print("== phase 15a/b: two ranks on the one card over gloo as a space group (S = 2, a Y slab each), LIDC width "
+          "(patch 128x128x64, sf 18, ef 36, a chunk of 8), float32, TF32 off, MDT_STEM_PALLAS=1")
+    configs = {model: _sp_config(model) for model in SP_MODELS}
+    ref = {}
+    for model, cf in configs.items():
+        net = build_model(cf, common.QuietLog(), device="cuda")
+        net.initialize(seed=0)
+        batch = make_batch(cf, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, _ = _sp_forward(torch, net, batch)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode():
+            heads = sp_heads_fn(net)(torch.from_numpy(batch["data"]).cuda())
+        heads = [t.cpu() for t in mesh.tensor_leaves(heads)]
+        _, wall_s = _sp_forward(torch, net, batch)
+        ref[model] = {"results": res, "heads": heads, "peak": peak, "ms": wall_s * 1e3}
+        del net
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "sp_ranks")
+    os.makedirs(out_dir)
+    os.environ.setdefault("MDT_DIST_INIT_TIMEOUT", "300")
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_sp_rank, 2, (out_dir, configs, "cuda"))
+    print(f"  two ranks started, ran and stopped in {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in _dp_counters()}
+    figures = {}
+    for model, cf in configs.items():
+        one = ref[model]
+        expect = _sp_expected(cf, model)
+        ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
+        for r, res in enumerate(ranks):
+            if len(res["heads"]) != len(one["heads"]):
+                raise AssertionError(f"{model} rank {r}: {len(res['heads'])} head tensors, {len(one['heads'])} on one "
+                                     "process")
+            head_err = max(float((a - b).abs().max()) for a, b in zip(res["heads"], one["heads"]))
+            seg = res["results"]["seg_preds"]
+            if model == "retina_unet":
+                top2 = np.sort(one["heads"][-1].numpy(), axis=1)[:, -2:]
+                clear = (top2[:, 1] - top2[:, 0] > 1e-5)[:, None]
+                n_seg = int((np.where(clear, seg, 0) != np.where(clear, one["results"]["seg_preds"], 0)).sum())
+                seg_ok = n_seg == 0
+            else:
+                n_seg = int((seg != one["results"]["seg_preds"]).sum())
+                seg_ok = n_seg <= 1e-4 * seg.size
+            worst = same_detections(res["results"]["boxes"], one["results"]["boxes"])
+            n_det = sum(len(b) for b in res["results"]["boxes"])
+            comm, comm_s = res["comm"], res["comm_s"]
+            print(f"  {model} rank {r}: heads max|2 ranks - 1 process| {head_err:.3e}; seg {n_seg} voxels differ; "
+                  f"{n_det} detections, max|score| {worst[0]:.2e}, max|coords| {worst[1]:.2e}; launches "
+                  f"{res['launches']} (expected {expect}); per forward: halo {comm['halo']['calls']} exchanges, "
+                  f"{comm['halo']['bytes'] / 1e6:.1f} MB received, {comm_s['halo'] * 1e3:.1f} ms; GroupNorm sums "
+                  f"{comm['sum']['calls']}; gather {comm['gather']['calls']} calls, {comm['gather']['bytes'] / 1e6:.1f}"
+                  f" MB received, {comm_s['gather'] * 1e3:.1f} ms (each collective fenced by synchronises, gloo "
+                  f"through the host); forward {res['ms']:.1f} ms ({res['fenced_ms']:.1f} ms fenced) against "
+                  f"{one['ms']:.1f} ms on one process (two ranks sharing one card: not a scaling figure); peak "
+                  f"device memory {res['peak'] / 2**30:.3f} GiB against {one['peak'] / 2**30:.3f} GiB on one "
+                  f"process ({card})")
+            if not (head_err <= 1e-5 and seg_ok and n_det > 0):
+                raise AssertionError(f"{model} rank {r}: the spatial forward differs from the one-process forward")
+            if {k: res["launches"][k] for k in expect} != expect:
+                raise AssertionError(f"{model} rank {r}: launches {res['launches']}, expected {expect}")
+            for k in launches:
+                launches[k] += res["launches"][k]
+        figures[model] = {"ranks": ranks, "one": {k: one[k] for k in ("peak", "ms")}}
+        for res in ranks:
+            del res["heads"], res["results"]
+    del ref
+
+    print(f"== phase 15c: exec --mode test over two ranks that exec starts itself (n_space_parallel 2, "
+          f"backend gloo) on a synthetic patient of {SP_PATIENT} (patch 64x64x8, sf 8), against a one-process "
+          "test of the same checkpoints (TF32 off)")
+    log_path = os.path.join(root, "exec_console.log")
+    cf = _quietly(log_path, make_lidc_experiment, root, SP_ENV,
+                  {"start_filts": 8, "end_filts": 16, "n_rpn_features": 16, "n_space_parallel": 2,
+                   "plot_prediction_histograms": False}, n_patients=1, shape=SP_PATIENT, device="cuda",
+                  hold_out=True)
+    source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "medicaldetectiontoolkit_torch", "experiments",
+                          "lidc_exp")
+    argv = ["--mode", "test", "--exp_source", source, "--exp_dir", cf.exp_dir, "--folds", "0"]
+    t0 = time.perf_counter()
+    with _quiet_fd(log_path):
+        _quietly(log_path, port_exec.main, argv, device="cuda", backend="gloo")
+    spatial_s = time.perf_counter() - t0
+    single = os.path.join(root, "exp_single")
+    shutil.copytree(cf.exp_dir, single)
+    configs_py = os.path.join(single, "configs.py")
+    with open(configs_py) as handle:
+        text = handle.read()
+    with open(configs_py, "w") as handle:
+        handle.write(text.replace("'n_space_parallel': 2", "'n_space_parallel': None"))
+    os.remove(os.path.join(single, "results.txt"))
+    t0 = time.perf_counter()
+    _quietly(log_path, port_exec.main, argv[:5] + [single] + argv[6:], device="cuda")
+    single_s = time.perf_counter() - t0
+
+    def raw(d):
+        with open(os.path.join(d, "fold_0", "raw_pred_boxes_hold_out_list.pickle"), "rb") as handle:
+            return pickle.load(handle)
+
+    def scores(d):
+        with open(os.path.join(d, "results.txt")) as handle:
+            return [line for line in handle.read().splitlines() if line.startswith("AUC")]
+
+    a, b = raw(cf.exp_dir), raw(single)
+    if [p for _, p in a] != [p for _, p in b] or len(a) != 1:
+        raise AssertionError("exec over two ranks: other patients than the one-process test")
+    worst = [0.0, 0.0]
+    for (boxes_a, _), (boxes_b, _) in zip(a, b):
+        worst = [max(w, v) for w, v in zip(worst, same_detections(boxes_a, boxes_b))]
+    n_det = sum(x["box_type"] == "det" for boxes, _ in a for el in boxes for x in el)
+    if not n_det or not scores(cf.exp_dir) or scores(cf.exp_dir) != scores(single):
+        raise AssertionError("exec over two ranks: no detections, or other results.txt scores than one process")
+    print(f"  {len(a)} patient, {n_det} raw detections equal as sets (max|score| {worst[0]:.2e}, max|coords| "
+          f"{worst[1]:.2e}), results.txt scores equal; {spatial_s:.1f} s over two ranks (their start included), "
+          f"{single_s:.1f} s on one process ({card})")
+    torch.cuda.empty_cache()
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "models": figures}
+
+
 def main() -> int:
     import torch
 
@@ -2009,6 +2279,9 @@ def main() -> int:
             petct = _drive_petct(torch, np, common, counters, card, root)
         lap("14: data parallelism")
         dp = _drive_data_parallel(torch, np, common, counters, card, train_root)
+    lap("15: spatial partitioning")
+    with tempfile.TemporaryDirectory() as root:
+        sp = _drive_spatial(torch, np, common, card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -2065,6 +2338,14 @@ def main() -> int:
           f"{', '.join(f'{t:.1f}' for t in ms)} ms per step as logged (phase 9: median "
           f"{sorted(training['step_ms'])[len(training['step_ms']) // 2]:.1f}); gradient all-reduce over NCCL "
           f"{dp['nccl_ms']:.3f} ms")
+    for model, fig in sp["models"].items():
+        ms = ", ".join(f"{r['ms']:.1f}" for r in fig["ranks"])
+        halo = ", ".join(f"{r['comm_s']['halo'] * 1e3:.1f}" for r in fig["ranks"])
+        gather = ", ".join(f"{r['comm_s']['gather'] * 1e3:.1f}" for r in fig["ranks"])
+        peak = ", ".join(f"{r['peak'] / 2**30:.3f}" for r in fig["ranks"])
+        print(f"  spatial {model}, S = 2 over gloo on one card: forward {ms} ms per rank against "
+              f"{fig['one']['ms']:.1f} ms on one process (not a scaling figure); halo {halo} ms, gather {gather} ms "
+              f"per forward (fenced); peak {peak} GiB per rank against {fig['one']['peak'] / 2**30:.3f} GiB")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -2077,7 +2358,7 @@ def main() -> int:
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
         + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"] + petct["launches"]["nms"]
-        + dp["launches"]["nms"],
+        + dp["launches"]["nms"] + sp["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -2085,7 +2366,7 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
         "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"]
-        + two_stage["launches"]["roi_align"] + dp["launches"]["roi_align"],
+        + two_stage["launches"]["roi_align"] + dp["launches"]["roi_align"] + sp["launches"]["roi_align"],
         **roi_entry,
     }, {
         "name": "roi_align_bwd",
@@ -2101,7 +2382,7 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
         "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
         + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"] + petct["launches"]["stem_fwd"]
-        + dp["launches"]["stem_fwd"],
+        + dp["launches"]["stem_fwd"] + sp["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",

@@ -44,8 +44,18 @@ of its slice ``pids[rank::W]``, whose results are gathered in the data set's
 order. Only rank 0 writes the exp dir (log file, checkpoints,
 ``epoch_ranking.npy``, monitoring, plots, prediction pickles,
 ``results.txt``). A rank that raises, or a collective that outlasts
-``MDT_DIST_INIT_TIMEOUT``, fails the run. Spatial partitioning
-(``cf.n_space_parallel > 1``) is refused.
+``MDT_DIST_INIT_TIMEOUT``, fails the run.
+
+Spatial partitioning (``cf.n_space_parallel = S > 1``, ``MDT_SP=S``) is
+inference: ``--mode test`` runs over W = D x S ranks (D =
+``cf.n_data_parallel`` or 1), started as above. The S ranks of a space
+group predict the same patients of their data slice ``pids[d::D]``, each
+forward split along the image's Y over them (``parallel/mesh.py``), and
+give the single-process results (computed with TF32 off: each rank turns
+it off, see ``parallel/mesh.py``); ``analysis`` needs no rank. ``train``
+and ``train_test`` refuse it (ROADMAP.md Queue 1 item 1b). More ranks than
+cards are refused unless the caller of ``main`` names the gloo backend
+(``backend="gloo"``: two ranks may then share a card).
 """
 
 from __future__ import annotations
@@ -65,20 +75,27 @@ from medicaldetectiontoolkit_torch.plotting import plot_batch_prediction
 from medicaldetectiontoolkit_torch.predictor import Predictor
 
 
-def _check_parallel(cf, device):
-    """Refuse spatial partitioning, and more ranks than cards where this
-    command starts the ranks itself."""
-    if (getattr(cf, "n_space_parallel", None) or 1) > 1:
+def _n_ranks(cf) -> int:
+    """W = D x S: ``cf.n_data_parallel`` by ``cf.n_space_parallel``."""
+    return (getattr(cf, "n_data_parallel", None) or 1) * (getattr(cf, "n_space_parallel", None) or 1)
+
+
+def _check_parallel(cf, device, training: bool, backend=None):
+    """Refuse spatial partitioning in training, and more ranks than cards
+    where this command starts the ranks itself (unless ``backend`` is
+    gloo)."""
+    if training and (getattr(cf, "n_space_parallel", None) or 1) > 1:
         raise NotImplementedError(
-            f"cf.n_space_parallel = {cf.n_space_parallel}: spatial partitioning is not ported; it is the next "
-            "scale-out item of ROADMAP.md (Queue 1)")
-    n = getattr(cf, "n_data_parallel", None) or 1
-    if n > 1 and not mesh.dist.is_initialized() and (device is None or str(device).startswith("cuda")):
+            f"cf.n_space_parallel = {cf.n_space_parallel}: spatial partitioning is ported for inference only "
+            "(--mode test, analysis); training and validation under it are ROADMAP.md Queue 1 item 1b")
+    n = _n_ranks(cf)
+    if n > 1 and not mesh.dist.is_initialized() and (device is None or str(device).startswith("cuda")) and \
+            backend != "gloo":
         import torch
 
         if n > torch.cuda.device_count():
-            raise ValueError(f"cf.n_data_parallel = {n} ranks, but {torch.cuda.device_count()} CUDA card(s) are "
-                             "visible: one rank per card")
+            raise ValueError(f"{n} ranks (cf.n_data_parallel x cf.n_space_parallel), but {torch.cuda.device_count()} "
+                             "CUDA card(s) are visible: one rank per card, unless the caller names the gloo backend")
 
 
 def _data_parallel(cf, net):
@@ -142,7 +159,7 @@ def train(cf, data_loader, logger, device=None):
     (``step_s``) and the host seconds the loop waited for each train batch
     (``load_s``); the train loader's worker count, batch size and host
     seconds per generated batch."""
-    _check_parallel(cf, device)
+    _check_parallel(cf, device, training=True)
     writer = mesh.is_writer()
     logger.info(
         "performing training in {}D over fold {} on experiment {} with model {}".format(
@@ -303,12 +320,15 @@ def test(cf, data_loader, logger, device=None):
     "predictor", "evaluator", "evaluation_s": host seconds of the scoring};
     the predictor's ``times`` hold the other stages. In a data-parallel run
     each rank predicts the patients of its slice, the results are gathered
-    and rank 0 scores them."""
-    _check_parallel(cf, device)
+    and rank 0 scores them; under spatial partitioning the slices are the
+    data groups' (the Predictor enables it)."""
+    _check_parallel(cf, device, training=False)
     logger.info(f"starting testing model of fold {cf.fold} in exp {cf.exp_dir}")
     net = build_model(cf, logger, device=device)
     net.initialize()
     test_predictor = Predictor(cf, net, logger, mode="test")
+    if net.space is not None:  # the loader takes this rank's data slice, as mesh.host_shard_info reads it
+        cf.input_shard = (net.space.grid.data_index, net.space.grid.n_data)
     test_evaluator = Evaluator(cf, logger, mode="test")
     batch_gen = data_loader.get_test_generator(cf, logger)
     test_results_list = test_predictor.predict_test_set(batch_gen, return_results=True)
@@ -372,38 +392,41 @@ def _prep_exp(*args, **kwargs):
     return utils.prep_exp(*args, write=False, **kwargs)
 
 
-def _spawned(cf, argv, device):
-    """With ``cf.n_data_parallel = W > 1`` and no process group: run this
-    command in W new processes (``mesh.spawn_ranks``) and wait. Returns
-    whether it did."""
-    if (getattr(cf, "n_data_parallel", None) or 1) == 1 or mesh.dist.is_initialized():
+def _spawned(cf, argv, device, training: bool, backend):
+    """With W = ``cf.n_data_parallel`` x ``cf.n_space_parallel`` > 1 and no
+    process group: run this command in W new processes
+    (``mesh.spawn_ranks``) and wait. Returns whether it did."""
+    if _n_ranks(cf) == 1 or mesh.dist.is_initialized():
         return False
-    _check_parallel(cf, device)
-    mesh.spawn_ranks(main, cf.n_data_parallel, (argv, device))
+    _check_parallel(cf, device, training, backend)
+    mesh.spawn_ranks(main, _n_ranks(cf), (argv, device, backend))
     return True
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, backend=None):
     """Run the CLI on ``argv``; ``device`` None is the CUDA card. Returns
     ``{fold: result}``: train()'s in train mode, test()'s in test mode, both
     as ``{"train", "test"}`` in train_test mode; ``{}`` where it started the
-    ranks of a data-parallel run (their results stay in the exp dir)."""
+    ranks of a data-parallel run (their results stay in the exp dir).
+    ``backend`` names the ranks' ``torch.distributed`` backend (default:
+    NCCL on cards, gloo on the CPU); ``"gloo"`` lets the ranks that this
+    call starts share cards."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    distributed = mesh.maybe_initialize_distributed(device=device)
+    distributed = mesh.maybe_initialize_distributed(device=device, backend=backend)
     try:
-        return _run(parse_args(argv), argv, device)
+        return _run(parse_args(argv), argv, device, backend)
     finally:
         if distributed:
             mesh.dist.destroy_process_group()
 
 
-def _run(args, argv, device):
+def _run(args, argv, device, backend):
     folds = args.folds
     out = {}
 
     if args.mode in ("train", "train_test"):
         cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, args.use_stored_settings)
-        if _spawned(cf, argv, device):
+        if _spawned(cf, argv, device, True, backend):
             return out
         folds = apply_dev_shrinkage(cf, args, folds)
         cf.data_dest = args.data_dest
@@ -429,7 +452,7 @@ def _run(args, argv, device):
 
     elif args.mode == "test":
         cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, is_training=False, use_stored_settings=True)
-        if _spawned(cf, argv, device):
+        if _spawned(cf, argv, device, False, backend):
             return out
         if args.dev:
             folds = [0, 1]

@@ -27,6 +27,14 @@ convs, the ResBlocks and the full-resolution laterals in the backward pass
 
 ``dtype`` is the compute dtype: params stay float32 and are cast at each
 conv, as flax's ``nn.Conv(dtype=...)`` does.
+
+Under spatial partitioning (``parallel/mesh.py``, inside
+``SpaceGroup.run``) each rank holds a Y slab of every split level: padded
+and strided convs, the max pool and ``linear_up`` take their neighbours'
+rows through ``mesh.halo_exchange``, GroupNorm sums its statistics over the
+space group, and ``FPN`` gathers a level that no longer splits
+(``mesh.space_fence``) and runs it and the deeper ones replicated;
+``FPN.slab_levels`` says which of its outputs are slabs.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from medicaldetectiontoolkit_torch.ops.stem_conv import StemConv3dFunction, stem_viable
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 # flax nn.GroupNorm's default epsilon (torch's default is 1e-5)
 GN_EPS = 1e-6
@@ -101,12 +110,25 @@ def _flax_group_norm(x, norm: nn.GroupNorm):
     variance E[x^2] - E[x]^2 clamped at 0, then (x - mean) * (rsqrt(var +
     eps) * scale) + bias. Matching flax matters where a group holds few
     values (instance norm on the deepest levels), where the variance is
-    ill-conditioned and torch's two-pass variance gives other numbers."""
+    ill-conditioned and torch's two-pass variance gives other numbers.
+
+    On a Y slab the sums of x and x^2 are summed over the space group
+    first, in float64: summed in another order in float32, the slabs' sums
+    would put E[x^2] - E[x]^2 as far again from its exact value as one
+    process's float32 does where it is ill-conditioned."""
     b, c = x.shape[:2]
     g = norm.num_groups
     xg = x.float().reshape(b, g, c // g, -1)
-    mean = xg.mean(dim=(2, 3), keepdim=True)
-    var = torch.clamp_min(xg.square().mean(dim=(2, 3), keepdim=True) - mean.square(), 0.0)
+    sg = mesh.space()
+    if sg is None:
+        mean = xg.mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp_min(xg.square().mean(dim=(2, 3), keepdim=True) - mean.square(), 0.0)
+    else:
+        xd = xg.double()
+        sums = mesh.space_sum(torch.stack([xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))]))
+        mean, mean_sq = (sums / (xg.shape[2] * xg.shape[3] * sg.size))[..., None, None]
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0).float()
+        mean = mean.float()
     mul = torch.rsqrt(var + norm.eps) * norm.weight.view(1, g, c // g, 1)
     y = (xg - mean) * mul + norm.bias.view(1, g, c // g, 1)
     return y.reshape(x.shape)
@@ -124,6 +146,13 @@ class ConvND(nn.Module):
     is chosen from the input's shape at each call, as JAX chooses it at each
     trace; ``stem_kernel`` records the last choice. ``remat`` recomputes the
     layer in the backward pass.
+
+    On a Y slab a conv with ``k > 1`` or a Y stride takes ``k // 2`` rows
+    before the slab and ``k - stride - k // 2`` after (``mesh.halo_exchange``,
+    zeros at the image's edge) and runs with no Y padding; the slab's rows
+    must divide by the stride, so that its first row is aligned. K3 pads by
+    itself: it takes a halo before the slab rounded up to the stride and its
+    surplus outputs are cropped.
     """
 
     def __init__(self, dim: int, cin: int, cout: int, ks: int = 1, stride=1, pad: int = 0,
@@ -162,8 +191,11 @@ class ConvND(nn.Module):
     def _forward(self, x):
         c = self.conv
         x, w, b = x.to(self.dtype), c.weight.to(self.dtype), c.bias.to(self.dtype)
+        # the gate reads no Y extent: a slab takes the kernel where the whole image does
         self.stem_kernel = self._takes_stem_kernel(x)
-        if self.stem_kernel:
+        if mesh.space() is not None and (c.kernel_size[0] > 1 or c.stride[0] > 1):
+            x = self._slab_conv(x, w, b)
+        elif self.stem_kernel:
             x = StemConv3dFunction.apply(x, w, b, c.stride[0], c.stride[1])
         else:
             x = (F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d)(x, w, b, c.stride, c.padding)
@@ -174,6 +206,22 @@ class ConvND(nn.Module):
         elif self.relu == "leaky_relu":
             x = F.leaky_relu(x, 0.01)
         return x
+
+    def _slab_conv(self, x, w, b):
+        """The conv of ``x``, this rank's Y slab, giving the output rows of
+        the slab."""
+        c = self.conv
+        k, s, p = c.kernel_size[0], c.stride[0], c.padding[0]
+        n = x.shape[2]
+        if n % s:
+            raise ValueError(f"a Y slab of {n} rows does not align with the conv's stride {s}")
+        hi = max(k - s - p, 0)
+        if self.stem_kernel:
+            lo = -(-p // s) * s
+            out = StemConv3dFunction.apply(mesh.halo_exchange(x, lo, hi), w, b, s, c.stride[1])
+            return out[:, :, lo // s:lo // s + n // s]
+        conv = F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d
+        return conv(mesh.halo_exchange(x, p, hi), w, b, c.stride, (0, *c.padding[1:]))
 
 
 class ResBlock(nn.Module):
@@ -229,17 +277,31 @@ def linear_up(x, factor):
 
     ``jax.image.resize(..., "linear")`` (``backbone.py:559-563``) equals
     ``align_corners=False`` interpolation for these integer factors,
-    including the clamped edge voxels.
+    including the clamped edge voxels. A Y slab takes one row on each side
+    (the edge row repeated at the image's edge), is interpolated at the same
+    scale and loses ``factor`` output rows on each side.
     """
-    size = [int(s * f) for s, f in zip(x.shape[2:], factor)]
-    return F.interpolate(x, size=size, mode="bilinear" if x.dim() == 4 else "trilinear", align_corners=False)
+    mode = "bilinear" if x.dim() == 4 else "trilinear"
+    if mesh.space() is None:
+        size = [int(s * f) for s, f in zip(x.shape[2:], factor)]
+        return F.interpolate(x, size=size, mode=mode, align_corners=False)
+    fy, n = int(factor[0]), x.shape[2]
+    size = [(n + 2) * fy] + [int(s * f) for s, f in zip(x.shape[3:], factor[1:])]
+    out = F.interpolate(mesh.halo_exchange(x, 1, 1, "replicate"), size=size, mode=mode, align_corners=False)
+    return out[:, :, fy:fy + n * fy]
 
 
 def maxpool(x, dim):
-    """3-window max pool, stride (2,2,1) in 3D, padded with -inf (``backbone.py:566-569``)."""
-    if dim == 3:
-        return F.max_pool3d(x, 3, stride=(2, 2, 1), padding=1)
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+    """3-window max pool, stride (2,2,1) in 3D, padded with -inf
+    (``backbone.py:566-569``). A Y slab takes one row before it (-inf at
+    the image's edge) and pools with no Y padding."""
+    stride = (2, 2, 1) if dim == 3 else 2
+    pool = F.max_pool3d if dim == 3 else F.max_pool2d
+    if mesh.space() is None:
+        return pool(x, 3, stride=stride, padding=1)
+    if x.shape[2] % 2:
+        raise ValueError(f"a Y slab of {x.shape[2]} rows does not align with the max pool's stride 2")
+    return pool(mesh.halo_exchange(x, 1, 0, float("-inf")), 3, stride=stride, padding=(0,) + (1,) * (dim - 1))
 
 
 class FPN(nn.Module):
@@ -253,6 +315,7 @@ class FPN(nn.Module):
         self.dim = dim
         self.operate_stride1 = operate_stride1
         self.sixth_pooling = sixth_pooling
+        self.slab_levels = ()  # of the last forward: which outputs are Y slabs
         sf, ef = start_filts, end_filts
         self.n_blocks = [3, 4, {"resnet50": 6, "resnet101": 23}[res_architecture], 3]
         kw = dict(norm=norm, relu=relu, dtype=dtype)
@@ -291,25 +354,59 @@ class FPN(nn.Module):
             self.out0 = ConvND(dim, ef, ef, ks=3, pad=1, remat=remat, **lat)
 
     def forward(self, x):
+        """Under spatial partitioning ``x`` is this rank's Y slab of the
+        image; ``self.slab_levels`` then says which outputs are slabs (the
+        others whole), as ``mesh.space_fence`` decided at each stage input."""
         d = self.dim
-        c0 = self.stem0(x) if self.operate_stride1 else x
-        c1 = self.stem1(c0)
-        cs = []
-        h = maxpool(c1, d)
-        for stage in self.stages:
-            h = stage(h)
+        split = mesh.space() is not None
+        if self.operate_stride1:
+            x, split0 = mesh.space_fence(x, split)
+            with mesh.on_slabs(split0):
+                c0 = self.stem0(x)
+        else:
+            c0, split0 = x, split
+        # stem1 reads 3 rows before its output (4 for K3, whose halo rounds up to the stride)
+        h, split1 = mesh.space_fence(c0, split0, stride=2, halo=4)
+        with mesh.on_slabs(split1):
+            c1 = self.stem1(h)
+        h, split_h = mesh.space_fence(c1, split1, stride=2)
+        with mesh.on_slabs(split_h):
+            h = maxpool(h, d)
+        cs, splits = [], []
+        for i, stage in enumerate(self.stages):
+            h, split_h = mesh.space_fence(h, split_h, stride=1 if i == 0 else 2)
+            with mesh.on_slabs(split_h):
+                h = stage(h)
             cs.append(h)  # C2..C5(, C6)
+            splits.append(split_h)
+
+        def joined(t, split_t, split_to):
+            # a whole (replicated) tensor added to a slab: this rank's rows
+            return mesh.slab_of(t) if split_to and not split_t else t
 
         up2 = (2,) * d
         pre = [None] * len(cs)
-        pre[-1] = self.lateral[-1](cs[-1])
+        with mesh.on_slabs(splits[-1]):
+            pre[-1] = self.lateral[-1](cs[-1])
         for i in range(len(cs) - 2, -1, -1):
-            pre[i] = self.lateral[i](cs[i]) + nearest_up(pre[i + 1], up2)
-        out = [self.out[i](pre[i]) for i in range(len(cs))]
+            up = joined(nearest_up(pre[i + 1], up2), splits[i + 1], splits[i])
+            with mesh.on_slabs(splits[i]):
+                pre[i] = self.lateral[i](cs[i]) + up
+        out = []
+        for i in range(len(cs)):
+            with mesh.on_slabs(splits[i]):
+                out.append(self.out[i](pre[i]))
+        self.slab_levels = tuple(splits)
 
         if self.operate_stride1:
             up_aniso = (2, 2, 1) if d == 3 else (2, 2)
-            p1_pre = self.lateral1(c1) + linear_up(pre[0], up_aniso)
-            p0_pre = self.lateral0(c0) + linear_up(p1_pre, up_aniso)
-            out = [self.out0(p0_pre)] + out
+            with mesh.on_slabs(splits[0]):
+                up = linear_up(pre[0], up_aniso)
+            with mesh.on_slabs(split1):
+                p1_pre = self.lateral1(c1) + joined(up, splits[0], split1)
+                up = linear_up(p1_pre, up_aniso)
+            with mesh.on_slabs(split0):
+                p0_pre = self.lateral0(c0) + joined(up, split1, split0)
+                out = [self.out0(p0_pre)] + out
+            self.slab_levels = (split0,) + self.slab_levels
         return out

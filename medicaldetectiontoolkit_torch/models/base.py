@@ -25,6 +25,9 @@ set per step, gradient accumulation over microbatches, and the optimizer
 state in ``state_dict``. After ``enable_data_parallel`` a detector is one
 rank of a data-parallel run (``parallel/mesh.py``): its batches hold this
 rank's rows, its steps equal the single-card step on the global batch.
+After ``enable_spatial_parallel_inference`` its test forwards run on this
+rank's Y slab of each uploaded batch within its space group and give the
+single-process outputs on every rank of the group.
 """
 
 from __future__ import annotations
@@ -256,6 +259,8 @@ class Detector:
     current_lr = 1e-4
     # this rank's mesh.DataParallel after enable_data_parallel; None on one card
     dp = None
+    # this rank's mesh.SpaceGroup after enable_spatial_parallel_inference
+    space = None
 
     def __init__(self, cf, logger, device: Optional[torch.device] = None):
         self.cf = cf
@@ -334,11 +339,50 @@ class Detector:
     def _broadcast_params(self):
         if self.dp is not None:
             self.dp.broadcast_params(self.module)
+        elif self.space is not None:
+            from medicaldetectiontoolkit_torch.parallel import mesh
+
+            mesh.broadcast_module(self.module)
+
+    # ---- spatial partitioning ------------------------------------------
+    def enable_spatial_parallel_inference(self, n_data=None, n_space=None):
+        """Make this detector's test forwards spatially partitioned over a
+        (data x space) grid of the process group (``parallel/mesh.py``; JAX
+        ``models/base.py:372-385``): ``mesh.grid_layout`` of ``n_data``
+        (default ``cf.n_data_parallel`` or 1) by ``n_space`` (default
+        ``cf.n_space_parallel``). The deepest level's cap is checked
+        on ``cf.patch_size`` here and on the image at every forward; rank
+        0's parameters are broadcast now and after every load; TF32 is
+        turned off in this process (``parallel/mesh.py``, Precision).
+        Training is not spatially partitioned (ROADMAP.md Queue 1 item 1b).
+        Returns the grid."""
+        from medicaldetectiontoolkit_torch.parallel import mesh
+
+        cf = self.cf
+        grid = mesh.grid_layout(n_data or getattr(cf, "n_data_parallel", None) or 1,
+                                n_space or getattr(cf, "n_space_parallel", None) or 1)
+        mesh.check_space_cap(self.cf, grid.n_space, self.cf.patch_size[0])
+        # a slab can take another conv algorithm than the whole image; TF32's rounding would part the forwards
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        self.space = mesh.SpaceGroup(grid)
+        self._broadcast_params()
+        if self.logger is not None:
+            self.logger.info(f"spatially-partitioned inference over {grid.n_data}x{grid.n_space} (data x space) "
+                             f"ranks: rank {grid.rank} at data {grid.data_index}, space {grid.space_index}")
+        return grid
+
+    def _spatial(self, fn, img):
+        """``fn(img)``: a module's forward whose outputs are gathered along Y
+        under spatial partitioning, run on this rank's slab of ``img``
+        within its space group (``mesh.SpaceGroup.run``); on one process
+        plainly."""
+        return fn(img) if self.space is None else self.space.run(fn, img, self.cf)
 
     @contextlib.contextmanager
     def single_card(self):
         """Steps run inside on this rank's batch alone, with no collective
-        (the Predictor's validation of its own whole patients)."""
+        of the data axis (the Predictor's validation of its own whole
+        patients); a space group stays on."""
         dp, self.dp = self.dp, None
         try:
             yield

@@ -11,6 +11,10 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/detection_unet.py``:
     the ``cf.n_roi_candidates`` largest are boxed, and each is scored by the
     max (or median) softmax of the class inside it.
 
+Under spatial partitioning (``parallel/mesh.py``) the test forward runs on
+this rank's Y slab (the seg head's GroupNorm sums over the space group) and
+the logits are gathered along Y before the softmax.
+
 The softmax stays channel-first ``(b, C, *spatial)`` on both sides of the
 device->host copy, which every train step, validation step and test chunk
 queues at dispatch (``base.start_host_copies``). Gradient accumulation
@@ -27,6 +31,7 @@ import torch.nn as nn
 from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
 from medicaldetectiontoolkit_torch.ops import losses as loss_ops
+from medicaldetectiontoolkit_torch.parallel import mesh
 
 
 class SegUNetModule(nn.Module):
@@ -43,7 +48,9 @@ class SegUNetModule(nn.Module):
         self.seg_head = ConvND(dim, end_filts, num_seg_classes, ks=1, relu=None, norm=norm, dtype=torch.float32)
 
     def forward(self, img):
-        return self.seg_head(self.fpn(img.to(self.dtype))[0])  # (b, C, *spatial) float32 logits
+        p0 = self.fpn(img.to(self.dtype))[0]
+        with mesh.on_slabs(self.fpn.slab_levels[0]):
+            return mesh.gather_y(self.seg_head(p0))  # (b, C, *spatial) float32 logits
 
 
 def channel_softmax(logits):
@@ -215,7 +222,7 @@ class DetectionUNetDetector(base.Detector):
     def test_forward_dispatch(self, batch, **kwargs):
         """Enqueue the forward, its softmax and the softmax's host copy."""
         with torch.inference_mode():
-            smax = channel_softmax(self.module(base.host_to_device(batch["data"], self.device)))
+            smax = channel_softmax(self._spatial(self.module, base.host_to_device(batch["data"], self.device)))
             host, copied = base.start_host_copies([smax])
         return host[0], copied
 

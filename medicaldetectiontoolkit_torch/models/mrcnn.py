@@ -23,6 +23,11 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/mrcnn.py``:
     on the ufrcnn seg head); backward per microbatch, Adam, then detection
     refinement per microbatch.
 
+Under spatial partitioning (``parallel/mesh.py``) ``extract`` runs on this
+rank's Y slab and gathers, per level along Y, the RPN heads, the seg logits
+and the pyramid levels that the RoI stage reads; the proposals, K1, K2 and
+the mask pass then run on whole tensors, identically on every rank.
+
 As in JAX, padded and invalid proposals are not masked out: padding slots
 are zero boxes, classified and refined like the rest, and the mask pass runs
 on every detection slot. Tensors are channel-first; masks come out
@@ -68,9 +73,10 @@ class RPNHead(nn.Module):
     def forward(self, x):
         x = self.conv(x)
         b = x.shape[0]
+        # a Y slab's rows joined (the identity on one process), then the
         # channel-last flatten: rows in (y, x, (z), anchor) order
-        logits = self.logits(x).movedim(1, -1).reshape(b, -1, 2)
-        deltas = self.deltas(x).movedim(1, -1).reshape(b, -1, 2 * self.dim)
+        logits = mesh.gather_y(self.logits(x)).movedim(1, -1).reshape(b, -1, 2)
+        deltas = mesh.gather_y(self.deltas(x)).movedim(1, -1).reshape(b, -1, 2 * self.dim)
         return logits.float(), deltas.float()
 
 
@@ -147,10 +153,17 @@ class MRCNNModule(nn.Module):
     def extract(self, img):
         """img -> (feature maps, rpn_logits (b, A, 2), rpn_deltas (b, A, 2d), seg_logits)."""
         fpn_outs = self.fpn(img.to(self.dtype))
-        seg_logits = self.final_conv(fpn_outs[0]) if self.final_conv is not None else None
+        slabs = self.fpn.slab_levels
+        seg_logits = None
+        if self.final_conv is not None:
+            with mesh.on_slabs(slabs[0]):
+                seg_logits = mesh.gather_y(self.final_conv(fpn_outs[0]))
         offset = 1 if self.operate_stride1 else 0
-        maps = [fpn_outs[i + offset] for i in self.pyramid_levels]
-        outs = [self.rpn(p) for p in maps]
+        maps, outs = [], []
+        for i in self.pyramid_levels:
+            with mesh.on_slabs(slabs[i + offset]):
+                outs.append(self.rpn(fpn_outs[i + offset]))
+                maps.append(mesh.gather_y(fpn_outs[i + offset]))
         rpn_logits = torch.cat([o[0] for o in outs], dim=1)
         rpn_deltas = torch.cat([o[1] for o in outs], dim=1)
         return maps, rpn_logits, rpn_deltas, seg_logits
@@ -492,7 +505,7 @@ class MaskRCNNDetector(base.Detector):
     def _forward(self, img, with_masks: bool):
         """img (b, c, *spatial) -> (det, det_mask, det_masks_raw | None,
         seg_preds | None) on the device (``_predict``, ``mrcnn.py:772-782``)."""
-        return self._from_heads(self.module.extract(img), img.shape[0], with_masks)
+        return self._from_heads(self._spatial(self.module.extract, img), img.shape[0], with_masks)
 
     def _from_heads(self, heads, bsz: int, with_masks: bool):
         """The stages after the FPN and RPN: proposals, classify-all,

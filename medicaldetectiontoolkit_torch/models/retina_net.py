@@ -5,7 +5,9 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
     across pyramid levels, flattened in the anchor order of
     ``ops/anchors.py`` (positions (y, x, (z)) major, anchor minor);
   * ``RetinaModule``: FPN + class/box heads on P2.. (+ the P0 segmentation
-    head of Retina U-Net);
+    head of Retina U-Net); under spatial partitioning each level's head
+    outputs and the seg logits are gathered along Y per level, before the
+    flatten, so that the anchor order holds (``parallel/mesh.py``);
   * ``refine_detections``: batch-global exact top-``pre_nms_limit`` over
     foreground probabilities, delta decode, window clip, round, one NMS lane
     per (element, class) through the NMS dispatcher (the CUDA kernel for
@@ -52,7 +54,7 @@ class DenseHead(nn.Module):
         self.out_per_anchor = out_per_anchor
 
     def forward(self, x):
-        x = self.final(self.convs(x))
+        x = mesh.gather_y(self.final(self.convs(x)))  # a Y slab's rows joined: the identity on one process
         # channel-last flatten: rows in (y, x, (z), anchor) order
         return x.movedim(1, -1).reshape(x.shape[0], -1, self.out_per_anchor)
 
@@ -82,10 +84,17 @@ class RetinaModule(nn.Module):
 
     def forward(self, img):
         fpn_outs = self.fpn(img.to(self.dtype))
-        seg_logits = self.seg_head(fpn_outs[0]) if self.seg_head is not None else None
-        selected = [fpn_outs[i + self.level_offset] for i in self.pyramid_levels]
-        class_logits = torch.cat([self.cls_head(p) for p in selected], dim=1).float()
-        bb_deltas = torch.cat([self.box_head(p) for p in selected], dim=1).float()
+        slabs = self.fpn.slab_levels
+        seg_logits = None
+        if self.seg_head is not None:
+            with mesh.on_slabs(slabs[0]):
+                seg_logits = mesh.gather_y(self.seg_head(fpn_outs[0]))
+        heads = [], []
+        for i in self.pyramid_levels:
+            with mesh.on_slabs(slabs[i + self.level_offset]):
+                for out, head in zip(heads, (self.cls_head, self.box_head)):
+                    out.append(head(fpn_outs[i + self.level_offset]))
+        class_logits, bb_deltas = (torch.cat(out, dim=1).float() for out in heads)
         return class_logits, bb_deltas, seg_logits
 
 
@@ -195,7 +204,7 @@ class RetinaNetDetector(base.Detector):
 
     # ---- inference ------------------------------------------------------
     def _predict(self, img):
-        return self.module(img)
+        return self._spatial(self.module, img)
 
     def _finalize_outputs(self, class_logits, bb_deltas, seg_logits):
         det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf, nms_fn=self.nms_fn)

@@ -1,5 +1,5 @@
-"""Data parallelism of the port: W ranks, one process per card, over
-``torch.distributed``.
+"""Data parallelism and spatial partitioning of the port: W ranks, one
+process per card, over ``torch.distributed``.
 
 Counterpart of ``medicaldetectiontoolkit_tpu/parallel/mesh.py``. JAX jits
 the train step over a device mesh, and GSPMD makes a data-parallel step the
@@ -30,8 +30,9 @@ the concatenated global batch.**
 * **Order.** A process group must see the same collectives in the same
   order on every rank. The losses have no data-dependent branch: a rank
   whose rows sample no positive RoI still reaches every sum, with a count
-  of 0. The forward needs no communication: JAX's ``"batch_norm"`` is
-  ``GroupNorm(1)``, per element.
+  of 0. A data-parallel forward needs no communication: JAX's
+  ``"batch_norm"`` is ``GroupNorm(1)``, per element. A spatially
+  partitioned one does (below).
 * **Layout**, JAX's: ``cf.batch_size`` is the global batch of one optimizer
   step, split over the ranks (each rank's loader yields ``cf.batch_size /
   W`` patches); microbatch k holds global rows ``[k m, (k + 1) m)`` and rank
@@ -43,16 +44,60 @@ the concatenated global batch.**
   enabled and after every load (``models/base.py``); JAX relies on same-seed
   init instead.
 
-Spatial partitioning (JAX's ``n_space_parallel``) is not ported: ROADMAP.md,
-Queue 1. There is no fallback to more ranks than cards.
+**Spatial partitioning** (JAX's ``n_space_parallel``, ``get_mesh_2d`` and
+``make_spatial_predict``), for inference: W = D x S ranks form a grid
+(``grid_layout``), rank r at data index ``r // S`` and space index ``r %
+S``. The D data groups split the patients as above; the S ranks of a space
+group run the same chunks, each holding one Y slab (dim 2 of ``(b, c, y, x,
+(z))``) of every activation, and the detector's forward is the
+single-process forward (within float32 reduction order):
+
+* ``SpaceGroup`` is the counterpart of JAX's ``_spatial_trace``. Inside
+  ``SpaceGroup.run`` the model's ops find it through ``space()``; outside a
+  spatial forward, and on a level that runs replicated (``on_slabs(False)``),
+  ``space()`` is None and every op is the plain op.
+* ``halo_exchange`` gives a slab the rows of its neighbours that a padded or
+  strided op reads (the op's own pad value at the image's edge), so a conv
+  runs with no Y padding: ``k // 2`` rows before and ``k - stride - k // 2``
+  after; the max pool takes one row before (``-inf`` at the edge),
+  ``linear_up`` one on each side (the edge row repeated); ``nearest_up`` is
+  local. ``space_sum`` sums GroupNorm's sums over the group; ``gather_y``
+  joins the slabs of the heads, the seg logits and (Mask R-CNN) the pyramid
+  levels, so that refinement, K1, K2 and the mask pass run on whole tensors,
+  identically on every rank of the group.
+* **Which levels split** (``space_fence``, JAX's ``space_fence``): a level
+  stays split while its slab's rows divide by the next op's stride and
+  cover its halo; from the first stage input where that fails the tensor is
+  gathered and the deeper levels run replicated. JAX's fence also
+  replicates every stage below 32 rows, which guards a GSPMD miscompile;
+  explicit halos do not need it, so the port does not take that rule.
+* ``check_space_cap`` keeps JAX's refusal (``_check_space_cap``) when the
+  deepest level has fewer rows than S, at enable time and at every call;
+  ``MDT_SP_VERIFY=1`` holds each new input shape's outputs against the
+  single-process forward once (atol 1e-5), as JAX's ``make_spatial_predict``.
+* Every collective is an all-reduce (SUM) of a zero-padded buffer, which
+  gloo takes for CPU and CUDA tensors alike (``SpaceGroup.all_gather``).
+  Every rank of a group reaches the same collectives in the same order: no
+  op branches on data.
+* **Precision.** ``Detector.enable_spatial_parallel_inference`` turns
+  cuDNN's and cuBLAS's TF32 off in the rank's process: a slab's shape can
+  take another conv algorithm than the whole image's, and TF32's rounding
+  would then part the two forwards by far more than 1e-5. The equality
+  holds against a single-process forward run with TF32 off too (PyTorch's
+  default leaves it on for cuDNN's convs).
+
+Training under ``n_space_parallel`` (backward functions of these
+primitives) is ROADMAP.md Queue 1 item 1b.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import socket
+import time
 
 import numpy as np
 import torch
@@ -62,6 +107,8 @@ from medicaldetectiontoolkit_torch.ops.topk import top_k
 
 # the DataParallel whose step is running (a stack, as JAX's _SPATIAL_TRACE_CTX)
 _STEP: list = []
+# the SpaceGroup of the running spatial forward; None on a replicated level
+_SPACE: list = []
 
 
 def maybe_initialize_distributed(logger=None, device=None, backend=None) -> bool:
@@ -277,28 +324,38 @@ class DataParallel:
         dist.all_reduce(t, group=self.group)
         return t
 
-    def _flat_groups(self, tensors):
-        by_dtype = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        return by_dtype.values()
-
     def reduce_gradients(self, params):
         """Sum the parameters' ``.grad`` over the ranks: one all-reduce of a
         flat buffer per dtype."""
-        for grads in self._flat_groups([p.grad for p in params]):
+        for grads in _by_dtype([p.grad for p in params]):
             flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
 
     def broadcast_params(self, module):
         """Rank 0's parameters and buffers on every rank."""
-        with torch.no_grad():
-            for tensors in self._flat_groups([*module.parameters(), *module.buffers()]):
-                flat = torch.cat([t.reshape(-1) for t in tensors])
-                dist.broadcast(flat, self.src, group=self.group)
-                for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-                    t.copy_(part.view_as(t))
+        broadcast_module(module, self.src, self.group)
+
+
+def _by_dtype(tensors):
+    """``tensors`` in lists of one dtype each, in order: the flat buffers
+    of one collective each."""
+    groups = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return groups.values()
+
+
+def broadcast_module(module, src: int = 0, group=None):
+    """The parameters and buffers of ``module`` on rank ``src`` (a global
+    rank) copied to every rank of ``group``: one broadcast of a flat buffer
+    per dtype."""
+    with torch.no_grad():
+        for tensors in _by_dtype([*module.parameters(), *module.buffers()]):
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.broadcast(flat, src, group=group)
+            for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+                t.copy_(part.view_as(t))
 
 
 def gather_objects(items):
@@ -312,16 +369,261 @@ def gather_objects(items):
     return [x for part in parts for x in part]
 
 
-def gather_interleaved(items):
+def gather_interleaved(items, group=None):
     """Every rank's list ``items`` merged round-robin (rank 0's first, then
-    rank 1's first, ...): the order of the data set whose patients the ranks
-    took as ``pids[rank::world]``."""
-    _, world = rank_and_world()
+    rank 1's first, ...) over ``group`` (default: the whole job): the order
+    of the data set whose patients the ranks took as ``pids[rank::world]``.
+    Under spatial partitioning ``group`` is the rank's data group
+    (``Grid.data_group``), whose ranks took ``pids[data_index::D]``."""
+    _, world = rank_and_world(group)
     if world == 1:
         return list(items)
     parts = [None] * world
-    dist.all_gather_object(parts, list(items))
+    dist.all_gather_object(parts, list(items), group=group)
     return [part[i] for i in range(max(len(p) for p in parts)) for part in parts if i < len(part)]
+
+
+#############################
+#   spatial partitioning    #
+#############################
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A rank's place in a (data x space) grid of ``n_data * n_space`` ranks
+    (``grid_layout``) and its two process groups."""
+
+    rank: int
+    n_data: int
+    n_space: int
+    data_group: object  # the n_data ranks of this rank's space index
+    space_group: object  # the n_space ranks of this rank's data index
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.n_space
+
+
+def grid_layout(n_data: int, n_space: int) -> Grid:
+    """The job's ranks as a (data x space) grid, JAX's ``get_mesh_2d``: rank
+    r at data index ``r // n_space`` and space index ``r % n_space``. Every
+    rank calls it (``new_group`` is collective)."""
+    rank, world = rank_and_world()
+    if not dist.is_initialized() or world != n_data * n_space:
+        raise ValueError(f"a {n_data} x {n_space} (data x space) grid needs a process group of {n_data * n_space} "
+                         f"ranks; there {'are ' + str(world) if dist.is_initialized() else 'is none'}")
+    data_groups = [dist.new_group([d * n_space + s for d in range(n_data)]) for s in range(n_space)]
+    space_groups = [dist.new_group([d * n_space + s for s in range(n_space)]) for d in range(n_data)]
+    return Grid(rank, n_data, n_space, data_groups[rank % n_space], space_groups[rank // n_space])
+
+
+def check_space_cap(cf, n_space: int, y_extent: int) -> int:
+    """JAX's ``_check_space_cap``: refuse a split whose deepest pyramid level
+    (stride 32, or 64 with ``sixth_pooling``) has fewer Y rows than
+    ``n_space``. Returns that stride."""
+    deepest_stride = 64 if getattr(cf, "sixth_pooling", False) else 32
+    c_deep_y = y_extent // deepest_stride
+    if c_deep_y < n_space:
+        raise ValueError(
+            f"spatial axis {n_space} exceeds C5 Y-extent {c_deep_y} "
+            f"for Y={y_extent} (stride {deepest_stride}); use fewer 'space' shards"
+        )
+    return deepest_stride
+
+
+def space():
+    """The SpaceGroup whose Y slabs the running ops take, or None (one
+    process, a replicated level, or no spatial forward running)."""
+    return _SPACE[-1] if _SPACE else None
+
+
+@contextlib.contextmanager
+def on_slabs(split: bool):
+    """Ops inside take Y slabs iff ``split``; a level that runs replicated
+    (``split`` False) sees no SpaceGroup and runs the plain ops."""
+    if split or not _SPACE:
+        yield
+        return
+    _SPACE.append(None)
+    try:
+        yield
+    finally:
+        _SPACE.pop()
+
+
+def tensor_leaves(tree):
+    """The tensors of nested lists and tuples, in order; None left out."""
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tensor_leaves(item)]
+    return [] if tree is None else [tree]
+
+
+class SpaceGroup:
+    """One rank's side of a space group (``Grid.space_group``): the
+    collectives of the slab-aware ops and the spatial forward (``run``).
+
+    ``stats`` counts, per kind of collective (``halo``, ``sum``,
+    ``gather``), the calls and the bytes this rank received from the other
+    ranks (a halo's neighbour rows, the other ranks' sums and slabs); with
+    ``timing`` on, each collective is fenced by a device synchronise before
+    and after it and its seconds are summed (a measurement mode: it
+    serialises the device)."""
+
+    def __init__(self, grid: Grid):
+        self.grid = grid
+        self.group = grid.space_group
+        self.rank, self.size = grid.space_index, grid.n_space
+        self.timing = False
+        self.stats = {kind: {"calls": 0, "bytes": 0, "s": 0.0} for kind in ("halo", "sum", "gather")}
+        self._verified = set()
+
+    def reset_stats(self):
+        for st in self.stats.values():
+            st.update(calls=0, bytes=0, s=0.0)
+
+    @contextlib.contextmanager
+    def _collective(self, kind: str, n_bytes: int, device):
+        st = self.stats[kind]
+        st["calls"] += 1
+        st["bytes"] += int(n_bytes)
+        if not self.timing:
+            yield
+            return
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        st["s"] += time.perf_counter() - t0
+
+    def all_gather(self, t, kind: str, n_bytes: int):
+        """Every rank's ``t`` (one shape on every rank) stacked in rank
+        order, ``(S, *t.shape)``: an all-reduce (SUM) of a zero-padded
+        buffer, exact, in float32 for floats narrower than it."""
+        wire = t.dtype if t.dtype in (torch.float32, torch.float64) else torch.float32
+        with self._collective(kind, n_bytes, t.device):
+            buf = torch.zeros((self.size, *t.shape), dtype=wire, device=t.device)
+            buf[self.rank] = t
+            dist.all_reduce(buf, group=self.group)
+        return buf.to(t.dtype)
+
+    def sum(self, t):
+        """``t`` summed over the group's ranks."""
+        out = t.clone()
+        with self._collective("sum", t.numel() * t.element_size() * (self.size - 1), t.device):
+            dist.all_reduce(out, group=self.group)
+        return out
+
+    @contextlib.contextmanager
+    def forward(self):
+        """Inside: the ops take this rank's Y slabs (``space()`` is this
+        group)."""
+        _SPACE.append(self)
+        try:
+            yield self
+        finally:
+            _SPACE.pop()
+
+    def run(self, fn, img, cf):
+        """``fn(img)``, a forward that takes the whole image and gives
+        outputs gathered along Y, run on this rank's Y slab of ``img``
+        inside the group: JAX's ``make_spatial_predict``. The cap is checked
+        against ``img``; under ``MDT_SP_VERIFY`` each new input shape's
+        outputs are held once against ``fn(img)`` on this process alone
+        (atol 1e-5)."""
+        y = img.shape[2]
+        check_space_cap(cf, self.size, y)
+        if y % self.size:
+            raise ValueError(f"an image of Y {y} does not split into {self.size} equal slabs")
+        n = y // self.size
+        with self.forward():
+            out = fn(img[:, :, self.rank * n:(self.rank + 1) * n].contiguous())
+        if os.environ.get("MDT_SP_VERIFY") and tuple(img.shape) not in self._verified:
+            ref, got = tensor_leaves(fn(img)), tensor_leaves(out)
+            if len(ref) != len(got):
+                raise AssertionError(f"spatial-predict verify failed: {len(got)} outputs, {len(ref)} on one process")
+            for a, b in zip(ref, got):
+                np.testing.assert_allclose(
+                    a.detach().double().cpu().numpy(), b.detach().double().cpu().numpy(), atol=1e-5,
+                    err_msg="spatial-predict verify failed: the spatial forward differs from the single-process "
+                            "forward")
+            self._verified.add(tuple(img.shape))
+        return out
+
+
+def halo_exchange(x, lo: int, hi: int, pad=0.0):
+    """The image rows ``[r0 - lo, r1 + hi)`` for this rank's Y slab ``x`` =
+    rows ``[r0, r1)`` (dim 2): ``lo`` rows of the previous rank and ``hi``
+    of the next, or at the image's edge ``pad`` (a value, or ``"replicate"``
+    for the edge row repeated). Outside a spatial forward the slab is the
+    whole image and only the padding is added."""
+    if lo == hi == 0:
+        return x
+    sg = space()
+    n = x.shape[2]
+    rank, size = (0, 1) if sg is None else (sg.rank, sg.size)
+
+    def edge(row, count):
+        shape = list(row.shape)
+        shape[2] = count
+        return row.expand(shape) if pad == "replicate" else row.new_full(shape, pad)
+
+    parts = None
+    if size > 1:
+        if lo > n or hi > n:
+            raise ValueError(f"a Y slab of {n} rows cannot lend {lo} rows before and {hi} after; the level should "
+                             "have been gathered (space_fence)")
+        got = lo * (rank > 0) + hi * (rank < size - 1)
+        parts = sg.all_gather(torch.cat([x[:, :, :hi], x[:, :, n - lo:]], dim=2), "halo",
+                              got * x[:, :, :1].numel() * x.element_size())
+    before = parts[rank - 1][:, :, hi:] if rank > 0 else edge(x[:, :, :1], lo)
+    after = parts[rank + 1][:, :, :hi] if rank < size - 1 else edge(x[:, :, n - 1:], hi)
+    return torch.cat([before, x, after], dim=2)
+
+
+def space_sum(t):
+    """A sum over this rank's slab -> the sum over the image's rows inside a
+    spatial forward; the identity outside one."""
+    sg = space()
+    return t if sg is None else sg.sum(t)
+
+
+def gather_y(t):
+    """This rank's Y slab ``t`` (dim 2) -> the whole tensor, the group's
+    slabs joined in rank order, inside a spatial forward; the identity
+    outside one."""
+    sg = space()
+    if sg is None:
+        return t
+    parts = sg.all_gather(t, "gather", t.numel() * t.element_size() * (sg.size - 1))
+    return parts.movedim(0, 2).reshape(*t.shape[:2], sg.size * t.shape[2], *t.shape[3:])
+
+
+def slab_of(t):
+    """This rank's Y slab of a whole (replicated) tensor inside a spatial
+    forward; the identity outside one."""
+    sg = space()
+    if sg is None:
+        return t
+    n = t.shape[2] // sg.size
+    return t[:, :, sg.rank * n:(sg.rank + 1) * n]
+
+
+def space_fence(x, split: bool, stride: int = 1, halo: int = 1):
+    """``(x, whether it stays split)`` ahead of a stage whose first op has
+    ``stride`` and reads ``halo`` rows beyond the slab: a split tensor stays
+    split while its slab's rows divide by ``stride`` and cover ``halo``;
+    otherwise it is gathered and the stage runs replicated."""
+    if not split or space() is None:
+        return x, False
+    n = x.shape[2]
+    if n % stride == 0 and n >= halo:
+        return x, True
+    return gather_y(x), False
 
 
 def free_port() -> int:

@@ -34,7 +34,12 @@ In a data-parallel run (``parallel/mesh.py``) each rank predicts the whole
 patients of its slice on its own card, with no collective (``Detector.
 single_card``), so a patient's results are the single-card ones; the test
 set's raw and consolidated results are gathered in the data set's order and
-rank 0 writes the prediction pickle.
+rank 0 writes the prediction pickle. Under spatial partitioning
+(``cf.n_space_parallel > 1``, test mode; JAX ``predictor.py:57-60``) the
+ranks of a space group take the same patients and chunks, each forward runs
+on their Y slabs and gives every rank the single-process outputs; tiling,
+mirror TTA and stitching run identically on each rank, and the results are
+gathered over the data group (``mesh.Grid.data_group``).
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ class Predictor:
             self.n_ens = cf.test_n_epochs
             if self.cf.test_aug:
                 self.n_ens *= 4
+            if (getattr(cf, "n_space_parallel", None) or 1) > 1 and net.space is None:
+                net.enable_spatial_parallel_inference()
         self.times = {"forward": 0.0, "patient": 0.0, "consolidation": 0.0}
 
     # ------------------------------------------------------------------ #
@@ -155,13 +162,15 @@ class Predictor:
             list_of_results_per_patient.append([results_dict["boxes"], pid])
 
         out_string = "raw_pred_boxes_hold_out_list" if self.cf.hold_out_test_set else "raw_pred_boxes_list"
-        every_patient = mesh.gather_interleaved(list_of_results_per_patient)  # the ranks' slices, in order
+        space = getattr(self.net, "space", None)
+        group = None if space is None else space.grid.data_group
+        every_patient = mesh.gather_interleaved(list_of_results_per_patient, group)  # the ranks' slices, in order
         if mesh.is_writer():
             with open(os.path.join(self.cf.fold_dir, f"{out_string}.pickle"), "wb") as handle:
                 pickle.dump(every_patient, handle)
 
         if return_results:
-            return mesh.gather_interleaved(self._consolidate(list_of_results_per_patient, self.n_ens))
+            return mesh.gather_interleaved(self._consolidate(list_of_results_per_patient, self.n_ens), group)
 
     def _consolidate(self, list_of_results_per_patient, n_ens):
         t0 = time.perf_counter()

@@ -529,8 +529,265 @@ def run_ranks(argv, world=2, timeout=300.0, env=None):
     return outputs
 
 
+#############################
+#   spatial partitioning    #
+#############################
+
+SP_CASES = ("retina_unet", "mrcnn", "detection_unet", "instance_norm", "replicated")
+# (lo, hi, pad) of the halo exchanges held against slicing a padded tensor
+SP_HALOS = ((1, 1, 0.0), (3, 2, 0.0), (4, 2, 0.0), (1, 0, float("-inf")), (0, 1, 0.0), (1, 1, "replicate"))
+
+
+def sp_case(name):
+    """(cf, batch, env) of a spatial-partitioning parity case at S = 2: 3D
+    Retina U-Net and 3D Mask R-CNN (masks returned) under
+    ``MDT_STEM_PALLAS=1``, so that K3's plain version takes conv0's slab
+    (stride 1) and the C1 stem's (stride 2) with their halos; 2D Detection
+    U-Net at patch 128 with ``"batch_norm"`` (GroupNorm(1)) and, as
+    ``instance_norm``, with instance norm, whose GroupNorms sum their
+    statistics over the space group; 2D Retina U-Net at patch 96, whose C4
+    (6 rows, 3 per rank) does not split for the stride-2 C5 stage, so C5 and
+    P5 run replicated."""
+    env = {}
+    if name == "retina_unet":
+        cf = make_config(model="retina_unet", dim=3)
+        env = {"MDT_STEM_PALLAS": "1"}
+    elif name == "mrcnn":
+        cf = make_config(model="mrcnn", dim=3, retina_scales=False)
+        cf.return_masks_in_test = True
+        env = {"MDT_STEM_PALLAS": "1"}
+    elif name in ("detection_unet", "instance_norm"):
+        cf = make_config(model="detection_unet", dim=2, patch_size=[128, 128])
+        cf.norm = "batch_norm" if name == "detection_unet" else "instance_norm"
+    elif name == "replicated":
+        cf = make_config(model="retina_unet", dim=2, patch_size=[96, 96])
+    else:
+        raise ValueError(f"unknown spatial case {name!r}")
+    return cf, make_batch(cf, seed=7), env
+
+
+def sp_heads_fn(net):
+    """The module forward whose outputs a spatial forward gathers:
+    ``extract`` of the two-stage detectors, the module itself otherwise."""
+    return net.module.extract if hasattr(net.module, "extract") else net.module
+
+
+def sp_primitives():
+    """[(name, fn, x)]: the slab-aware ops of ``models/backbone.py`` on
+    seeded inputs of 16 rows (4 per rank at S = 4), each fn a whole-tensor
+    op on one process and a slab op inside a spatial forward. The convs with
+    one input channel take K3's plain version (``MDT_STEM_PALLAS=1``)."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import backbone as bb
+
+    rng = np.random.RandomState(0)
+    x3 = torch.from_numpy(rng.randn(2, 3, 16, 6, 4).astype(np.float32))
+    x2 = torch.from_numpy(rng.randn(2, 3, 16, 6).astype(np.float32))
+    img = torch.from_numpy(rng.rand(2, 1, 16, 6, 8).astype(np.float32))
+    convs = {
+        "conv3x3_3d": (bb.ConvND(3, 3, 5, ks=3, pad=1), x3),
+        "conv7x7_s2_3d": (bb.ConvND(3, 3, 5, ks=7, stride=(2, 2, 1), pad=3), x3),
+        "conv1x1_s2_3d": (bb.ConvND(3, 3, 5, ks=1, stride=(2, 2, 1)), x3),
+        "conv3x3_2d": (bb.ConvND(2, 3, 5, ks=3, pad=1), x2),
+        "conv7x7_s2_2d": (bb.ConvND(2, 3, 5, ks=7, stride=2, pad=3), x2),
+        "k3_conv0": (bb.ConvND(3, 1, 5, ks=3, pad=1), img),
+        "k3_stem_s2": (bb.ConvND(3, 1, 5, ks=7, stride=(2, 2, 1), pad=3), img),
+        "group_norm_1": (bb.ConvND(3, 3, 6, ks=3, pad=1, norm="batch_norm"), x3),
+        "instance_norm": (bb.ConvND(3, 3, 6, ks=3, pad=1, norm="instance_norm"), x3),
+    }
+    ops = []
+    for i, (name, (conv, x)) in enumerate(convs.items()):
+        bb.init_weights(conv, "kaiming_uniform", torch.Generator().manual_seed(i))
+        with torch.no_grad():
+            conv.conv.bias.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(100 + i))
+        ops.append((name, conv, x))
+    ops += [("maxpool_3d", lambda t: bb.maxpool(t, 3), x3), ("maxpool_2d", lambda t: bb.maxpool(t, 2), x2),
+            ("linear_up_3d", lambda t: bb.linear_up(t, (2, 2, 1)), x3),
+            ("linear_up_2d", lambda t: bb.linear_up(t, (2, 2)), x2),
+            ("nearest_up_3d", lambda t: bb.nearest_up(t, (2, 2, 2)), x3)]
+    return ops
+
+
+def env_scope(env):
+    """A context with the variables of ``env`` set in ``os.environ`` and
+    restored after it."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return scope()
+
+
+def _sp_primitives_rank(world):
+    """The primitives on this rank's slabs at S = ``world`` (one space
+    group) and, on 4 ranks, at S = 2 too (a 2 x 2 grid): per S the gathered
+    ops, the haloed slabs of ``SP_HALOS``, a summed row sum and a gathered
+    slab."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out = {}
+    for n_space in (world, 2) if world == 4 else (world,):
+        sg = mesh.SpaceGroup(mesh.grid_layout(world // n_space, n_space))
+        res = {"space_index": sg.rank, "ops": {}, "halo": []}
+        with torch.no_grad(), env_scope({"MDT_STEM_PALLAS": "1"}), sg.forward():
+            for name, fn, x in sp_primitives():
+                res["ops"][name] = mesh.gather_y(fn(mesh.slab_of(x)))
+            x = sp_primitives()[0][2]
+            slab = mesh.slab_of(x)
+            res["halo"] = [mesh.halo_exchange(slab, lo, hi, pad) for lo, hi, pad in SP_HALOS]
+            res["sum"] = mesh.space_sum(slab.sum(dim=2))
+            res["gather"] = mesh.gather_y(slab)
+        out[n_space] = res
+    return out
+
+
+def _sp_forward_rank(case, out_dir, device, world):
+    """One parity case on this rank: the detector made spatial over the
+    ``world`` ranks, loaded with ``out_dir/{case}_params.pkl`` (a JAX param
+    tree) where the test wrote one, else initialised from seed 1; its
+    gathered heads (``sp_heads_fn``) and ``test_forward`` results, which
+    levels split, and the collectives' counts. ``cap`` records the cap's
+    refusals at enable time and per call; ``verify`` runs Retina U-Net
+    under ``MDT_SP_VERIFY=1``, then with every slab padded as if it lay at
+    the image's edge (no neighbour rows), and records what each gave."""
+    import pickle
+
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    if case == "cap":
+        out = {}
+        try:
+            build_model(make_config(model="retina_unet", dim=2, patch_size=[32, 32]), None, device=device) \
+                .enable_spatial_parallel_inference(n_space=world)
+        except ValueError as e:
+            out["enable"] = str(e)
+        net = build_model(make_config(model="retina_unet", dim=2, patch_size=[64, 64]), None, device=device)
+        net.enable_spatial_parallel_inference(n_space=world)
+        try:
+            net.test_forward(make_batch(make_config(model="retina_unet", dim=2, patch_size=[32, 32])))
+        except ValueError as e:
+            out["call"] = str(e)
+        return out
+    name = "retina_unet" if case == "verify" else case
+    cf, batch, env = sp_case(name)
+    with env_scope(env):
+        net = build_model(cf, None, device=device)
+        net.enable_spatial_parallel_inference(n_space=world)
+        params = os.path.join(out_dir, f"{name}_params.pkl")
+        if os.path.isfile(params):
+            with open(params, "rb") as handle:
+                net.load_params(pickle.load(handle))
+        else:
+            net.initialize(seed=1)
+        if case == "verify":
+            out = {}
+            with env_scope({"MDT_SP_VERIFY": "1"}):
+                out["sound"] = sum(len(b) for b in net.test_forward(batch)["boxes"])
+                net.space._verified.clear()
+                exchange = mesh.halo_exchange
+
+                def edges_only(x, lo, hi, pad=0.0):  # every slab padded as if it lay at the image's edge
+                    with mesh.on_slabs(False):
+                        return exchange(x, lo, hi, pad)
+
+                mesh.halo_exchange = edges_only
+                try:
+                    net.test_forward(batch)
+                except AssertionError as e:
+                    out["broken"] = str(e)
+                finally:
+                    mesh.halo_exchange = exchange
+            return out
+        with torch.inference_mode():
+            heads = net._spatial(sp_heads_fn(net), torch.from_numpy(batch["data"]).to(net.device))
+        res = net.test_forward(batch, return_masks=True)
+
+    def cpu(tree):
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(t) for t in tree)
+        return None if tree is None else tree.cpu()
+
+    return {"heads": cpu(heads), "results": res, "slab_levels": net.module.fpn.slab_levels,
+            "stats": net.space.stats,
+            "tf32": (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)}
+
+
+def sp_rank_main(argv=None):
+    """A rank of the spatial parity runs (``run_ranks``): ``out_dir device
+    case...``, each case ``primitives``, ``cap``, ``verify`` or one of
+    ``SP_CASES``; joins the ``MDT_DIST_*`` process group (gloo) and writes
+    each case's result to ``out_dir/{case}_rank{r}.pt``."""
+    import sys
+
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out_dir, device, *cases = sys.argv[2:] if argv is None else argv
+    torch.set_num_threads(2)
+    mesh.maybe_initialize_distributed(device=device, backend="gloo")
+    rank, world = mesh.rank_and_world()
+    try:
+        for case in cases:
+            if case == "primitives":
+                result = _sp_primitives_rank(world)
+            else:
+                result = _sp_forward_rank(case, out_dir, device, world)
+            torch.save(result, os.path.join(out_dir, f"{case}_rank{rank}.pt"))
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+def same_detections(a, b, score_tol=1e-5, coord_tol=1e-3):
+    """Largest differences (score, coords) between two results' ``boxes``
+    (per batch element a list of box dicts), matched as sets: per element
+    the same count, and after sorting each by (type, class, coords), the
+    same types and classes, scores within ``score_tol`` and coords within
+    ``coord_tol``; raises AssertionError otherwise."""
+    def key(box):
+        return (box["box_type"], box.get("box_pred_class_id", -1), tuple(np.round(np.asarray(box["box_coords"],
+                                                                                              float), 2)))
+
+    worst = [0.0, 0.0]
+    if len(a) != len(b):
+        raise AssertionError(f"detections: {len(a)} elements against {len(b)}")
+    for i, (la, lb) in enumerate(zip(a, b)):
+        if len(la) != len(lb):
+            raise AssertionError(f"detections of element {i}: {len(la)} boxes against {len(lb)}")
+        for x, y in zip(sorted(la, key=key), sorted(lb, key=key)):
+            if key(x)[:2] != key(y)[:2]:
+                raise AssertionError(f"detections of element {i}: {x} against {y}")
+            worst[1] = max(worst[1], float(np.abs(np.asarray(x["box_coords"], float)
+                                                  - np.asarray(y["box_coords"], float)).max()))
+            if "box_score" in x:
+                worst[0] = max(worst[0], abs(float(x["box_score"]) - float(y["box_score"])))
+    if worst[0] > score_tol or worst[1] > coord_tol:
+        raise AssertionError(f"detections differ: max|score| {worst[0]:.3e} (tol {score_tol}), max|coords| "
+                             f"{worst[1]:.3e} (tol {coord_tol})")
+    return worst
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:2] == ["dp_rank"]:
         dp_rank_main()
+    elif sys.argv[1:2] == ["sp_rank"]:
+        sp_rank_main()
