@@ -197,7 +197,26 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      ranks that exec starts itself (``n_space_parallel`` 2, ``exec.main(...,
      backend="gloo")``; enabling spatial inference turns TF32 off) against
      a one-process test of the same checkpoints (TF32 off, as in the whole
-     script): raw detections equal as sets, ``results.txt`` scores equal.
+     script): raw detections equal as sets, ``results.txt`` scores equal;
+ 16. spatial partitioning for training (``parallel/mesh.py``: the halo,
+     sum and gather collectives' backward, ``enable_spatial_parallel``).
+     16a: two ranks share the card over gloo as a space group (S = 2) and
+     take a train step of the LIDC-width 3D Retina U-Net and 3D Mask R-CNN
+     (patch 128x128x64, the global batch of 8 as one microbatch, remat,
+     float32, TF32 off, ``MDT_STEM_PALLAS=1``), held against the one-process
+     step on the card (loss 1e-5 relative, gradients 1e-3 of each tensor's
+     max: phase 7b's tolerances; the two ranks' gradients bit-identical);
+     per rank and step the launches K1 1, K3 2, K4 1 (Retina U-Net) and K1
+     2, K2 3, K2 bwd 2, K3 2, K4 1 (Mask R-CNN), K3 and K4 on the haloed
+     slab (phase 3c holds them at those shapes), K1, K2 and K2's backward on
+     the gathered tensors; the forward and backward collectives' calls, MB
+     and ms (fenced), ms per step (two ranks sharing one card: not a
+     scaling figure) and the peak device memory per rank against one
+     process. 16b: ``exec --mode train_test`` over two ranks that exec
+     starts itself (``n_space_parallel`` 2, backend gloo) on phase 15c's
+     small patients, one epoch and the test: every train and validation
+     loss within 1e-5 relative of a one-process run of the same seed,
+     ``last_checkpoint`` and ``results.txt`` written.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -2166,6 +2185,195 @@ def _drive_spatial(torch, np, common, card, root):
     return {"launches": launches, "models": figures}
 
 
+SP_TRAIN_ENV = dict(SP_ENV, MDT_LIDC_EPOCHS="1", MDT_LIDC_NTB="2", MDT_LIDC_NVB="1", MDT_LIDC_BS="2")
+SP_TRAIN_SMALL = {"start_filts": 8, "end_filts": 16, "n_rpn_features": 16, "n_cv_splits": 4, "n_workers": 2,
+                  "plot_prediction_histograms": False, "test_n_epochs": 1}
+
+
+def _sp_train_rank(out_dir, configs, device):
+    """A rank of phase 16a (started by ``mesh.spawn_ranks``): joins the two
+    ranks' gloo group on the one card and, per model of ``configs``, makes
+    the detector spatially partitioned for training over them (S = 2), then
+    takes one checked step of the global batch (launches counted from 0,
+    the collectives' counts and bytes, the peak device memory; the
+    gradients Adam took and the loss saved), one step with the collectives
+    fenced by synchronises (their seconds) and one plain timed step."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch
+    from medicaldetectiontoolkit_torch.tools import common
+
+    os.environ["MDT_STEM_PALLAS"] = "1"  # TF32 left on: enabling spatial training turns it off
+    mesh.maybe_initialize_distributed(device=device, backend="gloo")
+    rank, world = mesh.rank_and_world()
+    counters = _dp_counters()
+    try:
+        for model, cf in configs.items():
+            net = build_model(cf, common.QuietLog(), device=device)
+            net.initialize(seed=0)
+            net.enable_spatial_parallel(n_space=world)
+            batch = make_batch(cf, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            net.space.reset_stats()
+            (res,), (step_s,) = common.train_steps(net, [batch])
+            launches = {k: w.launches for k, w in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            comm = {k: dict(v) for k, v in net.space.stats.items()}
+            grads = {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()}
+            net.space.reset_stats()
+            net.space.timing = True
+            _, (fenced_s,) = common.train_steps(net, [batch])
+            net.space.timing = False
+            comm_s = {k: v["s"] for k, v in net.space.stats.items()}
+            _, (wall_s,) = common.train_steps(net, [batch])
+            torch.save({"loss": res["loss"], "grads": grads, "launches": launches, "peak": peak, "comm": comm,
+                        "comm_s": comm_s, "first_ms": step_s * 1e3, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3},
+                       os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+            del net, grads
+            torch.cuda.empty_cache()
+    finally:
+        mesh.dist.destroy_process_group()
+
+
+def _epoch_losses(np, exp_dir):
+    """Per split the losses of every logged train and validation step of
+    the exp dir's ``last_checkpoint``, epoch by epoch."""
+    with open(os.path.join(exp_dir, "fold_0", "last_checkpoint", "monitor_metrics.pickle"), "rb") as handle:
+        metrics = pickle.load(handle)
+    return {split: np.asarray([v["loss"] for ep in metrics[split]["monitor_values"] for v in ep], float)
+            for split in ("train", "val")}
+
+
+def _drive_spatial_training(torch, np, common, card, root):
+    """Phase 16: spatial partitioning for training (``parallel/mesh.py``:
+    the primitives' backward collectives, ``Detector.enable_spatial_parallel``).
+    16a: two ranks share the one card over gloo as a space group (S = 2) and
+    take a train step of the LIDC-width 3D Retina U-Net and 3D Mask R-CNN on
+    the global batch of 8 (one microbatch, remat, float32, TF32 off,
+    ``MDT_STEM_PALLAS=1``), held against the one-process step on the card
+    (loss 1e-5 relative, gradients 1e-3 of each tensor's max: phase 7b's
+    tolerances), with each rank's kernel launches asserted (K3 and K4 on the
+    haloed slabs, K1, K2 and K2's backward on the gathered tensors), the
+    forward and backward collectives' calls, MB and fenced ms, ms per step
+    and the peak device memory printed. 16b: ``exec --mode train_test`` over
+    two ranks that exec starts itself (``n_space_parallel`` 2, backend
+    gloo) on phase 15c's small patients, its losses against a one-process
+    run. Returns the launch counts and the figures."""
+    import shutil
+
+    from medicaldetectiontoolkit_torch import exec as port_exec
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.parallel import mesh
+    from medicaldetectiontoolkit_torch.testing import make_batch, make_lidc_experiment
+
+    t_phase = time.perf_counter()
+    os.environ["MDT_STEM_PALLAS"] = "1"
+    print("== phase 16a: two ranks on the one card over gloo as a space group (S = 2), spatially partitioned "
+          "training at LIDC width (patch 128x128x64, sf 18, ef 36, global batch 8 as one microbatch, remat), "
+          "float32, TF32 off, MDT_STEM_PALLAS=1")
+    configs = {model: _dp_config(model) for model in SP_MODELS}
+    ref = {}
+    for model, cf in configs.items():
+        net = build_model(cf, common.QuietLog(), device="cuda")
+        net.initialize(seed=0)
+        batch = make_batch(cf, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (res,), _ = common.train_steps(net, [batch])
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()}
+        _, (wall_s,) = common.train_steps(net, [batch])
+        ref[model] = {"loss": res["loss"], "grads": grads, "peak": peak, "ms": wall_s * 1e3}
+        del net
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "sp_train_ranks")
+    os.makedirs(out_dir)
+    os.environ.setdefault("MDT_DIST_INIT_TIMEOUT", "300")
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_sp_train_rank, 2, (out_dir, configs, "cuda"))
+    print(f"  two ranks started, stepped and stopped in {time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in _dp_counters()}
+    figures = {}
+    for model, cf in configs.items():
+        one = ref[model]
+        if model == "retina_unet":
+            expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
+        else:
+            expect = two_stage_launches(cf, cf.batch_size, "train")
+        ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
+        for r, res in enumerate(ranks):
+            loss_err = abs(res["loss"] - one["loss"]) / abs(one["loss"])
+            grad_err, worst = _grad_errors(torch, res["grads"], one["grads"])
+            comm, comm_s = res["comm"], res["comm_s"]
+            coll = "; ".join(f"{k} {comm[k]['calls']} calls, {comm[k]['bytes'] / 1e6:.1f} MB received, "
+                             f"{comm_s[k] * 1e3:.1f} ms" for k in comm)
+            print(f"  {model} rank {r}: loss {res['loss']:.6f} vs one process {one['loss']:.6f} (relative "
+                  f"{loss_err:.2e}); worst gradient {grad_err:.2e} of its tensor's max ({worst}); launches "
+                  f"{res['launches']} (expected {expect}); per step: {coll} (each collective fenced by "
+                  f"synchronises, gloo through the host); step {res['ms']:.1f} ms ({res['fenced_ms']:.1f} fenced, "
+                  f"first {res['first_ms']:.1f}) against {one['ms']:.1f} ms on one process (two ranks sharing "
+                  f"one card: not a scaling figure); peak device memory {res['peak'] / 2**30:.3f} GiB against "
+                  f"{one['peak'] / 2**30:.3f} GiB on one process ({card})")
+            if not (loss_err <= 1e-5 and grad_err <= 1e-3):
+                raise AssertionError(f"{model} rank {r}: the spatial train step differs from the one-process step")
+            if {k: res["launches"][k] for k in expect} != expect:
+                raise AssertionError(f"{model} rank {r}: launches {res['launches']}, expected {expect}")
+            if not all(comm[k]["calls"] > 0 for k in ("halo", "gather", "halo_bwd", "gather_bwd")):
+                raise AssertionError(f"{model} rank {r}: a collective of the spatial step never ran: {comm}")
+            for k in launches:
+                launches[k] += res["launches"][k]
+        if any(not torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in one["grads"]):
+            raise AssertionError(f"{model}: the two ranks hold different summed gradients")
+        for res in ranks:
+            del res["grads"]
+        figures[model] = {"ranks": ranks, "one": {k: one[k] for k in ("peak", "ms")}}
+    del ref
+
+    print(f"== phase 16b: exec --mode train_test over two ranks that exec starts itself (n_space_parallel 2, "
+          f"backend gloo) on synthetic patients of {SP_PATIENT} (patch 64x64x8, sf 8, batch 2, one epoch of 2 "
+          "train and 1 val_sampling batches from 2 loader workers, then the test), against a one-process run of the "
+          "same seed (TF32 off)")
+    log_path = os.path.join(root, "exec_console.log")
+    data = os.path.join(root, "data_sp_train")
+    exps = {tag: _quietly(log_path, make_lidc_experiment, root, SP_TRAIN_ENV, dict(SP_TRAIN_SMALL, n_space_parallel=s),
+                          n_patients=4, shape=SP_PATIENT, seeds=(), epochs=(), device="cuda", data_dir=data,
+                          exp_name=f"exp_sp_train_{tag}")
+            for s, tag in ((2, "spatial"), (None, "single"))}
+    source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "medicaldetectiontoolkit_torch", "experiments",
+                          "lidc_exp")
+    walls = {}
+    for tag, cf in exps.items():
+        argv = ["--mode", "train_test", "--exp_source", source, "--exp_dir", cf.exp_dir, "--folds", "0",
+                "--use_stored_settings"]
+        t0 = time.perf_counter()
+        with _quiet_fd(log_path):
+            _quietly(log_path, port_exec.main, argv, device="cuda", backend="gloo" if tag == "spatial" else None)
+        walls[tag] = time.perf_counter() - t0
+    a, b = (_epoch_losses(np, exps[tag].exp_dir) for tag in ("spatial", "single"))
+    worst = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k]))) for k in b) if all(
+        a[k].shape == b[k].shape and a[k].size for k in b) else float("inf")
+    spatial = exps["spatial"].exp_dir
+    with open(os.path.join(spatial, "fold_0", "exec.log")) as handle:
+        log = handle.read()
+    written = os.path.isfile(os.path.join(spatial, "results.txt")) and \
+        os.path.isfile(os.path.join(spatial, "fold_0", "last_checkpoint", "params.pkl"))
+    print(f"  train losses {a['train'].tolist()}, val {a['val'].tolist()} over two ranks; worst relative difference "
+          f"from one process {worst:.2e}; last_checkpoint and results.txt written: {written}; {walls['spatial']:.1f} s "
+          f"over two ranks (their start included), {walls['single']:.1f} s on one process ({card})")
+    if not (worst <= 1e-5 and written and "spatially-partitioned training over 1x2" in log):
+        raise AssertionError("exec train_test over two ranks: other losses than one process, or no checkpoint, "
+                             "results.txt or spatial training log line")
+    shutil.rmtree(data)
+    torch.cuda.empty_cache()
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "models": figures, "exec_s": walls}
+
+
 def main() -> int:
     import torch
 
@@ -2282,6 +2490,9 @@ def main() -> int:
     lap("15: spatial partitioning")
     with tempfile.TemporaryDirectory() as root:
         sp = _drive_spatial(torch, np, common, card, root)
+    lap("16: spatial training")
+    with tempfile.TemporaryDirectory() as root:
+        spt = _drive_spatial_training(torch, np, common, card, root)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():
@@ -2346,6 +2557,13 @@ def main() -> int:
         print(f"  spatial {model}, S = 2 over gloo on one card: forward {ms} ms per rank against "
               f"{fig['one']['ms']:.1f} ms on one process (not a scaling figure); halo {halo} ms, gather {gather} ms "
               f"per forward (fenced); peak {peak} GiB per rank against {fig['one']['peak'] / 2**30:.3f} GiB")
+    for model, fig in spt["models"].items():
+        ms = ", ".join(f"{r['ms']:.1f}" for r in fig["ranks"])
+        comm = ", ".join(f"{sum(r['comm_s'].values()) * 1e3:.1f}" for r in fig["ranks"])
+        peak = ", ".join(f"{r['peak'] / 2**30:.3f}" for r in fig["ranks"])
+        print(f"  spatial training {model}, S = 2 over gloo on one card: step {ms} ms per rank against "
+              f"{fig['one']['ms']:.1f} ms on one process (not a scaling figure); collectives {comm} ms per step "
+              f"(fenced); peak {peak} GiB per rank against {fig['one']['peak'] / 2**30:.3f} GiB")
     for dtype, r in truns.items():
         print(f"  retina_unet training {dtype}: {sum(r['ms']) / len(r['ms']):.1f} ms per step of 8 "
               f"({r['patches_per_s']:.2f} patches/s, peak {r['peak_gib']:.2f} GiB); A/B K3/K4 vs cuDNN stem: "
@@ -2358,7 +2576,7 @@ def main() -> int:
         "launches": sum(r["launches"] for r in runs.values()) + sum(r["launches"]["nms"] for r in mruns.values())
         + sum(r["launches"]["nms"] for r in truns.values()) + patients["launches"]["nms"]
         + training["launches"]["nms"] + two_stage["launches"]["nms"] + toy["nms"] + petct["launches"]["nms"]
-        + dp["launches"]["nms"] + sp["launches"]["nms"],
+        + dp["launches"]["nms"] + sp["launches"]["nms"] + spt["launches"]["nms"],
         **nms_entry,
     }, {
         "name": "roi_align",
@@ -2366,14 +2584,16 @@ def main() -> int:
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:145",
         "launches": sum(r["launches"]["roi_align"] for r in mruns.values()) + patients["launches"]["roi_align"]
-        + two_stage["launches"]["roi_align"] + dp["launches"]["roi_align"] + sp["launches"]["roi_align"],
+        + two_stage["launches"]["roi_align"] + dp["launches"]["roi_align"] + sp["launches"]["roi_align"]
+        + spt["launches"]["roi_align"],
         **roi_entry,
     }, {
         "name": "roi_align_bwd",
         "route": "cuda",
         "source": "medicaldetectiontoolkit_torch/csrc/roi_align.cu",
         "replaces": "medicaldetectiontoolkit_tpu/ops/roi_align_pallas.py:269",
-        "launches": two_stage["launches"]["roi_align_bwd"] + dp["launches"]["roi_align_bwd"],
+        "launches": two_stage["launches"]["roi_align_bwd"] + dp["launches"]["roi_align_bwd"]
+        + spt["launches"]["roi_align_bwd"],
         **bwd_entry,
     }, {
         "name": "stem_fwd",
@@ -2382,7 +2602,7 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:151",
         "launches": sum(r["launches"]["stem_fwd"] for r in truns.values()) + training["launches"]["stem_fwd"]
         + two_stage["launches"]["stem_fwd"] + det_unet["launches"]["stem_fwd"] + petct["launches"]["stem_fwd"]
-        + dp["launches"]["stem_fwd"] + sp["launches"]["stem_fwd"],
+        + dp["launches"]["stem_fwd"] + sp["launches"]["stem_fwd"] + spt["launches"]["stem_fwd"],
         **stem_entries["stem_fwd"],
     }, {
         "name": "stem_wgrad",
@@ -2391,7 +2611,7 @@ def main() -> int:
         "replaces": "medicaldetectiontoolkit_tpu/ops/stem_conv_pallas.py:201",
         "launches": sum(r["launches"]["stem_wgrad"] for r in truns.values()) + training["launches"]["stem_wgrad"]
         + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"] + petct["launches"]["stem_wgrad"]
-        + dp["launches"]["stem_wgrad"],
+        + dp["launches"]["stem_wgrad"] + spt["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}))

@@ -117,8 +117,8 @@ class DefaultConfigs:
         # data-parallel ranks, one per card (MDT_DP; parallel/mesh.py): exec
         # starts them itself, or each joins an MDT_DIST_* job; batch_size
         # stays the global batch. Spatial partitioning (MDT_SP: the ranks of
-        # a space group split each image's Y) runs test inference over
-        # MDT_DP x MDT_SP ranks; training refuses it (ROADMAP.md Queue 1, 1b)
+        # a space group split each image's Y) runs training, validation and
+        # test inference over MDT_DP x MDT_SP ranks
         self.n_data_parallel = (
             int(os.environ["MDT_DP"]) if os.environ.get("MDT_DP") else None
         )

@@ -10,10 +10,14 @@ thread pool and a bounded queue give the same asynchronous host pipeline
 without pickling batches across processes.
 
 A pipeline is (sampler -> transform chain); each worker owns a seeded
-``np.random.RandomState``, so the batches of one worker are reproducible.
-With more than one worker, the order in which their batches reach the queue
-is the thread scheduler's. Worker errors surface in ``__next__``;
-``shutdown`` stops the workers, drains the queue and joins the threads.
+``np.random.RandomState`` and a bounded queue, and ``__next__`` reads the
+workers' queues in turn, so the sequence of batches is fixed by the seeds
+whatever the thread scheduler does (JAX's single queue takes them in the
+order they are made). Ranks that must take the same rows at every step,
+those of a space group (``parallel/mesh.py``), build the same generator
+and get the same batches. Worker errors surface in ``__next__`` when that
+worker's turn comes; ``shutdown`` stops the workers, drains the queues and
+joins the threads.
 ``batch_seconds`` holds the host seconds each batch took to generate
 (sampling and transforms, without the wait for room in the queue), from
 which the loader's capacity in patches/s follows.
@@ -42,7 +46,9 @@ class BatchGeneratorBase:
 
 
 class MultiThreadedGenerator:
-    """Async prefetch of (generator + transforms) with n_workers threads."""
+    """Async prefetch of (generator + transforms) with n_workers threads,
+    taken from the workers in turn; ``queue_size`` batches are buffered in
+    all (at least one per worker)."""
 
     def __init__(
         self,
@@ -57,14 +63,15 @@ class MultiThreadedGenerator:
         self.n_workers = max(1, n_workers)
         seeds = seeds if seeds is not None else range(self.n_workers)
         self._rngs = [np.random.RandomState(s) for s in seeds]
-        self._queue: queue.Queue = queue.Queue(maxsize=queue_size)
+        self._queues = [queue.Queue(maxsize=max(1, queue_size // self.n_workers)) for _ in range(self.n_workers)]
+        self._turn = 0
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._started = False
         self.batch_seconds: List[float] = []
 
     def _worker(self, wid):
-        rng = self._rngs[wid]
+        rng, out = self._rngs[wid], self._queues[wid]
         while not self._stop.is_set():
             try:
                 t0 = time.perf_counter()
@@ -76,7 +83,7 @@ class MultiThreadedGenerator:
                 batch = e
             while not self._stop.is_set():
                 try:
-                    self._queue.put(batch, timeout=0.25)
+                    out.put(batch, timeout=0.25)
                     break
                 except queue.Full:
                     continue
@@ -97,7 +104,8 @@ class MultiThreadedGenerator:
 
     def __next__(self):
         self._start()
-        item = self._queue.get()
+        item = self._queues[self._turn].get()
+        self._turn = (self._turn + 1) % self.n_workers
         if isinstance(item, Exception):
             self.shutdown()
             raise item
@@ -106,15 +114,15 @@ class MultiThreadedGenerator:
     next = __next__
 
     def shutdown(self, timeout: float = 60.0):
-        """Stop the workers, drain the queue so none stays blocked on put(),
+        """Stop the workers, drain the queues so none stays blocked on put(),
         and join them, all within ``timeout`` seconds (a worker finishes the
         batch it is making first)."""
         self._stop.set()
-        for t in self._threads:
+        for t, q in zip(self._threads, self._queues):
             while t.is_alive():
                 try:
                     while True:
-                        self._queue.get_nowait()
+                        q.get_nowait()
                 except queue.Empty:
                     pass
                 t.join(timeout=0.05)

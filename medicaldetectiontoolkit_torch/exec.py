@@ -46,15 +46,17 @@ order. Only rank 0 writes the exp dir (log file, checkpoints,
 ``results.txt``). A rank that raises, or a collective that outlasts
 ``MDT_DIST_INIT_TIMEOUT``, fails the run.
 
-Spatial partitioning (``cf.n_space_parallel = S > 1``, ``MDT_SP=S``) is
-inference: ``--mode test`` runs over W = D x S ranks (D =
-``cf.n_data_parallel`` or 1), started as above. The S ranks of a space
-group predict the same patients of their data slice ``pids[d::D]``, each
-forward split along the image's Y over them (``parallel/mesh.py``), and
-give the single-process results (computed with TF32 off: each rank turns
-it off, see ``parallel/mesh.py``); ``analysis`` needs no rank. ``train``
-and ``train_test`` refuse it (ROADMAP.md Queue 1 item 1b). More ranks than
-cards are refused unless the caller of ``main`` names the gloo backend
+Spatial partitioning (``cf.n_space_parallel = S > 1``, ``MDT_SP=S``): every
+mode but ``analysis`` runs over W = D x S ranks (D = ``cf.n_data_parallel``
+or 1), started as above. The S ranks of a space group take the same rows of
+the global batch (the loader's slice of data group d of D) and the same
+patients of their data slice ``pids[d::D]``; each train, validation and
+test forward is split along the image's Y over them (``parallel/mesh.py``)
+and gives the single-process results (computed with TF32 off: each rank
+turns it off, see ``parallel/mesh.py``). The results are gathered over the
+data groups; global rank 0 writes, and ``--resume_to_checkpoint`` loads on
+every rank and broadcasts rank 0's parameters. More ranks than cards are
+refused unless the caller of ``main`` names the gloo backend
 (``backend="gloo"``: two ranks may then share a card).
 """
 
@@ -80,14 +82,14 @@ def _n_ranks(cf) -> int:
     return (getattr(cf, "n_data_parallel", None) or 1) * (getattr(cf, "n_space_parallel", None) or 1)
 
 
-def _check_parallel(cf, device, training: bool, backend=None):
-    """Refuse spatial partitioning in training, and more ranks than cards
-    where this command starts the ranks itself (unless ``backend`` is
-    gloo)."""
-    if training and (getattr(cf, "n_space_parallel", None) or 1) > 1:
-        raise NotImplementedError(
-            f"cf.n_space_parallel = {cf.n_space_parallel}: spatial partitioning is ported for inference only "
-            "(--mode test, analysis); training and validation under it are ROADMAP.md Queue 1 item 1b")
+def _check_parallel(cf, device, backend=None):
+    """Refuse a split whose deepest level has fewer Y rows than
+    ``cf.n_space_parallel`` (``mesh.check_space_cap``, JAX's message), and
+    more ranks than cards where this command starts the ranks itself
+    (unless ``backend`` is gloo)."""
+    n_space = getattr(cf, "n_space_parallel", None) or 1
+    if n_space > 1:
+        mesh.check_space_cap(cf, n_space, cf.patch_size[0])
     n = _n_ranks(cf)
     if n > 1 and not mesh.dist.is_initialized() and (device is None or str(device).startswith("cuda")) and \
             backend != "gloo":
@@ -99,9 +101,22 @@ def _check_parallel(cf, device, training: bool, backend=None):
 
 
 def _data_parallel(cf, net):
-    """Make ``net`` a rank of the process group's data-parallel run; on one
-    card nothing. ``cf.n_data_parallel``, where set, must be the group's
-    size."""
+    """Make ``net`` a rank of the process group's data-parallel run, or of
+    its (data x space) grid under ``cf.n_space_parallel > 1`` (the loader
+    then takes the data group's slice, ``cf.input_shard``, its generators
+    seeded alike on the S ranks of a space group and read in a fixed order,
+    ``data/loader.py``, so that those ranks take the same rows at every
+    step); on one card nothing. ``cf.n_data_parallel``, where set, must be
+    the group's size without spatial partitioning. Returns the group whose ranks hold other
+    rows (None: the whole job)."""
+    n_space = getattr(cf, "n_space_parallel", None) or 1
+    if n_space > 1:
+        if not mesh.dist.is_initialized():
+            raise RuntimeError(f"cf.n_space_parallel = {n_space} needs a process group: run through exec.main, which "
+                               "starts the ranks, or under MDT_DIST_*")
+        grid = net.enable_spatial_parallel()
+        cf.input_shard = (grid.data_index, grid.n_data)
+        return grid.data_group
     _, world = mesh.rank_and_world()
     n = getattr(cf, "n_data_parallel", None)
     if not mesh.dist.is_initialized():
@@ -112,6 +127,7 @@ def _data_parallel(cf, net):
     if (n or world) != world:
         raise ValueError(f"cf.n_data_parallel = {n}, but the process group has {world} ranks")
     net.enable_data_parallel()
+    return None
 
 
 class _StepProfiler:
@@ -159,7 +175,7 @@ def train(cf, data_loader, logger, device=None):
     (``step_s``) and the host seconds the loop waited for each train batch
     (``load_s``); the train loader's worker count, batch size and host
     seconds per generated batch."""
-    _check_parallel(cf, device, training=True)
+    _check_parallel(cf, device)
     writer = mesh.is_writer()
     logger.info(
         "performing training in {}D over fold {} on experiment {} with model {}".format(
@@ -168,7 +184,7 @@ def train(cf, data_loader, logger, device=None):
     )
     net = build_model(cf, logger, device=device)
     net.initialize()
-    _data_parallel(cf, net)
+    rows_group = _data_parallel(cf, net)
     model_selector = utils.ModelSelector(cf, logger)
     train_evaluator = Evaluator(cf, logger, mode="train")
     val_evaluator = Evaluator(cf, logger, mode=cf.val_mode)
@@ -250,7 +266,7 @@ def train(cf, data_loader, logger, device=None):
                 profiler.stop()
 
             # every rank's rows; rank 0 scores them, selects and writes
-            train_results_list = mesh.gather_objects(train_results_list)
+            train_results_list = mesh.gather_objects(train_results_list, rows_group)
             if writer:
                 _, monitor_metrics["train"] = train_evaluator.evaluate_predictions(
                     train_results_list, monitor_metrics["train"]
@@ -281,12 +297,12 @@ def train(cf, data_loader, logger, device=None):
                 if pending_val is not None:
                     _record_val(net.train_forward_convert(*pending_val, need_seg_preds=False), pending_val[1])
                 if cf.val_mode == "val_patient":  # each rank validated patients of its own
-                    val_results_list = mesh.gather_interleaved(val_results_list)
+                    val_results_list = mesh.gather_interleaved(val_results_list, rows_group)
                 entries = [entry for entry, _ in val_results_list]
                 # a val_sampling step's monitor values are the global batch's on every rank
                 monitor_metrics["val"]["monitor_values"][epoch] += [monitor for _, monitor in val_results_list]
                 if cf.val_mode != "val_patient":
-                    entries = mesh.gather_objects(entries)
+                    entries = mesh.gather_objects(entries, rows_group)
                 if writer:
                     _, monitor_metrics["val"] = val_evaluator.evaluate_predictions(entries, monitor_metrics["val"])
                     logger.info(f"val results epoch {epoch}: " + ", ".join(
@@ -322,7 +338,7 @@ def test(cf, data_loader, logger, device=None):
     each rank predicts the patients of its slice, the results are gathered
     and rank 0 scores them; under spatial partitioning the slices are the
     data groups' (the Predictor enables it)."""
-    _check_parallel(cf, device, training=False)
+    _check_parallel(cf, device)
     logger.info(f"starting testing model of fold {cf.fold} in exp {cf.exp_dir}")
     net = build_model(cf, logger, device=device)
     net.initialize()
@@ -392,13 +408,13 @@ def _prep_exp(*args, **kwargs):
     return utils.prep_exp(*args, write=False, **kwargs)
 
 
-def _spawned(cf, argv, device, training: bool, backend):
+def _spawned(cf, argv, device, backend):
     """With W = ``cf.n_data_parallel`` x ``cf.n_space_parallel`` > 1 and no
     process group: run this command in W new processes
     (``mesh.spawn_ranks``) and wait. Returns whether it did."""
     if _n_ranks(cf) == 1 or mesh.dist.is_initialized():
         return False
-    _check_parallel(cf, device, training, backend)
+    _check_parallel(cf, device, backend)
     mesh.spawn_ranks(main, _n_ranks(cf), (argv, device, backend))
     return True
 
@@ -426,7 +442,7 @@ def _run(args, argv, device, backend):
 
     if args.mode in ("train", "train_test"):
         cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, args.use_stored_settings)
-        if _spawned(cf, argv, device, True, backend):
+        if _spawned(cf, argv, device, backend):
             return out
         folds = apply_dev_shrinkage(cf, args, folds)
         cf.data_dest = args.data_dest
@@ -452,7 +468,7 @@ def _run(args, argv, device, backend):
 
     elif args.mode == "test":
         cf = _prep_exp(args.exp_source, args.exp_dir, args.server_env, is_training=False, use_stored_settings=True)
-        if _spawned(cf, argv, device, False, backend):
+        if _spawned(cf, argv, device, backend):
             return out
         if args.dev:
             folds = [0, 1]

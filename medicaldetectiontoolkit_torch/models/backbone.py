@@ -23,18 +23,22 @@ K4 (weight gradient) through ``ops/stem_conv.py``, as in JAX
 
 ``remat`` (on by default in 3D, ``resolve_remat``) recomputes the stem
 convs, the ResBlocks and the full-resolution laterals in the backward pass
-(``torch.utils.checkpoint``), where JAX wraps them in ``maybe_remat``.
+(``torch.utils.checkpoint`` through ``mesh.checkpoint``, which gives the
+recomputation the forward's SpaceGroup), where JAX wraps them in
+``maybe_remat``.
 
 ``dtype`` is the compute dtype: params stay float32 and are cast at each
 conv, as flax's ``nn.Conv(dtype=...)`` does.
 
 Under spatial partitioning (``parallel/mesh.py``, inside
-``SpaceGroup.run``) each rank holds a Y slab of every split level: padded
-and strided convs, the max pool and ``linear_up`` take their neighbours'
-rows through ``mesh.halo_exchange``, GroupNorm sums its statistics over the
-space group, and ``FPN`` gathers a level that no longer splits
-(``mesh.space_fence``) and runs it and the deeper ones replicated;
-``FPN.slab_levels`` says which of its outputs are slabs.
+``SpaceGroup.train`` or ``run``) each rank holds a Y slab of every split
+level: padded and strided convs, the max pool and ``linear_up`` take their
+neighbours' rows through ``mesh.halo_exchange``, GroupNorm sums its
+statistics over the space group, and ``FPN`` gathers a level that no longer
+splits (``mesh.space_fence``) and runs it and the deeper ones replicated;
+``FPN.slab_levels`` says which of its outputs are slabs. Each of these
+primitives has its backward collective (``mesh``'s gradient convention), so
+the same code trains: no op here needs its own backward rule.
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from medicaldetectiontoolkit_torch.ops.stem_conv import StemConv3dFunction, stem_viable
 from medicaldetectiontoolkit_torch.parallel import mesh
@@ -106,31 +109,27 @@ def init_weights(module: nn.Module, weight_init: Optional[str], generator: torch
 
 
 def _flax_group_norm(x, norm: nn.GroupNorm):
-    """GroupNorm as flax computes it: float32 statistics, the "fast"
-    variance E[x^2] - E[x]^2 clamped at 0, then (x - mean) * (rsqrt(var +
-    eps) * scale) + bias. Matching flax matters where a group holds few
-    values (instance norm on the deepest levels), where the variance is
-    ill-conditioned and torch's two-pass variance gives other numbers.
+    """GroupNorm with flax's formula: the "fast" variance E[x^2] - E[x]^2
+    clamped at 0, then (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    Matching flax matters where a group holds few values (instance norm on
+    the deepest levels), where the variance is ill-conditioned and torch's
+    two-pass variance gives other numbers.
 
-    On a Y slab the sums of x and x^2 are summed over the space group
-    first, in float64: summed in another order in float32, the slabs' sums
-    would put E[x^2] - E[x]^2 as far again from its exact value as one
-    process's float32 does where it is ill-conditioned."""
+    The sums of x and x^2 are taken in float64 (flax: float32), and on a Y
+    slab summed over the space group: there, in float32, the order of
+    summation alone moves E[x^2] - E[x]^2 by as much as its float32
+    rounding does, so a slab's statistics and one process's would part; in
+    float64 they agree, and so do the steps that train on them."""
     b, c = x.shape[:2]
     g = norm.num_groups
     xg = x.float().reshape(b, g, c // g, -1)
+    xd = xg.double()
+    sums = mesh.space_sum(torch.stack([xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))]))
     sg = mesh.space()
-    if sg is None:
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp_min(xg.square().mean(dim=(2, 3), keepdim=True) - mean.square(), 0.0)
-    else:
-        xd = xg.double()
-        sums = mesh.space_sum(torch.stack([xd.sum(dim=(2, 3)), xd.square().sum(dim=(2, 3))]))
-        mean, mean_sq = (sums / (xg.shape[2] * xg.shape[3] * sg.size))[..., None, None]
-        var = torch.clamp_min(mean_sq - mean.square(), 0.0).float()
-        mean = mean.float()
+    mean, mean_sq = (sums / (xg.shape[2] * xg.shape[3] * (1 if sg is None else sg.size)))[..., None, None]
+    var = torch.clamp_min(mean_sq - mean.square(), 0.0).float()
     mul = torch.rsqrt(var + norm.eps) * norm.weight.view(1, g, c // g, 1)
-    y = (xg - mean) * mul + norm.bias.view(1, g, c // g, 1)
+    y = (xg - mean.float()) * mul + norm.bias.view(1, g, c // g, 1)
     return y.reshape(x.shape)
 
 
@@ -185,7 +184,7 @@ class ConvND(nn.Module):
 
     def forward(self, x):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._forward, x, use_reentrant=False)
+            return mesh.checkpoint(self._forward, x)
         return self._forward(x)
 
     def _forward(self, x):
@@ -243,7 +242,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._forward, x, use_reentrant=False)
+            return mesh.checkpoint(self._forward, x)
         return self._forward(x)
 
     def _forward(self, x):

@@ -27,7 +27,9 @@ rank of a data-parallel run (``parallel/mesh.py``): its batches hold this
 rank's rows, its steps equal the single-card step on the global batch.
 After ``enable_spatial_parallel_inference`` its test forwards run on this
 rank's Y slab of each uploaded batch within its space group and give the
-single-process outputs on every rank of the group.
+single-process outputs on every rank of the group; after
+``enable_spatial_parallel`` its train and validation steps do too, over a
+(data x space) grid, and equal the single-card step on the global batch.
 """
 
 from __future__ import annotations
@@ -257,9 +259,10 @@ class Detector:
 
     # per-epoch lr, set by the trainer (reference exec.py:59-60)
     current_lr = 1e-4
-    # this rank's mesh.DataParallel after enable_data_parallel; None on one card
+    # this rank's mesh.DataParallel after enable_data_parallel (over its data
+    # group after enable_spatial_parallel); None on one card
     dp = None
-    # this rank's mesh.SpaceGroup after enable_spatial_parallel_inference
+    # this rank's mesh.SpaceGroup after enable_spatial_parallel[_inference]
     space = None
 
     def __init__(self, cf, logger, device: Optional[torch.device] = None):
@@ -337,14 +340,29 @@ class Detector:
         return self.dp
 
     def _broadcast_params(self):
-        if self.dp is not None:
-            self.dp.broadcast_params(self.module)
-        elif self.space is not None:
+        if self.dp is not None or self.space is not None:
             from medicaldetectiontoolkit_torch.parallel import mesh
 
             mesh.broadcast_module(self.module)
 
     # ---- spatial partitioning ------------------------------------------
+    def _space_grid(self, n_data, n_space, what: str):
+        """The (data x space) grid of ``enable_spatial_parallel[_inference]``
+        and this rank's SpaceGroup on it."""
+        from medicaldetectiontoolkit_torch.parallel import mesh
+
+        cf = self.cf
+        grid = mesh.grid_layout(n_data or getattr(cf, "n_data_parallel", None) or 1,
+                                n_space or getattr(cf, "n_space_parallel", None) or 1)
+        mesh.check_space_cap(cf, grid.n_space, cf.patch_size[0])
+        # a slab can take another conv algorithm than the whole image; TF32's rounding would part the forwards
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        self.space = mesh.SpaceGroup(grid)
+        if self.logger is not None:
+            self.logger.info(f"spatially-partitioned {what} over {grid.n_data}x{grid.n_space} (data x space) "
+                             f"ranks: rank {grid.rank} at data {grid.data_index}, space {grid.space_index}")
+        return grid
+
     def enable_spatial_parallel_inference(self, n_data=None, n_space=None):
         """Make this detector's test forwards spatially partitioned over a
         (data x space) grid of the process group (``parallel/mesh.py``; JAX
@@ -354,29 +372,43 @@ class Detector:
         on ``cf.patch_size`` here and on the image at every forward; rank
         0's parameters are broadcast now and after every load; TF32 is
         turned off in this process (``parallel/mesh.py``, Precision).
-        Training is not spatially partitioned (ROADMAP.md Queue 1 item 1b).
         Returns the grid."""
+        grid = self._space_grid(n_data, n_space, "inference")
+        self._broadcast_params()
+        return grid
+
+    def enable_spatial_parallel(self, n_data=None, n_space=None):
+        """Make this detector's train, validation and test forwards
+        spatially partitioned over a (data x space) grid (JAX
+        ``models/base.py:350-368``): the grid and SpaceGroup of
+        ``enable_spatial_parallel_inference``, and a ``mesh.DataParallel``
+        over this rank's data group, whose batch-wide sums, global top-k and
+        draws' rows span the D data groups. A batch holds this data group's
+        rows of the global batch, whole along Y; each step runs on this
+        rank's Y slab and equals the single-card step on the global batch:
+        the gradients are summed over the whole grid and divided by S
+        (``parallel/mesh.py``, Gradients). Rank 0's parameters are broadcast
+        now and after every load. Returns the grid."""
         from medicaldetectiontoolkit_torch.parallel import mesh
 
-        cf = self.cf
-        grid = mesh.grid_layout(n_data or getattr(cf, "n_data_parallel", None) or 1,
-                                n_space or getattr(cf, "n_space_parallel", None) or 1)
-        mesh.check_space_cap(self.cf, grid.n_space, self.cf.patch_size[0])
-        # a slab can take another conv algorithm than the whole image; TF32's rounding would part the forwards
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        self.space = mesh.SpaceGroup(grid)
+        grid = self._space_grid(n_data, n_space, "training")
+        self.dp = mesh.DataParallel(grid.data_group)
         self._broadcast_params()
-        if self.logger is not None:
-            self.logger.info(f"spatially-partitioned inference over {grid.n_data}x{grid.n_space} (data x space) "
-                             f"ranks: rank {grid.rank} at data {grid.data_index}, space {grid.space_index}")
         return grid
 
     def _spatial(self, fn, img):
         """``fn(img)``: a module's forward whose outputs are gathered along Y
         under spatial partitioning, run on this rank's slab of ``img``
-        within its space group (``mesh.SpaceGroup.run``); on one process
-        plainly."""
+        within its space group (``mesh.SpaceGroup.run``, a test forward);
+        on one process plainly."""
         return fn(img) if self.space is None else self.space.run(fn, img, self.cf)
+
+    def _spatial_train(self, fn, img):
+        """``_spatial`` for a train or validation step's forward, with
+        autograd as the caller has it (``mesh.SpaceGroup.train``): the
+        outputs come back gathered and the backward of the step's loss runs
+        the slabs' backward collectives."""
+        return fn(img) if self.space is None else self.space.train(fn, img, self.cf)
 
     @contextlib.contextmanager
     def single_card(self):

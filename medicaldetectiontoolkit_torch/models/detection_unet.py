@@ -11,9 +11,12 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/detection_unet.py``:
     the ``cf.n_roi_candidates`` largest are boxed, and each is scored by the
     max (or median) softmax of the class inside it.
 
-Under spatial partitioning (``parallel/mesh.py``) the test forward runs on
-this rank's Y slab (the seg head's GroupNorm sums over the space group) and
-the logits are gathered along Y before the softmax.
+Under spatial partitioning (``parallel/mesh.py``) the test, train and
+validation forwards run on this rank's Y slab (the seg head's GroupNorm sums
+over the space group) and the logits are gathered along Y before the
+softmax and the seg loss, which run whole on every rank. Every rank of a
+space group then makes the host convert of the same softmax (argmax,
+components, boxes); the writer's results are the ones exec evaluates.
 
 The softmax stays channel-first ``(b, C, *spatial)`` on both sides of the
 device->host copy, which every train step, validation step and test chunk
@@ -142,7 +145,7 @@ class DetectionUNetDetector(base.Detector):
 
     def _losses(self, img, seg):
         """(loss, detached softmax) of one (micro)batch."""
-        seg_logits = self.module(img)
+        seg_logits = self._spatial_train(self.module, img)  # gathered along Y
         return self._seg_loss(seg_logits, seg), channel_softmax(seg_logits.detach())
 
     def _prep(self, batch):

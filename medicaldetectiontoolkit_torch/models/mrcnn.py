@@ -26,7 +26,11 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/mrcnn.py``:
 Under spatial partitioning (``parallel/mesh.py``) ``extract`` runs on this
 rank's Y slab and gathers, per level along Y, the RPN heads, the seg logits
 and the pyramid levels that the RoI stage reads; the proposals, K1, K2 and
-the mask pass then run on whole tensors, identically on every rank.
+the mask pass then run on whole tensors, identically on every rank. In
+training so do the RPN targets, ``detection_target_layer`` (the whole GT
+masks on every rank), the heads on the sampled RoIs and the losses; K2's
+backward writes the gathered maps' gradients, which ``gather_y``'s backward
+returns to the slabs.
 
 As in JAX, padded and invalid proposals are not masked out: padding slots
 are zero boxes, classified and refined like the rest, and the mask pass runs
@@ -597,7 +601,7 @@ class MaskRCNNDetector(base.Detector):
         neg_iou = 0.1 if cf.dim == 2 else 0.01
         scale = base.host_to_device(np.asarray(cf.scale), dev)
 
-        maps, rpn_logits, rpn_deltas, seg_logits = self.module.extract(img)
+        maps, rpn_logits, rpn_deltas, seg_logits = self._spatial_train(self.module.extract, img)  # gathered
         rois_norm, out_proposals, prop_valid = self._proposals(rpn_logits, rpn_deltas, cf.post_nms_rois_training)
         with torch.no_grad():
             cls_logits_all, bbox_all, flat_rois, batch_ix = self._second_stage_all(maps, rois_norm)

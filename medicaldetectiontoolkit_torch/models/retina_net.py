@@ -14,7 +14,9 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
     CUDA tensors), then a per-element top-k merge;
   * training (``retina_net.py:266-417``): anchor matching, SHEM, the CE and
     smooth-L1 anchor losses (+ dice and CE on the seg head), backward per
-    microbatch, Adam, then detection refinement of the merged heads.
+    microbatch, Adam, then detection refinement of the merged heads; under
+    spatial partitioning all of it on the gathered heads and seg logits,
+    identically on every rank of the space group.
 
 The random draws of a step (matching and SHEM) come from ``self.generator``,
 a ``torch.Generator`` on the detector's device seeded from ``cf.seed``, and
@@ -238,7 +240,7 @@ class RetinaNetDetector(base.Detector):
         """Loss and aux of one microbatch (``retina_net.py:266-308``); the
         draws are (m, A) for matching and (m, k_pool) for SHEM."""
         cf = self.cf
-        class_logits, bb_deltas, seg_logits = self.module(img)
+        class_logits, bb_deltas, seg_logits = self._spatial_train(self.module, img)  # gathered along Y
         neg_iou = 0.1 if cf.dim == 2 else 0.01
         matches, tdeltas = match_ops.gt_anchor_matching(
             match_rand, self.anchors, gt_boxes, gt_ids, gt_valid, cf.anchor_matching_iou, neg_iou,

@@ -44,18 +44,21 @@ the concatenated global batch.**
   enabled and after every load (``models/base.py``); JAX relies on same-seed
   init instead.
 
-**Spatial partitioning** (JAX's ``n_space_parallel``, ``get_mesh_2d`` and
-``make_spatial_predict``), for inference: W = D x S ranks form a grid
-(``grid_layout``), rank r at data index ``r // S`` and space index ``r %
-S``. The D data groups split the patients as above; the S ranks of a space
-group run the same chunks, each holding one Y slab (dim 2 of ``(b, c, y, x,
-(z))``) of every activation, and the detector's forward is the
-single-process forward (within float32 reduction order):
+**Spatial partitioning** (JAX's ``n_space_parallel``, ``get_mesh_2d``,
+``make_spatial_predict``, ``make_spatial_train_step`` and
+``make_spatial_loss_eval``): W = D x S ranks form a grid (``grid_layout``),
+rank r at data index ``r // S`` and space index ``r % S``. The D data groups
+split the batch (training) or the patients (test) as above; the S ranks of a
+space group take the same rows, each holding one Y slab (dim 2 of ``(b, c,
+y, x, (z))``) of every activation, and the detector's forward, loss,
+gradients and update are the single-process ones (within float32 reduction
+order):
 
 * ``SpaceGroup`` is the counterpart of JAX's ``_spatial_trace``. Inside
-  ``SpaceGroup.run`` the model's ops find it through ``space()``; outside a
-  spatial forward, and on a level that runs replicated (``on_slabs(False)``),
-  ``space()`` is None and every op is the plain op.
+  ``SpaceGroup.train`` (autograd on) and ``SpaceGroup.run`` (a test forward)
+  the model's ops find it through ``space()``; outside a spatial forward,
+  and on a level that runs replicated (``on_slabs(False)``), ``space()`` is
+  None and every op is the plain op.
 * ``halo_exchange`` gives a slab the rows of its neighbours that a padded or
   strided op reads (the op's own pad value at the image's edge), so a conv
   runs with no Y padding: ``k // 2`` rows before and ``k - stride - k // 2``
@@ -63,8 +66,8 @@ single-process forward (within float32 reduction order):
   ``linear_up`` one on each side (the edge row repeated); ``nearest_up`` is
   local. ``space_sum`` sums GroupNorm's sums over the group; ``gather_y``
   joins the slabs of the heads, the seg logits and (Mask R-CNN) the pyramid
-  levels, so that refinement, K1, K2 and the mask pass run on whole tensors,
-  identically on every rank of the group.
+  levels, so that matching, the losses, refinement, K1, K2 and the mask pass
+  run on whole tensors, identically on every rank of the group.
 * **Which levels split** (``space_fence``, JAX's ``space_fence``): a level
   stays split while its slab's rows divide by the next op's stride and
   cover its halo; from the first stage input where that fails the tensor is
@@ -73,21 +76,49 @@ single-process forward (within float32 reduction order):
   explicit halos do not need it, so the port does not take that rule.
 * ``check_space_cap`` keeps JAX's refusal (``_check_space_cap``) when the
   deepest level has fewer rows than S, at enable time and at every call;
-  ``MDT_SP_VERIFY=1`` holds each new input shape's outputs against the
-  single-process forward once (atol 1e-5), as JAX's ``make_spatial_predict``.
+  ``MDT_SP_VERIFY=1`` holds each new input shape's test-forward outputs
+  against the single-process forward once (atol 1e-5), as JAX's
+  ``make_spatial_predict``; a training forward is never re-run.
 * Every collective is an all-reduce (SUM) of a zero-padded buffer, which
-  gloo takes for CPU and CUDA tensors alike (``SpaceGroup.all_gather``).
-  Every rank of a group reaches the same collectives in the same order: no
-  op branches on data.
-* **Precision.** ``Detector.enable_spatial_parallel_inference`` turns
+  gloo takes for CPU and CUDA tensors alike (``SpaceGroup.all_gather``),
+  in the backward too. Every rank of a group reaches the same collectives
+  in the same order: no op branches on data, each primitive is one
+  ``torch.autograd.Function`` on every rank (the image's edge included), and
+  a remat region recomputes its halos and sums inside the backward with the
+  SpaceGroup it saw in the forward (``checkpoint``).
+* **Gradients: the partial-gradient convention.** A rank's gradient of any
+  tensor is its share; the true gradient is the sum of the shares over the
+  space group. Each primitive's backward follows from that rule:
+
+  - ``space_sum`` (an all-reduce whose result is used on the slab):
+    all-reduce (SUM) of the incoming gradient. Its identity backward, right
+    for ``batch_sum``, would drop the other slabs' shares of dL/dsum;
+  - ``gather_y`` (slabs joined, used replicated; ``space_fence``'s gather
+    too): the ranks' gradients of the whole tensor summed, then this rank's
+    slab kept (an all-reduce of the whole gradient, then a slice);
+  - ``halo_exchange``: the gradient of the ``lo`` rows before the slab is
+    added to the previous rank's last ``lo`` rows, that of the ``hi`` rows
+    after it to the next rank's first ``hi`` rows; at the image's edge a
+    value pad's gradient is dropped and ``"replicate"``'s summed into the
+    edge row;
+  - ``slab_of``: local (the slab's gradient zero-padded to the whole
+    tensor, autograd's slice backward);
+  - the replicated loss is seeded with 1 on every rank of the space group,
+    so the shares add up to S times the gradient: ``DataParallel.
+    reduce_gradients`` sums the parameters' gradients over the **whole
+    grid** (both axes) in one all-reduce per optimizer step and divides
+    them by S once, before Adam. A level that runs replicated computes its
+    parameters' whole gradient on every rank, and that sum counts it S times
+    too, so the one division is right for shared heads as well.
+
+  ``batch_sum`` / ``batch_mean`` over the data group keep their identity
+  backward: the loss after them is the same on every rank of the data group.
+* **Precision.** ``Detector.enable_spatial_parallel[_inference]`` turns
   cuDNN's and cuBLAS's TF32 off in the rank's process: a slab's shape can
   take another conv algorithm than the whole image's, and TF32's rounding
   would then part the two forwards by far more than 1e-5. The equality
-  holds against a single-process forward run with TF32 off too (PyTorch's
-  default leaves it on for cuDNN's convs).
-
-Training under ``n_space_parallel`` (backward functions of these
-primitives) is ROADMAP.md Queue 1 item 1b.
+  holds against a single-process run with TF32 off too (PyTorch's default
+  leaves it on for cuDNN's convs).
 """
 
 from __future__ import annotations
@@ -284,8 +315,10 @@ def batch_top_k(flat, k: int, per_row: int):
 
 class DataParallel:
     """One rank's side of data-parallel training over ``group`` (default:
-    the whole job): the step context, the draws' rows, the gradient
-    all-reduce and the parameter broadcast."""
+    the whole job; under spatial partitioning the rank's data group): the
+    step context, the draws' rows and the gradient all-reduce, which spans
+    the whole job (``broadcast_module`` gives every rank rank 0's
+    parameters)."""
 
     def __init__(self, group=None):
         if not (dist.is_available() and dist.is_initialized()):
@@ -293,7 +326,6 @@ class DataParallel:
                                "torch.distributed.init_process_group first")
         self.group = group
         self.rank, self.world = rank_and_world(group)
-        self.src = dist.get_global_rank(group, 0) if group is not None else 0
         self.n_micro = None  # of the running step
 
     @contextlib.contextmanager
@@ -325,16 +357,18 @@ class DataParallel:
         return t
 
     def reduce_gradients(self, params):
-        """Sum the parameters' ``.grad`` over the ranks: one all-reduce of a
-        flat buffer per dtype."""
+        """Sum the parameters' ``.grad`` over the whole job: one all-reduce
+        of a flat buffer per dtype, divided by the S ranks that hold each
+        row (1 without spatial partitioning; each rank's share is of S times
+        the gradient: the module docstring's convention)."""
+        n_space = dist.get_world_size() // self.world
         for grads in _by_dtype([p.grad for p in params]):
-            flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            if n_space > 1:
+                flat.div_(n_space)
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
-
-    def broadcast_params(self, module):
-        """Rank 0's parameters and buffers on every rank."""
-        broadcast_module(module, self.src, self.group)
 
 
 def _by_dtype(tensors):
@@ -346,26 +380,27 @@ def _by_dtype(tensors):
     return groups.values()
 
 
-def broadcast_module(module, src: int = 0, group=None):
-    """The parameters and buffers of ``module`` on rank ``src`` (a global
-    rank) copied to every rank of ``group``: one broadcast of a flat buffer
-    per dtype."""
+def broadcast_module(module):
+    """The parameters and buffers of ``module`` on global rank 0 copied to
+    every rank of the job: one broadcast of a flat buffer per dtype."""
     with torch.no_grad():
         for tensors in _by_dtype([*module.parameters(), *module.buffers()]):
             flat = torch.cat([t.reshape(-1) for t in tensors])
-            dist.broadcast(flat, src, group=group)
+            dist.broadcast(flat, 0)
             for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
                 t.copy_(part.view_as(t))
 
 
-def gather_objects(items):
+def gather_objects(items, group=None):
     """Every rank's list ``items`` (picklable), concatenated in rank order,
-    on every rank; ``items`` itself without a process group."""
-    _, world = rank_and_world()
+    on every rank of ``group`` (default: the whole job; under spatial
+    partitioning the data group, whose ranks hold other rows); ``items``
+    itself without a process group."""
+    _, world = rank_and_world(group)
     if world == 1:
         return list(items)
     parts = [None] * world
-    dist.all_gather_object(parts, list(items))
+    dist.all_gather_object(parts, list(items), group=group)
     return [x for part in parts for x in part]
 
 
@@ -464,21 +499,26 @@ def tensor_leaves(tree):
 
 class SpaceGroup:
     """One rank's side of a space group (``Grid.space_group``): the
-    collectives of the slab-aware ops and the spatial forward (``run``).
+    collectives of the slab-aware ops and the spatial forwards (``train``,
+    ``run``).
 
-    ``stats`` counts, per kind of collective (``halo``, ``sum``,
-    ``gather``), the calls and the bytes this rank received from the other
-    ranks (a halo's neighbour rows, the other ranks' sums and slabs); with
-    ``timing`` on, each collective is fenced by a device synchronise before
-    and after it and its seconds are summed (a measurement mode: it
-    serialises the device)."""
+    ``stats`` counts, per kind of collective (``halo``, ``sum``, ``gather``
+    in the forward; ``halo_bwd``, ``sum_bwd``, ``gather_bwd`` in the
+    backward), the calls and the bytes this rank received from the other
+    ranks (a halo's neighbour rows and their gradients, the other ranks'
+    sums and slabs, and for ``gather_bwd`` their gradients of the whole
+    tensor); with ``timing`` on, each collective is fenced by a device
+    synchronise before and after it and its seconds are summed (a
+    measurement mode: it serialises the device)."""
+
+    KINDS = ("halo", "sum", "gather", "halo_bwd", "sum_bwd", "gather_bwd")
 
     def __init__(self, grid: Grid):
         self.grid = grid
         self.group = grid.space_group
         self.rank, self.size = grid.space_index, grid.n_space
         self.timing = False
-        self.stats = {kind: {"calls": 0, "bytes": 0, "s": 0.0} for kind in ("halo", "sum", "gather")}
+        self.stats = {kind: {"calls": 0, "bytes": 0, "s": 0.0} for kind in self.KINDS}
         self._verified = set()
 
     def reset_stats(self):
@@ -511,12 +551,14 @@ class SpaceGroup:
             dist.all_reduce(buf, group=self.group)
         return buf.to(t.dtype)
 
-    def sum(self, t):
-        """``t`` summed over the group's ranks."""
-        out = t.clone()
-        with self._collective("sum", t.numel() * t.element_size() * (self.size - 1), t.device):
+    def sum(self, t, kind: str = "sum"):
+        """``t`` summed over the group's ranks (in float32 for floats
+        narrower than it)."""
+        wire = t.dtype if t.dtype in (torch.float32, torch.float64) else torch.float32
+        out = t.to(wire, copy=True)
+        with self._collective(kind, t.numel() * t.element_size() * (self.size - 1), t.device):
             dist.all_reduce(out, group=self.group)
-        return out
+        return out.to(t.dtype)
 
     @contextlib.contextmanager
     def forward(self):
@@ -528,20 +570,27 @@ class SpaceGroup:
         finally:
             _SPACE.pop()
 
-    def run(self, fn, img, cf):
+    def train(self, fn, img, cf):
         """``fn(img)``, a forward that takes the whole image and gives
         outputs gathered along Y, run on this rank's Y slab of ``img``
-        inside the group: JAX's ``make_spatial_predict``. The cap is checked
-        against ``img``; under ``MDT_SP_VERIFY`` each new input shape's
-        outputs are held once against ``fn(img)`` on this process alone
-        (atol 1e-5)."""
+        inside the group with autograd as the caller has it: JAX's
+        ``make_spatial_train_step`` and ``make_spatial_loss_eval``. The
+        backward of the outputs sends each slab's gradients back through the
+        primitives' backward collectives. The cap is checked against
+        ``img``."""
         y = img.shape[2]
         check_space_cap(cf, self.size, y)
         if y % self.size:
             raise ValueError(f"an image of Y {y} does not split into {self.size} equal slabs")
         n = y // self.size
         with self.forward():
-            out = fn(img[:, :, self.rank * n:(self.rank + 1) * n].contiguous())
+            return fn(img[:, :, self.rank * n:(self.rank + 1) * n].contiguous())
+
+    def run(self, fn, img, cf):
+        """``train`` for a test forward: JAX's ``make_spatial_predict``.
+        Under ``MDT_SP_VERIFY`` each new input shape's outputs are held once
+        against ``fn(img)`` on this process alone (atol 1e-5)."""
+        out = self.train(fn, img, cf)
         if os.environ.get("MDT_SP_VERIFY") and tuple(img.shape) not in self._verified:
             ref, got = tensor_leaves(fn(img)), tensor_leaves(out)
             if len(ref) != len(got):
@@ -555,6 +604,50 @@ class SpaceGroup:
         return out
 
 
+def _edge(row, count: int, pad):
+    """``count`` rows of ``pad`` shaped as ``row`` (one row, dim 2), or the
+    row repeated for ``pad == "replicate"``."""
+    shape = list(row.shape)
+    shape[2] = count
+    return row.expand(shape) if pad == "replicate" else row.new_full(shape, pad)
+
+
+class _Halo(torch.autograd.Function):
+    """``halo_exchange`` on a slab inside a space group; the backward sends
+    the halo rows' gradients back to the ranks that lent them (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, sg, lo: int, hi: int, pad):
+        ctx.sg, ctx.lo, ctx.hi, ctx.pad = sg, lo, hi, pad
+        rank, size, n = sg.rank, sg.size, x.shape[2]
+        got = lo * (rank > 0) + hi * (rank < size - 1)
+        ctx.n_bytes = got * x[:, :, :1].numel() * x.element_size()
+        parts = sg.all_gather(torch.cat([x[:, :, :hi], x[:, :, n - lo:]], dim=2), "halo", ctx.n_bytes)
+        before = parts[rank - 1][:, :, hi:] if rank > 0 else _edge(x[:, :, :1], lo, pad)
+        after = parts[rank + 1][:, :, :hi] if rank < size - 1 else _edge(x[:, :, n - 1:], hi, pad)
+        return torch.cat([before, x, after], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        sg, lo, hi = ctx.sg, ctx.lo, ctx.hi
+        rank, size = sg.rank, sg.size
+        n = g.shape[2] - lo - hi
+        g_lo, g_mid, g_hi = g.split([lo, n, hi], dim=2)
+        # rank r + 1 read my last lo rows as its rows before; rank r - 1 my first hi rows as its rows after
+        parts = sg.all_gather(torch.cat([g_lo, g_hi], dim=2), "halo_bwd", ctx.n_bytes)
+        gx = g_mid.clone()
+        if rank < size - 1:
+            gx[:, :, n - lo:] += parts[rank + 1][:, :, :lo]
+        elif ctx.pad == "replicate" and hi:
+            gx[:, :, n - 1:] += g_hi.sum(dim=2, keepdim=True)
+        if rank > 0:
+            gx[:, :, :hi] += parts[rank - 1][:, :, lo:]
+        elif ctx.pad == "replicate" and lo:
+            gx[:, :, :1] += g_lo.sum(dim=2, keepdim=True)
+        return gx, None, None, None, None
+
+
 def halo_exchange(x, lo: int, hi: int, pad=0.0):
     """The image rows ``[r0 - lo, r1 + hi)`` for this rank's Y slab ``x`` =
     rows ``[r0, r1)`` (dim 2): ``lo`` rows of the previous rank and ``hi``
@@ -564,32 +657,51 @@ def halo_exchange(x, lo: int, hi: int, pad=0.0):
     if lo == hi == 0:
         return x
     sg = space()
-    n = x.shape[2]
-    rank, size = (0, 1) if sg is None else (sg.rank, sg.size)
+    if sg is None or sg.size == 1:
+        return torch.cat([_edge(x[:, :, :1], lo, pad), x, _edge(x[:, :, x.shape[2] - 1:], hi, pad)], dim=2)
+    if lo > x.shape[2] or hi > x.shape[2]:
+        raise ValueError(f"a Y slab of {x.shape[2]} rows cannot lend {lo} rows before and {hi} after; the level "
+                         "should have been gathered (space_fence)")
+    return _Halo.apply(x, sg, lo, hi, pad)
 
-    def edge(row, count):
-        shape = list(row.shape)
-        shape[2] = count
-        return row.expand(shape) if pad == "replicate" else row.new_full(shape, pad)
 
-    parts = None
-    if size > 1:
-        if lo > n or hi > n:
-            raise ValueError(f"a Y slab of {n} rows cannot lend {lo} rows before and {hi} after; the level should "
-                             "have been gathered (space_fence)")
-        got = lo * (rank > 0) + hi * (rank < size - 1)
-        parts = sg.all_gather(torch.cat([x[:, :, :hi], x[:, :, n - lo:]], dim=2), "halo",
-                              got * x[:, :, :1].numel() * x.element_size())
-    before = parts[rank - 1][:, :, hi:] if rank > 0 else edge(x[:, :, :1], lo)
-    after = parts[rank + 1][:, :, :hi] if rank < size - 1 else edge(x[:, :, n - 1:], hi)
-    return torch.cat([before, x, after], dim=2)
+class _SpaceSum(torch.autograd.Function):
+    """``space_sum``: all-reduce forward and backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, sg):
+        ctx.sg = sg
+        return sg.sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sg.sum(g, "sum_bwd"), None
 
 
 def space_sum(t):
     """A sum over this rank's slab -> the sum over the image's rows inside a
     spatial forward; the identity outside one."""
     sg = space()
-    return t if sg is None else sg.sum(t)
+    return t if sg is None else _SpaceSum.apply(t, sg)
+
+
+class _GatherY(torch.autograd.Function):
+    """``gather_y``: the slabs joined; the backward sums the ranks'
+    gradients of the whole tensor and keeps this rank's slab (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, sg):
+        ctx.sg = sg
+        parts = sg.all_gather(t, "gather", t.numel() * t.element_size() * (sg.size - 1))
+        return parts.movedim(0, 2).reshape(*t.shape[:2], sg.size * t.shape[2], *t.shape[3:])
+
+    @staticmethod
+    def backward(ctx, g):
+        sg = ctx.sg
+        whole = sg.sum(g.contiguous(), "gather_bwd")
+        n = g.shape[2] // sg.size
+        return whole[:, :, sg.rank * n:(sg.rank + 1) * n], None
 
 
 def gather_y(t):
@@ -597,10 +709,7 @@ def gather_y(t):
     slabs joined in rank order, inside a spatial forward; the identity
     outside one."""
     sg = space()
-    if sg is None:
-        return t
-    parts = sg.all_gather(t, "gather", t.numel() * t.element_size() * (sg.size - 1))
-    return parts.movedim(0, 2).reshape(*t.shape[:2], sg.size * t.shape[2], *t.shape[3:])
+    return t if sg is None else _GatherY.apply(t, sg)
 
 
 def slab_of(t):
@@ -624,6 +733,27 @@ def space_fence(x, split: bool, stride: int = 1, halo: int = 1):
     if n % stride == 0 and n >= halo:
         return x, True
     return gather_y(x), False
+
+
+@contextlib.contextmanager
+def _space_as(sg):
+    _SPACE.append(sg)
+    try:
+        yield
+    finally:
+        _SPACE.pop()
+
+
+def checkpoint(fn, x):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(x)`` whose
+    recomputation in the backward sees the SpaceGroup (or None, on a
+    replicated level) that the forward saw, so that it re-issues the same
+    halos and sums in the backward on every rank of the group."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+
+    sg = space()
+    return torch_checkpoint(fn, x, use_reentrant=False,
+                            context_fn=lambda: (contextlib.nullcontext(), _space_as(sg)))
 
 
 def free_port() -> int:

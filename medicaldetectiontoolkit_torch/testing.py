@@ -731,9 +731,11 @@ def _sp_forward_rank(case, out_dir, device, world):
 
 def sp_rank_main(argv=None):
     """A rank of the spatial parity runs (``run_ranks``): ``out_dir device
-    case...``, each case ``primitives``, ``cap``, ``verify`` or one of
-    ``SP_CASES``; joins the ``MDT_DIST_*`` process group (gloo) and writes
-    each case's result to ``out_dir/{case}_rank{r}.pt``."""
+    case...``, each case ``primitives``, ``grad_primitives``, ``cap``,
+    ``verify``, one of ``SP_CASES`` (a test forward) or ``train:NAME``
+    (``_sp_train_rank``, NAME one of ``SP_CASES`` or ``grid``); joins the ``MDT_DIST_*`` process group (gloo) and writes
+    each case's result to ``out_dir/{case}_rank{r}.pt`` (``:`` written as
+    ``_``)."""
     import sys
 
     import torch
@@ -748,11 +750,241 @@ def sp_rank_main(argv=None):
         for case in cases:
             if case == "primitives":
                 result = _sp_primitives_rank(world)
+            elif case == "grad_primitives":
+                result = _sp_grad_rank(world)
+            elif case.startswith("train:"):
+                result = _sp_train_rank(case.partition(":")[2], out_dir, device, world)
             else:
                 result = _sp_forward_rank(case, out_dir, device, world)
-            torch.save(result, os.path.join(out_dir, f"{case}_rank{rank}.pt"))
+            torch.save(result, os.path.join(out_dir, f"{case.replace(':', '_')}_rank{rank}.pt"))
     finally:
         mesh.dist.destroy_process_group()
+
+
+#############################
+#   spatial training        #
+#############################
+
+# the training case of ``sp_train_case`` on a 2 x 2 (data x space) grid of four ranks; SP_CASES run at S = 2
+SP_GRID_CASE = "grid"
+
+
+def sp_train_case(name):
+    """(cf, global batch, init seed, env) of a spatial training parity case:
+    ``sp_case``'s configuration and env (3D Retina U-Net and Mask R-CNN with
+    K3/K4's plain versions on the slabs, 2D Detection U-Net with one-group
+    and instance norm, 2D Retina U-Net with C5 / P5 replicated) at a batch
+    of 2 in one microbatch; Mask R-CNN with the init seed, batch seed and
+    proposal counts of ``tests/test_torch_mrcnn_train.py``, under which
+    positive RoIs are sampled. ``grid``: 2D Retina U-Net at patch 64, a
+    global batch of 4 in 2 microbatches, for a 2 x 2 grid (one row per
+    data group and microbatch)."""
+    if name == SP_GRID_CASE:
+        cf = make_config(model="retina_unet", dim=2, batch_size=4)
+        cf.grad_accum_steps = 2
+        return cf, make_batch(cf, seed=3), 1, {}
+    cf, _, env = sp_case(name)
+    init, seed = 1, 7
+    if name == "mrcnn":
+        cf.pre_nms_limit, cf.post_nms_rois_training = 2000, 300
+        cf.return_masks_in_test = False
+        init, seed = 4, 1
+    return cf, make_batch(cf, seed=seed), init, env
+
+
+def sp_train_step(cf, batch, init_seed, device="cpu", draws=None, lr=1e-3, grid=None):
+    """A validation step, a train step and a second validation step of
+    ``cf``'s detector on ``batch``, the global batch (JAX's
+    ``test_enable_spatial_parallel_train_forward`` sequence): with ``grid``
+    = (n_data, n_space) over the process group (``enable_spatial_parallel``,
+    the data group's rows, ``mesh.shard_batch``), else the single-card step.
+    ``draws`` (the global tensors of ``Detector.draws``) replace the train
+    step's own. Returns the monitor values of the three steps, the
+    gradients Adam took and the updated parameters (CPU tensors), and under
+    ``grid`` the train step's collective counts."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import build_model
+    from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    net = build_model(cf, None, device=device)
+    net.initialize(seed=init_seed)
+    index, n_data = 0, 1
+    if grid is not None:
+        g = net.enable_spatial_parallel(*grid)
+        index, n_data = g.data_index, g.n_data
+    net.current_lr = lr
+    n_micro = resolve_grad_accum(cf, cf.batch_size)
+    out = {}
+    for key in ("val", "train", "val_after"):
+        local = mesh.shard_batch(batch, index, n_data, n_micro if key == "train" else 1)
+        if key == "train" and draws is not None:
+            net.draws = lambda n_micro, m: tuple(d.to(net.device) for d in draws)
+        if net.space is not None:
+            net.space.reset_stats()
+        handles = net.train_forward_dispatch(local, is_validation=key != "train")
+        vars(net).pop("draws", None)
+        monitor = handles[1] if isinstance(handles[1], dict) else {"loss": handles[0]}
+        net.train_forward_convert(handles, local, need_seg_preds=False)
+        out[key] = {k: float(v) for k, v in monitor.items()}
+        if key == "train":
+            out["grads"] = {n: p.grad.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
+            out["params"] = {n: p.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
+            if net.space is not None:
+                out["stats"] = {k: dict(v) for k, v in net.space.stats.items()}
+    if net.space is not None:
+        out["slab_levels"] = net.module.fpn.slab_levels
+    return out
+
+
+def sp_grad_primitives():
+    """[(name, fn, x, params)]: float64 ops whose gradients a spatial
+    backward must give as on the whole tensor, on seeded inputs of 16 rows
+    (4 per rank at S = 4), each fn a whole-tensor op on one process and a
+    slab op inside a spatial forward whose output is a slab: the convs,
+    max pools and upsamplings of ``sp_primitives`` (without K3), the halos
+    of ``SP_HALOS`` as windows along Y (weighted sums; a max for ``-inf``),
+    GroupNorm(1) and instance norm in float64 (``_group_norm64``), the
+    identity (``gather_y`` alone), and ``fenced``: a conv on the slab, a
+    stride-2 stage whose halo no slab covers (``mesh.space_fence`` gathers,
+    the conv runs replicated), its output's slab added back (``slab_of``).
+    ``params`` are the tensors whose gradient shares the ranks sum."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import backbone as bb
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    ops = []
+    for name, fn, x in sp_primitives():
+        if name.startswith("k3") or name in ("group_norm_1", "instance_norm"):
+            continue
+        params = []
+        if isinstance(fn, torch.nn.Module):
+            fn = fn.double()
+            fn.dtype = torch.float64
+            params = list(fn.parameters())
+        ops.append((name, fn, x.double(), params))
+    x = sp_primitives()[0][2].double()
+    for lo, hi, pad in SP_HALOS:
+        def window(t, lo=lo, hi=hi, pad=pad):
+            h, n = mesh.halo_exchange(t, lo, hi, pad), t.shape[2]
+            rows = [h[:, :, j:j + n] for j in range(lo + hi + 1)]
+            if pad == float("-inf"):
+                return torch.stack(rows).amax(dim=0)
+            return sum((j + 1.5) * r for j, r in enumerate(rows))
+        ops.append((f"halo_{lo}_{hi}_{pad}", window, x, []))
+    gen = torch.Generator().manual_seed(5)
+    for name, groups in (("group_norm_1", 1), ("instance_norm", 3)):
+        scale = (torch.rand(3, dtype=torch.float64, generator=gen) + 0.5).requires_grad_(True)
+        bias = (torch.rand(3, dtype=torch.float64, generator=gen) - 0.5).requires_grad_(True)
+        ops.append((name, lambda t, g=groups, s=scale, b=bias: _group_norm64(t, g, s, b), x, [scale, bias]))
+    ops.append(("gather", lambda t: t, x, []))
+    conv_a = bb.ConvND(3, 3, 4, ks=3, pad=1).double()
+    conv_b = bb.ConvND(3, 4, 4, ks=3, stride=(2, 2, 1), pad=1).double()
+    for i, conv in enumerate((conv_a, conv_b)):
+        conv.dtype = torch.float64
+        bb.init_weights(conv, "kaiming_uniform", torch.Generator().manual_seed(20 + i))
+
+    def fenced(t):
+        a = conv_a(t)
+        h, split = mesh.space_fence(a, True, stride=2, halo=t.shape[2] + 1)  # no slab lends that many rows
+        with mesh.on_slabs(split):
+            c = conv_b(h)
+        return mesh.slab_of(bb.nearest_up(c, (2, 2, 1))) + a
+
+    ops.append(("fenced", fenced, x, [*conv_a.parameters(), *conv_b.parameters()]))
+    return ops
+
+
+def _group_norm64(x, groups: int, scale, bias):
+    """GroupNorm in float64 whose statistics are sums over the image's rows
+    (``mesh.space_sum`` on a slab): mean, then the variance about it."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    sg = mesh.space()
+    b, c = x.shape[:2]
+    xg = x.reshape(b, groups, c // groups, -1)
+    count = xg.shape[2] * xg.shape[3] * (1 if sg is None else sg.size)
+    mean = mesh.space_sum(xg.sum(dim=(2, 3), keepdim=True)) / count
+    var = mesh.space_sum((xg - mean).square().sum(dim=(2, 3), keepdim=True)) / count
+    y = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    return y * scale.view(shape) + bias.view(shape)
+
+
+def sp_grad_weight(shape):
+    """The fixed float64 weights ``w`` of the scalar ``(w * out).sum()``
+    whose gradient the primitives' backward tests take."""
+    import torch
+
+    return torch.rand(shape, dtype=torch.float64, generator=torch.Generator().manual_seed(11)) - 0.5
+
+
+def _sp_grad_rank(world):
+    """The gradients of ``sp_grad_primitives`` on this rank's slabs at S =
+    ``world`` (one space group) and, on 4 ranks, at S = 2 too (a 2 x 2
+    grid): per op the whole input's gradient (this rank's slab rows) and the
+    params' gradient shares of ``(w * gather_y(fn(slab))).sum() / S``, the
+    loss seeded with 1/S on every rank; and ``identity_sum``: GroupNorm(1)'s
+    gradient with ``space_sum``'s backward the identity."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out = {}
+    for n_space in (world, 2) if world == 4 else (world,):
+        sg = mesh.SpaceGroup(mesh.grid_layout(world // n_space, n_space))
+        res = {"space_index": sg.rank, "grads": {}}
+        for name, fn, x, params in sp_grad_primitives():
+            res["grads"][name] = _sp_grad_of(sg, fn, x, params)
+        name, fn, x, params = next(op for op in sp_grad_primitives() if op[0] == "group_norm_1")
+        backward = mesh._SpaceSum.backward
+        mesh._SpaceSum.backward = staticmethod(lambda ctx, g: (g, None))
+        try:
+            res["identity_sum"] = _sp_grad_of(sg, fn, x, params)
+        finally:
+            mesh._SpaceSum.backward = backward
+        res["stats"] = {k: dict(v) for k, v in sg.stats.items()}
+        out[n_space] = res
+    return out
+
+
+def _sp_grad_of(sg, fn, x, params):
+    """(x's gradient, [params' gradient shares]) of ``(w * gather_y(fn(
+    slab_of(x)))).sum() / S`` inside ``sg``."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    x = x.clone().requires_grad_(True)
+    with sg.forward():
+        out = mesh.gather_y(fn(mesh.slab_of(x)))
+    loss = (sp_grad_weight(out.shape) * out).sum() / sg.size
+    grads = torch.autograd.grad(loss, [x, *params], allow_unused=True)
+    return grads[0], [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads[1:])]
+
+
+def _sp_train_rank(case, out_dir, device, world):
+    """One training case on this rank (``sp_train_step`` over the grid):
+    ``grid`` on a 2 x 2 grid, every other case at S = ``world`` with remat
+    on and off; the train step takes ``out_dir/{case}_draws.pt`` where the
+    test wrote one."""
+    import torch
+
+    cf, batch, init, env = sp_train_case(case)
+    path = os.path.join(out_dir, f"{case}_draws.pt")
+    draws = torch.load(path) if os.path.isfile(path) else None
+    with env_scope(env):
+        if case == SP_GRID_CASE:
+            return sp_train_step(cf, batch, init, device, draws, grid=(2, 2))
+        out = {}
+        for remat in (True, False):
+            cf.use_remat = remat
+            out[remat] = sp_train_step(cf, batch, init, device, draws, grid=(world // 2, 2))
+        return out
 
 
 def same_detections(a, b, score_tol=1e-5, coord_tol=1e-3):

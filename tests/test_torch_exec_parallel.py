@@ -9,7 +9,9 @@ per rank. Only rank 0 writes: one log (rank 0's), the ranked checkpoints and
 ``epoch_ranking.npy``; rank 1's ``ModelSelector`` writes nothing. The test's
 raw prediction pickle and its ``results.txt`` scores equal those of a
 single-process ``--mode test`` of the same checkpoints (each patient is
-predicted whole on one rank). ``n_space_parallel = 2`` is refused.
+predicted whole on one rank). ``n_space_parallel = 2`` is refused for this
+experiment's patch, whose deepest level has one Y row, with JAX's message
+(``mesh.check_space_cap``), before any rank starts.
 """
 
 import os
@@ -134,5 +136,6 @@ def test_spatial_partitioning_is_refused(tmp_path):
                               epochs=())
     argv = ["--mode", "train", "--exp_source", EXP_SOURCE, "--exp_dir", cf.exp_dir, "--folds", "0",
             "--use_stored_settings"]
-    with pytest.raises(NotImplementedError, match="spatial partitioning.*ROADMAP"):
+    with pytest.raises(ValueError, match=r"^spatial axis 2 exceeds C5 Y-extent 1 for Y=32 \(stride 32\); use fewer "
+                                         "'space' shards$"):
         port_exec.main(argv, device="cpu")

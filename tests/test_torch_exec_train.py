@@ -142,15 +142,14 @@ def test_jax_last_checkpoint_is_refused_by_name(tmp_path):
 
 
 def test_parallel_configs_raise(tmp_path, monkeypatch):
-    """Training under spatial partitioning is refused, naming ROADMAP's item
-    (1b: spatial partitioning is inference only); on CUDA a run takes no
-    more ranks (data x space) than cards; and ``train`` with
-    ``n_data_parallel`` 2 but no process group (not started by ``main``)
-    refuses to take single-card steps."""
+    """``train`` with ``n_space_parallel`` 2 but no process group (not
+    started by ``main``) refuses to take single-card steps; on CUDA a run
+    takes no more ranks (data x space) than cards; and ``train`` with
+    ``n_data_parallel`` 2 but no process group refuses too."""
     cf = make_config()
     cf.fold, cf.exp_dir = 0, str(tmp_path)
     cf.n_space_parallel = 2
-    with pytest.raises(NotImplementedError, match="spatial partitioning.*inference only.*ROADMAP.md Queue 1 item 1b"):
+    with pytest.raises(RuntimeError, match="n_space_parallel = 2 needs a process group"):
         port_exec.train(cf, port_dl, _Log(), device="cpu")
     cf.n_space_parallel, cf.n_data_parallel = None, 2
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

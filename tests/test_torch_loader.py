@@ -2,8 +2,9 @@
 JAX package's, on the CPU.
 
 ``MultiThreadedGenerator`` with one worker gives the same sequence of batches
-as JAX's (with more than one, the order between workers is the thread
-scheduler's, in both packages), and so does ``SingleThreadedGenerator``; a
+as JAX's, and so does ``SingleThreadedGenerator``; with more than one, the
+port takes the workers' batches in turn, so the sequence is the seeds'
+whatever the workers' speeds (JAX's follows the thread scheduler); a
 worker's exception reaches ``__next__``; ``shutdown`` returns with no live
 worker thread, also with many workers blocked on a full queue;
 ``get_class_balanced_patients`` gives the same indices from the same
@@ -13,6 +14,7 @@ worker thread, also with many workers blocked on a full queue;
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -121,6 +123,32 @@ def test_many_workers_keep_each_worker_sequence():
     for w, seq in per_worker.items():
         rng = np.random.RandomState(w)
         assert seq == [rng.rand() for _ in seq]
+
+
+def test_workers_batches_come_in_turn_whatever_their_speed():
+    """Worker 0 is slow and the others fast: batch i is still worker i % 3's
+    (i // 3)-th draw, so two generators of the same seeds, as the ranks of a
+    space group build them, give the same sequence."""
+
+    class Uneven:
+        worker_of = {}
+
+        def generate_train_batch(self, rng):
+            worker = self.worker_of[id(rng)]
+            time.sleep(0.02 if worker == 0 else 0.0)
+            return {"draw": rng.rand(), "worker": worker}
+
+    seeds = [5, 9, 2]
+    runs = []
+    for _ in range(2):
+        source = Uneven()
+        gen = tloader.MultiThreadedGenerator(source, n_workers=3, seeds=seeds, queue_size=6)
+        source.worker_of = {id(rng): w for w, rng in enumerate(gen._rngs)}
+        runs.append(_take(gen, 12))
+    want = {w: np.random.RandomState(s) for w, s in enumerate(seeds)}
+    for i, b in enumerate(runs[0]):
+        assert b["worker"] == i % 3 and b["draw"] == want[i % 3].rand()
+    assert [b["draw"] for b in runs[0]] == [b["draw"] for b in runs[1]]
 
 
 @pytest.mark.parametrize("seed,batch_size,slack", [(0, 8, 0.2), (1, 20, 0.1), (2, 5, 0.0), (3, 12, 0.5)])

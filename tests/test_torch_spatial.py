@@ -31,8 +31,9 @@ rank is ``python -m medicaldetectiontoolkit_torch.testing sp_rank``):
   * ``exec --mode test`` over a 2 x 2 (data x space) grid of ranks gives
     the one-process run's detections (as sets, as above) and
     ``results.txt`` scores, and ``exec
-    --mode train`` under ``n_space_parallel = 2`` refuses, naming ROADMAP
-    Queue 1 item 1b.
+    --mode train`` under ``n_space_parallel = 2`` starts two ranks
+    (``tests/test_torch_spatial_train.py`` runs them against one process)
+    unless the cap refuses the patch.
 """
 
 import os
@@ -342,13 +343,25 @@ def test_exec_test_over_a_data_by_space_grid_gives_the_one_process_results(exec_
     assert "rank 1 at" not in log and "evaluating patient synth_001" not in log  # rank 0's log, its patient
 
 
-def test_exec_train_refuses_spatial_partitioning(tmp_path):
-    cf = testing.make_lidc_experiment(str(tmp_path), ENV, dict(SMALL, n_space_parallel=2), n_patients=4,
-                                      seeds=(), epochs=())
-    argv = ["--mode", "train", "--exp_source", EXP_SOURCE, "--exp_dir", cf.exp_dir, "--folds", "0",
-            "--use_stored_settings"]
-    with pytest.raises(NotImplementedError, match="inference only.*ROADMAP.md Queue 1 item 1b"):
-        port_exec.main(argv, device="cpu")
+def test_exec_train_runs_under_spatial_partitioning(tmp_path, monkeypatch):
+    """``exec --mode train`` with ``n_space_parallel = 2`` starts two ranks
+    of itself (``tests/test_torch_spatial_train.py`` runs them and holds
+    them against one process); a patch whose deepest level has fewer Y rows
+    than S is refused with JAX's message before any rank starts."""
+    started = []
+    monkeypatch.setattr(mesh, "spawn_ranks", lambda fn, world, args=(): started.append((fn, world, args)))
+    for name, patch in (("fits", "64,64,8"), ("too_deep", "32,32,8")):
+        cf = testing.make_lidc_experiment(str(tmp_path / name), dict(ENV, MDT_LIDC_PATCH=patch),
+                                          dict(SMALL, n_space_parallel=2), n_patients=4, seeds=(), epochs=())
+        argv = ["--mode", "train", "--exp_source", EXP_SOURCE, "--exp_dir", cf.exp_dir, "--folds", "0",
+                "--use_stored_settings"]
+        if name == "fits":
+            assert port_exec.main(argv, device="cpu") == {}
+            assert started == [(port_exec.main, 2, (argv, "cpu", None))]
+        else:
+            with pytest.raises(ValueError, match=r"^spatial axis 2 exceeds C5 Y-extent 1 for Y=32 \(stride 32\)"):
+                port_exec.main(argv, device="cpu")
+            assert len(started) == 1
 
 
 def test_more_ranks_than_cards_need_the_caller_to_name_gloo(monkeypatch):
@@ -358,10 +371,10 @@ def test_more_ranks_than_cards_need_the_caller_to_name_gloo(monkeypatch):
     cf.n_space_parallel = 2
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match=r"2 ranks .*, but 1 CUDA card.*unless the caller names the gloo backend"):
-        port_exec._check_parallel(cf, "cuda", training=False)
+        port_exec._check_parallel(cf, "cuda")
     with pytest.raises(ValueError, match="but 1 CUDA card"):
-        port_exec._check_parallel(cf, "cuda", training=False, backend="nccl")
-    port_exec._check_parallel(cf, "cuda", training=False, backend="gloo")
+        port_exec._check_parallel(cf, "cuda", backend="nccl")
+    port_exec._check_parallel(cf, "cuda", backend="gloo")
 
 
 def test_spatial_ranks_run_with_tf32_off(models):
