@@ -1749,10 +1749,14 @@ DP_MODELS = ("retina_unet", "mrcnn")
 def _dp_config(model):
     """Phase 14a's configurations: the LIDC width of phases 7 and 10 (patch
     128x128x64, sf 18, ef 36, remat), float32, a global batch of 8 as one
-    microbatch (4 rows per rank)."""
-    from medicaldetectiontoolkit_torch.testing import make_mrcnn_slice_config, make_train_slice_config
+    microbatch (4 rows per rank); phase 16a's Detection U-Net that of phase
+    11 (``make_det_unet_slice_config``)."""
+    from medicaldetectiontoolkit_torch.testing import (make_det_unet_slice_config, make_mrcnn_slice_config,
+                                                       make_train_slice_config)
 
-    cf = make_train_slice_config("float32") if model == "retina_unet" else make_mrcnn_slice_config("float32")
+    make = {"retina_unet": make_train_slice_config, "mrcnn": make_mrcnn_slice_config,
+            "detection_unet": make_det_unet_slice_config}[model]
+    cf = make("float32")
     cf.grad_accum_steps, cf.use_remat = 1, True
     return cf
 
@@ -1942,6 +1946,7 @@ def _drive_data_parallel(torch, np, common, counters, card, root):
 
 
 SP_MODELS = ("retina_unet", "mrcnn")
+SP_TRAIN_MODELS = (*SP_MODELS, "detection_unet")
 SP_PATIENT = (16, 64, 64)  # z, y, x of phase 15c's small patient
 SP_ENV = {"MDT_DIM": "3", "MDT_MODEL": "retina_unet", "MDT_LIDC_PATCH": "64,64,8", "MDT_LIDC_BS": "4"}
 
@@ -1978,9 +1983,10 @@ def _sp_rank(out_dir, configs, device):
     """A rank of phase 15a/b (started by ``mesh.spawn_ranks``): joins the two
     ranks' gloo group on the one card and, per model, makes the detector
     spatial over them (S = 2), then runs: one test forward with the launches
-    counted from 0 and the peak device memory, the gathered heads, one
-    forward with the collectives fenced by synchronises (their seconds) and
-    one plain timed forward."""
+    counted from 0, the peak device memory and the collectives of its
+    dispatch and of its convert (which joins the uint8 seg_preds slabs), the
+    gathered heads, one forward with the collectives fenced by synchronises
+    (their seconds) and one plain timed forward."""
     import torch
 
     from medicaldetectiontoolkit_torch.models import build_model
@@ -2003,10 +2009,14 @@ def _sp_rank(out_dir, configs, device):
             for wrapper in counters.values():
                 wrapper.launches = 0
             net.space.reset_stats()
-            res, _ = _sp_forward(torch, net, batch)
+            handles = net.test_forward_dispatch(batch)
+            dispatched = dict(net.space.stats["gather"])
+            res = net.test_forward_convert(handles, batch)
+            torch.cuda.synchronize()
             launches = {k: w.launches for k, w in counters.items()}
             peak = torch.cuda.max_memory_allocated()
             comm = {k: dict(v) for k, v in net.space.stats.items()}
+            seg_gather = {k: comm["gather"][k] - dispatched[k] for k in ("calls", "bytes")}
             with torch.inference_mode():
                 heads = net._spatial(sp_heads_fn(net), torch.from_numpy(batch["data"]).cuda())
             heads = [t.cpu() for t in mesh.tensor_leaves(heads)]
@@ -2017,8 +2027,8 @@ def _sp_rank(out_dir, configs, device):
             timed = {k: v["s"] for k, v in net.space.stats.items()}
             _, wall_s = _sp_forward(torch, net, batch)
             torch.save({"results": res, "heads": heads, "launches": launches, "peak": peak, "comm": comm,
-                        "comm_s": timed, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3},
-                       os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+                        "seg_gather": seg_gather, "comm_s": timed, "fenced_ms": fenced_s * 1e3,
+                        "ms": wall_s * 1e3}, os.path.join(out_dir, f"{model}_rank{rank}.pt"))
             del net, heads
             torch.cuda.empty_cache()
     finally:
@@ -2111,13 +2121,18 @@ def _drive_spatial(torch, np, common, card, root):
                 seg_ok = n_seg <= 1e-4 * seg.size
             worst = same_detections(res["results"]["boxes"], one["results"]["boxes"])
             n_det = sum(len(b) for b in res["results"]["boxes"])
-            comm, comm_s = res["comm"], res["comm_s"]
+            comm, comm_s, seg_gather = res["comm"], res["comm_s"], res["seg_gather"]
+            # the convert joins the uint8 argmax of each rank's slab: b x 1 x (Y / 2) x X x Z bytes received
+            want_seg = {"calls": 1, "bytes": cf.batch_size * int(np.prod(cf.patch_size)) // 2} \
+                if model == "retina_unet" else {"calls": 0, "bytes": 0}
             print(f"  {model} rank {r}: heads max|2 ranks - 1 process| {head_err:.3e}; seg {n_seg} voxels differ; "
                   f"{n_det} detections, max|score| {worst[0]:.2e}, max|coords| {worst[1]:.2e}; launches "
                   f"{res['launches']} (expected {expect}); per forward: halo {comm['halo']['calls']} exchanges, "
                   f"{comm['halo']['bytes'] / 1e6:.1f} MB received, {comm_s['halo'] * 1e3:.1f} ms; GroupNorm sums "
                   f"{comm['sum']['calls']}; gather {comm['gather']['calls']} calls, {comm['gather']['bytes'] / 1e6:.1f}"
-                  f" MB received, {comm_s['gather'] * 1e3:.1f} ms (each collective fenced by synchronises, gloo "
+                  f" MB received ({seg_gather['calls']} of them in the convert: the seg_preds slabs as uint8, "
+                  f"{seg_gather['bytes'] / 1e6:.2f} MB, expected {want_seg['bytes'] / 1e6:.2f}), "
+                  f"{comm_s['gather'] * 1e3:.1f} ms (each collective fenced by synchronises, gloo "
                   f"through the host); forward {res['ms']:.1f} ms ({res['fenced_ms']:.1f} ms fenced) against "
                   f"{one['ms']:.1f} ms on one process (two ranks sharing one card: not a scaling figure); peak "
                   f"device memory {res['peak'] / 2**30:.3f} GiB against {one['peak'] / 2**30:.3f} GiB on one "
@@ -2126,6 +2141,8 @@ def _drive_spatial(torch, np, common, card, root):
                 raise AssertionError(f"{model} rank {r}: the spatial forward differs from the one-process forward")
             if {k: res["launches"][k] for k in expect} != expect:
                 raise AssertionError(f"{model} rank {r}: launches {res['launches']}, expected {expect}")
+            if seg_gather != want_seg:
+                raise AssertionError(f"{model} rank {r}: the convert's seg_preds gather {seg_gather}, expected {want_seg}")
             for k in launches:
                 launches[k] += res["launches"][k]
         figures[model] = {"ranks": ranks, "one": {k: one[k] for k in ("peak", "ms")}}
@@ -2197,7 +2214,9 @@ def _sp_train_rank(out_dir, configs, device):
     takes one checked step of the global batch (launches counted from 0,
     the collectives' counts and bytes, the peak device memory; the
     gradients Adam took and the loss saved), one step with the collectives
-    fenced by synchronises (their seconds) and one plain timed step."""
+    fenced by synchronises (their seconds), one plain timed step and one
+    with the allocator's history on (``common.peak_allocations``: what is
+    alive at the peak)."""
     import torch
 
     from medicaldetectiontoolkit_torch.models import build_model
@@ -2231,9 +2250,10 @@ def _sp_train_rank(out_dir, configs, device):
             net.space.timing = False
             comm_s = {k: v["s"] for k, v in net.space.stats.items()}
             _, (wall_s,) = common.train_steps(net, [batch])
+            at_peak = common.peak_allocations(lambda: common.train_steps(net, [batch]))
             torch.save({"loss": res["loss"], "grads": grads, "launches": launches, "peak": peak, "comm": comm,
-                        "comm_s": comm_s, "first_ms": step_s * 1e3, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3},
-                       os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+                        "comm_s": comm_s, "first_ms": step_s * 1e3, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3,
+                        "at_peak": at_peak}, os.path.join(out_dir, f"{model}_rank{rank}.pt"))
             del net, grads
             torch.cuda.empty_cache()
     finally:
@@ -2249,18 +2269,59 @@ def _epoch_losses(np, exp_dir):
             for split in ("train", "val")}
 
 
+def _sp_train_expected(np, cf, model):
+    """A spatial train step's gathers and sums per rank at S = 2, from the
+    shapes (``SpaceGroup.stats``: calls, bytes received): the heads' per
+    pyramid level (Retina: class and box heads; Mask R-CNN: the RPN's
+    logits and deltas and the level itself), each the other rank's float32
+    slab forward and the whole gradient backward; Detection U-Net's softmax,
+    joined detached; the seg loss's one float64 ``sum`` of 3 C + 1 values
+    (3 C + 2 with class weights) and its ``sum_bwd``. No GroupNorm (norm
+    None at LIDC)."""
+    A, b = cf.n_anchors_per_pos, cf.batch_size
+    voxels = sum(int(np.prod(shape)) for shape in cf.backbone_shapes)
+    if model == "detection_unet":
+        smax = b * cf.num_seg_classes * int(np.prod(cf.patch_size)) * 4 // 2
+        gathers, whole = (1, smax), (0, 0)
+    else:
+        per_level, channels = (2, A * (cf.head_classes + 2 * cf.dim)) if model == "retina_unet" else \
+            (3, A * (2 + 2 * cf.dim) + cf.end_filts)
+        n = per_level * len(cf.pyramid_levels)
+        gathers, whole = (n, b * channels * voxels * 4 // 2), (n, b * channels * voxels * 4)
+    seg = (0, 0)
+    if model in ("retina_unet", "detection_unet"):
+        seg = (1, (3 * cf.num_seg_classes + (2 if model == "detection_unet" else 1)) * 8)
+    return {"gather": gathers, "gather_bwd": whole, "sum": seg, "sum_bwd": seg}
+
+
+def _size(n_bytes):
+    """Bytes as MB, or as bytes below 0.1 MB (the seg loss's sums)."""
+    return f"{n_bytes / 1e6:.1f} MB" if n_bytes >= 1e5 else f"{n_bytes} B"
+
+
+def _print_peak(label, at_peak, card):
+    """The five largest origins of what is alive at a step's peak."""
+    parts = "; ".join(f"{origin}: {n_bytes / 2**30:.3f} GiB" + (f" ({count} blocks)" if count else "")
+                      for origin, n_bytes, count in at_peak["top"])
+    print(f"    {label}: peak {at_peak['peak'] / 2**30:.3f} GiB ({at_peak['before'] / 2**30:.3f} allocated before "
+          f"the step); largest alive there: {parts} ({card})")
+
+
 def _drive_spatial_training(torch, np, common, card, root):
     """Phase 16: spatial partitioning for training (``parallel/mesh.py``:
     the primitives' backward collectives, ``Detector.enable_spatial_parallel``).
     16a: two ranks share the one card over gloo as a space group (S = 2) and
-    take a train step of the LIDC-width 3D Retina U-Net and 3D Mask R-CNN on
-    the global batch of 8 (one microbatch, remat, float32, TF32 off,
-    ``MDT_STEM_PALLAS=1``), held against the one-process step on the card
-    (loss 1e-5 relative, gradients 1e-3 of each tensor's max: phase 7b's
-    tolerances), with each rank's kernel launches asserted (K3 and K4 on the
-    haloed slabs, K1, K2 and K2's backward on the gathered tensors), the
-    forward and backward collectives' calls, MB and fenced ms, ms per step
-    and the peak device memory printed. 16b: ``exec --mode train_test`` over
+    take a train step of the LIDC-width 3D Retina U-Net, 3D Mask R-CNN and
+    3D Detection U-Net on the global batch of 8 (one microbatch, remat,
+    float32, TF32 off, ``MDT_STEM_PALLAS=1``), held against the one-process
+    step on the card (loss 1e-5 relative, gradients 1e-3 of each tensor's
+    max: phase 7b's tolerances), with each rank's kernel launches asserted
+    (K3 and K4 on the haloed slabs, K1, K2 and K2's backward on the gathered
+    tensors), the gathers and sums asserted against the shapes'
+    (``_sp_train_expected``: the seg path stays on the slabs), the forward
+    and backward collectives' calls, MB and fenced ms, ms per step, the peak
+    device memory and what is alive at the peak (rank 0 and one process)
+    printed. 16b: ``exec --mode train_test`` over
     two ranks that exec starts itself (``n_space_parallel`` 2, backend
     gloo) on phase 15c's small patients, its losses against a one-process
     run. Returns the launch counts and the figures."""
@@ -2276,7 +2337,7 @@ def _drive_spatial_training(torch, np, common, card, root):
     print("== phase 16a: two ranks on the one card over gloo as a space group (S = 2), spatially partitioned "
           "training at LIDC width (patch 128x128x64, sf 18, ef 36, global batch 8 as one microbatch, remat), "
           "float32, TF32 off, MDT_STEM_PALLAS=1")
-    configs = {model: _dp_config(model) for model in SP_MODELS}
+    configs = {model: _dp_config(model) for model in SP_TRAIN_MODELS}
     ref = {}
     for model, cf in configs.items():
         net = build_model(cf, common.QuietLog(), device="cuda")
@@ -2288,7 +2349,8 @@ def _drive_spatial_training(torch, np, common, card, root):
         peak = torch.cuda.max_memory_allocated()
         grads = {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()}
         _, (wall_s,) = common.train_steps(net, [batch])
-        ref[model] = {"loss": res["loss"], "grads": grads, "peak": peak, "ms": wall_s * 1e3}
+        at_peak = common.peak_allocations(lambda: common.train_steps(net, [batch]))
+        ref[model] = {"loss": res["loss"], "grads": grads, "peak": peak, "ms": wall_s * 1e3, "at_peak": at_peak}
         del net
         torch.cuda.empty_cache()
     out_dir = os.path.join(root, "sp_train_ranks")
@@ -2303,15 +2365,19 @@ def _drive_spatial_training(torch, np, common, card, root):
         one = ref[model]
         if model == "retina_unet":
             expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
+        elif model == "detection_unet":
+            expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 0, "roi_align": 0, "roi_align_bwd": 0}
         else:
             expect = two_stage_launches(cf, cf.batch_size, "train")
+        want = _sp_train_expected(np, cf, model)
         ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
         for r, res in enumerate(ranks):
             loss_err = abs(res["loss"] - one["loss"]) / abs(one["loss"])
             grad_err, worst = _grad_errors(torch, res["grads"], one["grads"])
             comm, comm_s = res["comm"], res["comm_s"]
-            coll = "; ".join(f"{k} {comm[k]['calls']} calls, {comm[k]['bytes'] / 1e6:.1f} MB received, "
-                             f"{comm_s[k] * 1e3:.1f} ms" for k in comm)
+            coll = "; ".join(f"{k} {comm[k]['calls']} calls, {_size(comm[k]['bytes'])} received" + (
+                f" (expected {want[k][0]} calls, {_size(want[k][1])})" if k in want else "")
+                + f", {comm_s[k] * 1e3:.1f} ms" for k in comm)
             print(f"  {model} rank {r}: loss {res['loss']:.6f} vs one process {one['loss']:.6f} (relative "
                   f"{loss_err:.2e}); worst gradient {grad_err:.2e} of its tensor's max ({worst}); launches "
                   f"{res['launches']} (expected {expect}); per step: {coll} (each collective fenced by "
@@ -2323,15 +2389,19 @@ def _drive_spatial_training(torch, np, common, card, root):
                 raise AssertionError(f"{model} rank {r}: the spatial train step differs from the one-process step")
             if {k: res["launches"][k] for k in expect} != expect:
                 raise AssertionError(f"{model} rank {r}: launches {res['launches']}, expected {expect}")
-            if not all(comm[k]["calls"] > 0 for k in ("halo", "gather", "halo_bwd", "gather_bwd")):
-                raise AssertionError(f"{model} rank {r}: a collective of the spatial step never ran: {comm}")
+            if not (comm["halo"]["calls"] > 0 and comm["halo_bwd"]["calls"] > 0) or any(
+                    (comm[k]["calls"], comm[k]["bytes"]) != want[k] for k in want):
+                raise AssertionError(f"{model} rank {r}: the spatial step's collectives {comm}, expected halos and "
+                                     f"{want}")
             for k in launches:
                 launches[k] += res["launches"][k]
         if any(not torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in one["grads"]):
             raise AssertionError(f"{model}: the two ranks hold different summed gradients")
         for res in ranks:
             del res["grads"]
-        figures[model] = {"ranks": ranks, "one": {k: one[k] for k in ("peak", "ms")}}
+        _print_peak(f"{model}, one process", one["at_peak"], card)
+        _print_peak(f"{model}, rank 0", ranks[0]["at_peak"], card)
+        figures[model] = {"ranks": ranks, "one": {k: one[k] for k in ("peak", "ms", "at_peak")}}
     del ref
 
     print(f"== phase 16b: exec --mode train_test over two ranks that exec starts itself (n_space_parallel 2, "

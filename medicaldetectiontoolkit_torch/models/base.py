@@ -410,6 +410,33 @@ class Detector:
         the slabs' backward collectives."""
         return fn(img) if self.space is None else self.space.train(fn, img, self.cf)
 
+    def _seg_space(self, y: int):
+        """The SpaceGroup whose ranks each keep a Y slab of the P0 seg path
+        (labels, logits, the seg loss's sums, seg_preds) for an image of
+        ``y`` rows: this rank's, where P0 stays split (``mesh.keeps_split``
+        at its fence, the FPN's first: stride 1, halo 1); None on one
+        process or where P0 runs replicated."""
+        from medicaldetectiontoolkit_torch.parallel import mesh
+
+        if self.space is None or not mesh.keeps_split(y // self.space.size):
+            return None
+        return self.space
+
+    def _seg_slab(self, labels):
+        """This rank's Y slab of host seg labels ``(b, 1, y, ...)`` where the
+        seg path runs on slabs (JAX's Y in_sharding of ``seg``), sliced
+        before the upload; the labels themselves otherwise."""
+        sg = self._seg_space(labels.shape[2])
+        return labels if sg is None else sg.slab(labels)
+
+    def _seg_whole(self, t, y: int):
+        """A P0 map of a forward over an image of ``y`` rows (seg_preds, a
+        detached softmax), joined along Y where it holds this rank's slab
+        (``SpaceGroup.gather_y``: no backward, integers in their own dtype);
+        ``t`` itself otherwise."""
+        sg = self._seg_space(y)
+        return t if sg is None else sg.gather_y(t)
+
     @contextlib.contextmanager
     def single_card(self):
         """Steps run inside on this rank's batch alone, with no collective
@@ -457,11 +484,13 @@ class Detector:
         return det, det_mask, None, seg_preds
 
     def _make_seg_preds(self, det, det_mask, det_masks_raw, seg_preds, data_shape, with_masks: bool):
-        """The results' seg_preds on the host: the seg head's argmax, or a
-        float32 zero volume for detectors without one."""
+        """The results' seg_preds on the host: the seg head's argmax (joined
+        along Y here under spatial partitioning, so that only a caller that
+        asks for it pays the collective), or a float32 zero volume for
+        detectors without one."""
         if seg_preds is None:
             return np.zeros((data_shape[0], 1) + tuple(data_shape[2:]), dtype=np.float32)
-        return seg_preds.cpu().numpy()
+        return self._seg_whole(seg_preds, data_shape[2]).cpu().numpy()
 
     def test_forward_dispatch(self, batch, return_masks=True, **kwargs):
         """Enqueue the forward pass and detection refinement (and, for

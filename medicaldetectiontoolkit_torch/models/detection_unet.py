@@ -13,10 +13,13 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/detection_unet.py``:
 
 Under spatial partitioning (``parallel/mesh.py``) the test, train and
 validation forwards run on this rank's Y slab (the seg head's GroupNorm sums
-over the space group) and the logits are gathered along Y before the
-softmax and the seg loss, which run whole on every rank. Every rank of a
-space group then makes the host convert of the same softmax (argmax,
-components, boxes); the writer's results are the ones exec evaluates.
+over the space group), and so do the seg loss (its sums added over the
+group, ``fused_seg_loss``'s ``space``) and the softmax, which is then joined
+along Y detached (``SpaceGroup.gather_y``: the bytes of the logits, no
+backward), since the host scores each component by the whole softmax. Every
+rank of a space group then makes the host convert of the same softmax
+(argmax, components, boxes); the writer's results are the ones exec
+evaluates.
 
 The softmax stays channel-first ``(b, C, *spatial)`` on both sides of the
 device->host copy, which every train step, validation step and test chunk
@@ -53,7 +56,7 @@ class SegUNetModule(nn.Module):
     def forward(self, img):
         p0 = self.fpn(img.to(self.dtype))[0]
         with mesh.on_slabs(self.fpn.slab_levels[0]):
-            return mesh.gather_y(self.seg_head(p0))  # (b, C, *spatial) float32 logits
+            return self.seg_head(p0)  # (b, C, *spatial) float32 logits; this rank's Y slab where P0 is split
 
 
 def channel_softmax(logits):
@@ -130,12 +133,13 @@ class DetectionUNetDetector(base.Detector):
         init_weights(self.module, self.cf.weight_init, torch.Generator().manual_seed(seed))
 
     # ---- device ---------------------------------------------------------
-    def _seg_loss(self, seg_logits, seg):
-        """dice, weighted CE or their sum (``detection_unet.py:152-165``)."""
+    def _seg_loss(self, seg_logits, seg, space=None):
+        """dice, weighted CE or their sum (``detection_unet.py:152-165``);
+        ``space`` as ``fused_seg_loss``'s."""
         cf = self.cf
         dice, ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
                                            false_positive_weight=float(cf.fp_dice_weight),
-                                           class_weights=cf.wce_weights)
+                                           class_weights=cf.wce_weights, space=space)
         loss = torch.zeros((), dtype=torch.float32, device=seg_logits.device)
         if cf.seg_loss_mode in ("dice", "dice_wce"):
             loss = loss + dice
@@ -144,12 +148,16 @@ class DetectionUNetDetector(base.Detector):
         return loss
 
     def _losses(self, img, seg):
-        """(loss, detached softmax) of one (micro)batch."""
-        seg_logits = self._spatial_train(self.module, img)  # gathered along Y
-        return self._seg_loss(seg_logits, seg), channel_softmax(seg_logits.detach())
+        """(loss, detached softmax, whole along Y) of one (micro)batch."""
+        seg_logits = self._spatial_train(self.module, img)  # this rank's Y slab under spatial partitioning
+        loss = self._seg_loss(seg_logits, seg, self._seg_space(img.shape[2]))
+        return loss, self._seg_whole(channel_softmax(seg_logits.detach()), img.shape[2])
 
     def _prep(self, batch):
-        return base.host_to_device(batch["data"], self.device), base.host_to_device(batch["seg"], self.device, np.int32)
+        """The image and the seg labels (this rank's Y slab of them under
+        spatial partitioning)."""
+        return (base.host_to_device(batch["data"], self.device),
+                base.host_to_device(self._seg_slab(batch["seg"]), self.device, np.int32))
 
     def _accumulate(self, img, seg):
         """Loss and gradients of one step over ``cf.grad_accum_steps``
@@ -223,9 +231,11 @@ class DetectionUNetDetector(base.Detector):
         }
 
     def test_forward_dispatch(self, batch, **kwargs):
-        """Enqueue the forward, its softmax and the softmax's host copy."""
+        """Enqueue the forward, its softmax (joined along Y under spatial
+        partitioning) and the softmax's host copy."""
         with torch.inference_mode():
-            smax = channel_softmax(self._spatial(self.module, base.host_to_device(batch["data"], self.device)))
+            img = base.host_to_device(batch["data"], self.device)
+            smax = self._seg_whole(channel_softmax(self._spatial(self.module, img)), img.shape[2])
             host, copied = base.start_host_copies([smax])
         return host[0], copied
 

@@ -24,13 +24,15 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/mrcnn.py``:
     refinement per microbatch.
 
 Under spatial partitioning (``parallel/mesh.py``) ``extract`` runs on this
-rank's Y slab and gathers, per level along Y, the RPN heads, the seg logits
-and the pyramid levels that the RoI stage reads; the proposals, K1, K2 and
-the mask pass then run on whole tensors, identically on every rank. In
-training so do the RPN targets, ``detection_target_layer`` (the whole GT
-masks on every rank), the heads on the sampled RoIs and the losses; K2's
-backward writes the gathered maps' gradients, which ``gather_y``'s backward
-returns to the slabs.
+rank's Y slab and gathers, per level along Y, the RPN heads and the pyramid
+levels that the RoI stage reads; the proposals, K1, K2 and the mask pass
+then run on whole tensors, identically on every rank. In training so do the
+RPN targets, ``detection_target_layer`` (the whole GT masks on every rank),
+the heads on the sampled RoIs and their losses; K2's backward writes the
+gathered maps' gradients, which ``gather_y``'s backward returns to the
+slabs. U-Faster R-CNN+'s seg logits, its seg labels, the seg loss's sums and
+the argmax stay on the slab (``Detector._seg_space``); the argmax is joined
+in the converts only where seg_preds are asked for.
 
 As in JAX, padded and invalid proposals are not masked out: padding slots
 are zero boxes, classified and refined like the rest, and the mask pass runs
@@ -155,13 +157,15 @@ class MRCNNModule(nn.Module):
         )
 
     def extract(self, img):
-        """img -> (feature maps, rpn_logits (b, A, 2), rpn_deltas (b, A, 2d), seg_logits)."""
+        """img -> (feature maps, rpn_logits (b, A, 2), rpn_deltas (b, A, 2d),
+        seg_logits): under spatial partitioning the maps and the RPN heads
+        gathered along Y, the seg logits this rank's slab."""
         fpn_outs = self.fpn(img.to(self.dtype))
         slabs = self.fpn.slab_levels
         seg_logits = None
         if self.final_conv is not None:
             with mesh.on_slabs(slabs[0]):
-                seg_logits = mesh.gather_y(self.final_conv(fpn_outs[0]))
+                seg_logits = self.final_conv(fpn_outs[0])
         offset = 1 if self.operate_stride1 else 0
         maps, outs = [], []
         for i in self.pyramid_levels:
@@ -530,7 +534,7 @@ class MaskRCNNDetector(base.Detector):
         zero volume when no masks were asked for."""
         cf = self.cf
         if seg_preds is not None:
-            return seg_preds.cpu().numpy()
+            return self._seg_whole(seg_preds, data_shape[2]).cpu().numpy()
         spatial = tuple(data_shape[2:])
         seg = np.zeros((data_shape[0], 1) + spatial, dtype=np.uint8)
         if det_masks_raw is None:
@@ -558,7 +562,8 @@ class MaskRCNNDetector(base.Detector):
     def _prep(self, batch):
         """Upload one batch (``mrcnn.py:790-819``): image, padded GTs, the
         GT masks as uint8 (b, max_gt_masks, *spatial) with the first
-        ``max_gt_masks`` of each element's masks, and (ufrcnn) seg labels."""
+        ``max_gt_masks`` of each element's masks, and (ufrcnn) seg labels,
+        this rank's Y slab of them under spatial partitioning."""
         cf, dev = self.cf, self.device
         img = base.host_to_device(batch["data"], dev)
         bsz, spatial = img.shape[0], tuple(img.shape[2:])
@@ -575,7 +580,7 @@ class MaskRCNNDetector(base.Detector):
         seg = None
         if self.with_seg_head:
             labels = batch["seg"] if "seg" in batch else np.zeros((bsz, 1, *spatial), np.int32)
-            seg = base.host_to_device(labels, dev, np.int32)
+            seg = base.host_to_device(self._seg_slab(labels), dev, np.int32)
         return (img, *gt, base.host_to_device(gt_masks, dev, np.uint8), seg)
 
     def draws(self, n_micro: int, m: int):
@@ -601,7 +606,7 @@ class MaskRCNNDetector(base.Detector):
         neg_iou = 0.1 if cf.dim == 2 else 0.01
         scale = base.host_to_device(np.asarray(cf.scale), dev)
 
-        maps, rpn_logits, rpn_deltas, seg_logits = self._spatial_train(self.module.extract, img)  # gathered
+        maps, rpn_logits, rpn_deltas, seg_logits = self._spatial_train(self.module.extract, img)
         rois_norm, out_proposals, prop_valid = self._proposals(rpn_logits, rpn_deltas, cf.post_nms_rois_training)
         with torch.no_grad():
             cls_logits_all, bbox_all, flat_rois, batch_ix = self._second_stage_all(maps, rois_norm)
@@ -637,7 +642,8 @@ class MaskRCNNDetector(base.Detector):
         monitor = {"loss": loss, "class_loss": cls_loss, "rpn_class_loss": rpn_class_loss,
                    "rpn_bbox_loss": rpn_bbox_loss, "mrcnn_bbox_loss": bbox_loss, "mrcnn_mask_loss": mask_loss}
         if seg_logits is not None:
-            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes)
+            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
+                                                       space=self._seg_space(img.shape[2]))
             loss = loss + (seg_dice + seg_ce) / 2.0
             monitor.update({"seg_dice_loss": seg_dice, "loss": loss})
         max_half = max(cf.rpn_train_anchors_per_image // 2, 1)

@@ -6,8 +6,9 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
     ``ops/anchors.py`` (positions (y, x, (z)) major, anchor minor);
   * ``RetinaModule``: FPN + class/box heads on P2.. (+ the P0 segmentation
     head of Retina U-Net); under spatial partitioning each level's head
-    outputs and the seg logits are gathered along Y per level, before the
-    flatten, so that the anchor order holds (``parallel/mesh.py``);
+    outputs are gathered along Y per level, before the flatten, so that the
+    anchor order holds, and the seg logits stay on this rank's Y slab
+    (``parallel/mesh.py``);
   * ``refine_detections``: batch-global exact top-``pre_nms_limit`` over
     foreground probabilities, delta decode, window clip, round, one NMS lane
     per (element, class) through the NMS dispatcher (the CUDA kernel for
@@ -15,8 +16,11 @@ Counterpart of ``medicaldetectiontoolkit_tpu/models/retina_net.py``:
   * training (``retina_net.py:266-417``): anchor matching, SHEM, the CE and
     smooth-L1 anchor losses (+ dice and CE on the seg head), backward per
     microbatch, Adam, then detection refinement of the merged heads; under
-    spatial partitioning all of it on the gathered heads and seg logits,
-    identically on every rank of the space group.
+    spatial partitioning all of it on the gathered heads, identically on
+    every rank of the space group, and the seg loss and argmax on the slab
+    of the logits and of the labels (``_seg_space``), the argmax joined in
+    ``train_forward_convert`` / ``test_forward_convert`` only where seg_preds
+    are asked for.
 
 The random draws of a step (matching and SHEM) come from ``self.generator``,
 a ``torch.Generator`` on the detector's device seeded from ``cf.seed``, and
@@ -90,7 +94,7 @@ class RetinaModule(nn.Module):
         seg_logits = None
         if self.seg_head is not None:
             with mesh.on_slabs(slabs[0]):
-                seg_logits = mesh.gather_y(self.seg_head(fpn_outs[0]))
+                seg_logits = self.seg_head(fpn_outs[0])  # this rank's Y slab where P0 is split
         heads = [], []
         for i in self.pyramid_levels:
             with mesh.on_slabs(slabs[i + self.level_offset]):
@@ -211,20 +215,21 @@ class RetinaNetDetector(base.Detector):
     def _finalize_outputs(self, class_logits, bb_deltas, seg_logits):
         det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf, nms_fn=self.nms_fn)
         seg_preds = None
-        if seg_logits is not None:
-            seg_preds = torch.argmax(seg_logits, dim=1, keepdim=True).to(torch.uint8)  # (b, 1, *spatial)
+        if seg_logits is not None:  # (b, 1, *spatial); a Y slab under spatial partitioning
+            seg_preds = torch.argmax(seg_logits, dim=1, keepdim=True).to(torch.uint8)
         return det, det_mask, seg_preds
 
     # ---- training -------------------------------------------------------
     def _prep(self, batch):
-        """Upload one batch: image, padded GTs and (Retina U-Net) seg labels."""
+        """Upload one batch: image, padded GTs and (Retina U-Net) seg labels,
+        this rank's Y slab of them under spatial partitioning."""
         cf, dev = self.cf, self.device
         img = base.host_to_device(batch["data"], dev)
         gt = base.pad_gt_boxes(batch["bb_target"], batch["roi_labels"], img.shape[0], cf.dim, cf.max_gt_boxes, dev)
         seg = None
         if self.with_seg_head:
             labels = batch["seg"] if "seg" in batch else np.zeros((img.shape[0], 1, *img.shape[2:]), np.int32)
-            seg = base.host_to_device(labels, dev, np.int32)
+            seg = base.host_to_device(self._seg_slab(labels), dev, np.int32)
         return (img, *gt, seg)
 
     def draws(self, n_micro: int, m: int):
@@ -240,7 +245,7 @@ class RetinaNetDetector(base.Detector):
         """Loss and aux of one microbatch (``retina_net.py:266-308``); the
         draws are (m, A) for matching and (m, k_pool) for SHEM."""
         cf = self.cf
-        class_logits, bb_deltas, seg_logits = self._spatial_train(self.module, img)  # gathered along Y
+        class_logits, bb_deltas, seg_logits = self._spatial_train(self.module, img)  # heads gathered along Y
         neg_iou = 0.1 if cf.dim == 2 else 0.01
         matches, tdeltas = match_ops.gt_anchor_matching(
             match_rand, self.anchors, gt_boxes, gt_ids, gt_valid, cf.anchor_matching_iou, neg_iou,
@@ -252,7 +257,8 @@ class RetinaNetDetector(base.Detector):
         loss = class_loss + bbox_loss
         monitor = {"class_loss": class_loss, "bbox_loss": bbox_loss}
         if seg_logits is not None:
-            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes)
+            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
+                                                       space=self._seg_space(img.shape[2]))
             loss = loss + (seg_dice + seg_ce) / 2.0
             monitor.update({"seg_dice_loss": seg_dice, "seg_ce_loss": seg_ce})
         monitor["loss"] = loss

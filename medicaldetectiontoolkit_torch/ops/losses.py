@@ -100,7 +100,8 @@ def anchor_bbox_loss(target_deltas, pred_deltas, matches):
     return masked_mean(per_elem, (matches > 0)[..., None].expand_as(per_elem))
 
 
-def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float = 1.0, class_weights=None):
+def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float = 1.0, class_weights=None,
+                   space=None):
     """Soft batch dice over the foreground classes + CE (``losses.py:155-212``).
 
     seg_logits (b, C, *spatial), seg (b, 1, *spatial) int labels. The dice
@@ -109,32 +110,57 @@ def fused_seg_loss(seg_logits, seg, n_classes: int, false_positive_weight: float
     ``false_positive_weight`` weights the predictions in the dice
     denominator. ``class_weights`` (C,) make the CE a weighted mean,
     normalised by the weights applied (``F.cross_entropy``'s ``weight=``).
-    Returns (1 - mean foreground dice, CE), float32 scalars.
+
+    ``space``: the SpaceGroup whose ranks each hold one Y slab of
+    ``seg_logits`` and ``seg`` (the detectors pass theirs where the seg path
+    runs on slabs). The per-class sums, the CE's numerator and (weighted)
+    its denominator are then taken on the slab and added over the group by
+    one ``mesh.space_sum`` given the group, since the loss runs after the
+    spatial forward, where ``mesh.space()`` is None. The sum's backward
+    all-reduces, so each slab's logits get S times their gradient
+    (``parallel/mesh.py``, Gradients).
+
+    Every sum accumulates in float64 (one process, data-parallel ranks and
+    slabs alike), and the dice and CE are formed in float64, then rounded to
+    the logits' dtype (at least float32): the slabs' or ranks' partial sums
+    then add up to the whole image's to far below float32's last bit, so a
+    split step gives the one-process loss and gradient bit for bit where the
+    forward does, as GroupNorm's float64 statistics do
+    (``models/backbone.py``). Returns (1 - mean foreground dice, CE).
     """
     lab = seg[:, 0]
-    chans = [seg_logits[:, c].to(torch.float32) for c in range(n_classes)]
+    dtype = torch.promote_types(seg_logits.dtype, torch.float32)
+    acc = torch.float64
+    chans = [seg_logits[:, c].to(dtype) for c in range(n_classes)]
     mx = chans[0]
     for c in range(1, n_classes):
         mx = torch.maximum(mx, chans[c])
     lse = mx + torch.log(sum(torch.exp(ch - mx) for ch in chans))
     intersect, psum, count, lp_y = [], [], [], 0.0
     for c in range(n_classes):
-        m = (lab == c).to(torch.float32)
+        m = (lab == c).to(dtype)
         logp_c = chans[c] - lse
         probs_c = torch.exp(logp_c)
-        intersect.append((probs_c * m).sum())
-        psum.append(probs_c.sum())
-        count.append(m.sum())
+        intersect.append((probs_c * m).sum(dtype=acc))
+        psum.append(probs_c.sum(dtype=acc))
+        count.append(m.sum(dtype=acc))
         lp_y = lp_y + logp_c * m
-    intersect, psum, count = mesh.batch_sum(torch.stack([torch.stack(intersect), torch.stack(psum),
-                                                         torch.stack(count)]))
-    denom = false_positive_weight * psum + count
-    dice = (2.0 * intersect + 1e-6) / (denom + 1e-6)
+    sums = [*intersect, *psum, *count]
     if class_weights is None:
-        ce = -mesh.batch_mean(lp_y)
+        sums.append(lp_y.sum(dtype=acc))
     else:
-        w = torch.as_tensor(class_weights, dtype=torch.float32, device=lp_y.device)
-        w_vox = w[lab.long()]
-        num, den = mesh.batch_sum(torch.stack([(lp_y * w_vox).sum(), w_vox.sum()]))
-        ce = -num / torch.clamp_min(den, 1e-8)
-    return 1.0 - dice[1:].mean(), ce
+        w_vox = torch.as_tensor(class_weights, dtype=acc, device=lp_y.device)[lab.long()]
+        sums += [(lp_y * w_vox).sum(), w_vox.sum()]
+    total = torch.stack(sums)
+    if space is not None:
+        total = mesh.space_sum(total, space)
+    total = mesh.batch_sum(total)
+    intersect, psum, count = total[:3 * n_classes].reshape(3, n_classes)
+    if class_weights is None:
+        dp = mesh.current()
+        n_voxels = lp_y.numel() * (1 if space is None else space.size) * (1 if dp is None else dp.world)
+        ce = -total[-1] / n_voxels
+    else:
+        ce = -total[-2] / torch.clamp_min(total[-1], 1e-8)
+    dice = (2.0 * intersect + 1e-6) / (false_positive_weight * psum + count + 1e-6)
+    return (1.0 - dice[1:].mean()).to(dtype), ce.to(dtype)

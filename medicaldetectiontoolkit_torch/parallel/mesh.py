@@ -65,9 +65,18 @@ order):
   after; the max pool takes one row before (``-inf`` at the edge),
   ``linear_up`` one on each side (the edge row repeated); ``nearest_up`` is
   local. ``space_sum`` sums GroupNorm's sums over the group; ``gather_y``
-  joins the slabs of the heads, the seg logits and (Mask R-CNN) the pyramid
-  levels, so that matching, the losses, refinement, K1, K2 and the mask pass
+  joins the slabs of the heads and (Mask R-CNN) the pyramid levels, so that
+  matching, the anchor and RoI losses, refinement, K1, K2 and the mask pass
   run on whole tensors, identically on every rank of the group.
+* **The P0 segmentation path stays on the slabs** (JAX's Y in_sharding of
+  ``seg``): where P0 is split (``keeps_split`` at its fence, which every
+  slab of at least one row meets), a rank uploads only its slab of the seg
+  labels, its seg head's logits stay a slab, the seg loss takes its sums
+  there and adds them with ``space_sum`` over the group the detector passes
+  (the loss runs after the forward, where ``space()`` is None), and the
+  argmax of the slab is joined as a uint8 map (``SpaceGroup.gather_y``,
+  no backward) only where a caller asks for seg_preds; Detection U-Net
+  joins its softmax, detached, for the host's components.
 * **Which levels split** (``space_fence``, JAX's ``space_fence``): a level
   stays split while its slab's rows divide by the next op's stride and
   cover its halo; from the first stage input where that fails the tensor is
@@ -81,18 +90,25 @@ order):
   ``make_spatial_predict``; a training forward is never re-run.
 * Every collective is an all-reduce (SUM) of a zero-padded buffer, which
   gloo takes for CPU and CUDA tensors alike (``SpaceGroup.all_gather``),
-  in the backward too. Every rank of a group reaches the same collectives
-  in the same order: no op branches on data, each primitive is one
-  ``torch.autograd.Function`` on every rank (the image's edge included), and
-  a remat region recomputes its halos and sums inside the backward with the
-  SpaceGroup it saw in the forward (``checkpoint``).
+  in the backward too; integer tensors cross in their own dtype, floats
+  narrower than float32 as float32 (``SpaceGroup.wire_dtype``). Every rank
+  of a group reaches the same collectives in the same order: no op branches
+  on data, each primitive is one ``torch.autograd.Function`` on every rank
+  (the image's edge included), a remat region recomputes its halos and sums
+  inside the backward with the SpaceGroup it saw in the forward
+  (``checkpoint``), and the seg_preds join runs in ``*_forward_convert``,
+  which every rank of a group calls in the same order.
 * **Gradients: the partial-gradient convention.** A rank's gradient of any
   tensor is its share; the true gradient is the sum of the shares over the
   space group. Each primitive's backward follows from that rule:
 
   - ``space_sum`` (an all-reduce whose result is used on the slab):
     all-reduce (SUM) of the incoming gradient. Its identity backward, right
-    for ``batch_sum``, would drop the other slabs' shares of dL/dsum;
+    for ``batch_sum``, would drop the other slabs' shares of dL/dsum. The
+    seg loss's sums are such sums too: the loss after them is replicated,
+    so each rank's copy gets the same dL/dsum, the all-reduce makes it S
+    times that, and each slab's seg logits get S times their gradient, as
+    every other slab tensor does;
   - ``gather_y`` (slabs joined, used replicated; ``space_fence``'s gather
     too): the ranks' gradients of the whole tensor summed, then this rank's
     slab kept (an all-reduce of the whole gradient, then a slice);
@@ -507,9 +523,11 @@ class SpaceGroup:
     backward), the calls and the bytes this rank received from the other
     ranks (a halo's neighbour rows and their gradients, the other ranks'
     sums and slabs, and for ``gather_bwd`` their gradients of the whole
-    tensor); with ``timing`` on, each collective is fenced by a device
-    synchronise before and after it and its seconds are summed (a
-    measurement mode: it serialises the device)."""
+    tensor), at the size of the dtype they cross in (``wire_dtype``). An
+    all-reduce moves more than that (its whole zero-padded buffer, in
+    steps); the count is what the rank needs. With ``timing`` on, each
+    collective is fenced by a device synchronise before and after it and its
+    seconds are summed (a measurement mode: it serialises the device)."""
 
     KINDS = ("halo", "sum", "gather", "halo_bwd", "sum_bwd", "gather_bwd")
 
@@ -540,25 +558,52 @@ class SpaceGroup:
         sync()
         st["s"] += time.perf_counter() - t0
 
-    def all_gather(self, t, kind: str, n_bytes: int):
+    @staticmethod
+    def wire_dtype(dtype):
+        """The dtype a tensor of ``dtype`` crosses in: float32 and float64
+        as they are, narrower floats as float32 (a sum of them keeps its
+        precision), bool as uint8, every other integer dtype as itself (gloo
+        and NCCL sum uint8, int8, int32 and int64)."""
+        if dtype == torch.bool:
+            return torch.uint8
+        if dtype.is_floating_point and dtype not in (torch.float32, torch.float64):
+            return torch.float32
+        return dtype
+
+    def all_gather(self, t, kind: str, n_received: int):
         """Every rank's ``t`` (one shape on every rank) stacked in rank
         order, ``(S, *t.shape)``: an all-reduce (SUM) of a zero-padded
-        buffer, exact, in float32 for floats narrower than it."""
-        wire = t.dtype if t.dtype in (torch.float32, torch.float64) else torch.float32
-        with self._collective(kind, n_bytes, t.device):
+        buffer of ``wire_dtype``, exact, since one rank holds each element.
+        ``n_received`` is the number of the other ranks' elements that this
+        rank uses (counted at the wire dtype's size)."""
+        wire = self.wire_dtype(t.dtype)
+        with self._collective(kind, n_received * wire.itemsize, t.device):
             buf = torch.zeros((self.size, *t.shape), dtype=wire, device=t.device)
             buf[self.rank] = t
             dist.all_reduce(buf, group=self.group)
         return buf.to(t.dtype)
 
     def sum(self, t, kind: str = "sum"):
-        """``t`` summed over the group's ranks (in float32 for floats
-        narrower than it)."""
-        wire = t.dtype if t.dtype in (torch.float32, torch.float64) else torch.float32
+        """``t`` summed over the group's ranks (in ``wire_dtype``)."""
+        wire = self.wire_dtype(t.dtype)
         out = t.to(wire, copy=True)
-        with self._collective(kind, t.numel() * t.element_size() * (self.size - 1), t.device):
+        with self._collective(kind, t.numel() * wire.itemsize * (self.size - 1), t.device):
             dist.all_reduce(out, group=self.group)
         return out.to(t.dtype)
+
+    def gather_y(self, t, kind: str = "gather"):
+        """This rank's Y slab ``t`` (dim 2) -> the whole tensor, the slabs
+        joined in rank order, with no backward: the seg_preds map (uint8 on
+        the wire, a quarter of its logits' float32) and Detection U-Net's
+        detached softmax. ``gather_y`` (the module function) is the
+        differentiable form the forward uses."""
+        parts = self.all_gather(t, kind, t.numel() * (self.size - 1))
+        return parts.movedim(0, 2).reshape(*t.shape[:2], self.size * t.shape[2], *t.shape[3:])
+
+    def slab(self, t):
+        """This rank's Y slab (dim 2) of a whole tensor or array."""
+        n = t.shape[2] // self.size
+        return t[:, :, self.rank * n:(self.rank + 1) * n]
 
     @contextlib.contextmanager
     def forward(self):
@@ -589,13 +634,16 @@ class SpaceGroup:
     def run(self, fn, img, cf):
         """``train`` for a test forward: JAX's ``make_spatial_predict``.
         Under ``MDT_SP_VERIFY`` each new input shape's outputs are held once
-        against ``fn(img)`` on this process alone (atol 1e-5)."""
+        against ``fn(img)`` on this process alone (atol 1e-5); an output
+        that stays on the slab (the seg logits) against its rows."""
         out = self.train(fn, img, cf)
         if os.environ.get("MDT_SP_VERIFY") and tuple(img.shape) not in self._verified:
             ref, got = tensor_leaves(fn(img)), tensor_leaves(out)
             if len(ref) != len(got):
                 raise AssertionError(f"spatial-predict verify failed: {len(got)} outputs, {len(ref)} on one process")
             for a, b in zip(ref, got):
+                if a.shape != b.shape and a.dim() > 2 and a.shape[2] == self.size * b.shape[2]:
+                    a = self.slab(a)
                 np.testing.assert_allclose(
                     a.detach().double().cpu().numpy(), b.detach().double().cpu().numpy(), atol=1e-5,
                     err_msg="spatial-predict verify failed: the spatial forward differs from the single-process "
@@ -622,8 +670,8 @@ class _Halo(torch.autograd.Function):
         ctx.sg, ctx.lo, ctx.hi, ctx.pad = sg, lo, hi, pad
         rank, size, n = sg.rank, sg.size, x.shape[2]
         got = lo * (rank > 0) + hi * (rank < size - 1)
-        ctx.n_bytes = got * x[:, :, :1].numel() * x.element_size()
-        parts = sg.all_gather(torch.cat([x[:, :, :hi], x[:, :, n - lo:]], dim=2), "halo", ctx.n_bytes)
+        ctx.n_received = got * x[:, :, :1].numel()
+        parts = sg.all_gather(torch.cat([x[:, :, :hi], x[:, :, n - lo:]], dim=2), "halo", ctx.n_received)
         before = parts[rank - 1][:, :, hi:] if rank > 0 else _edge(x[:, :, :1], lo, pad)
         after = parts[rank + 1][:, :, :hi] if rank < size - 1 else _edge(x[:, :, n - 1:], hi, pad)
         return torch.cat([before, x, after], dim=2)
@@ -635,7 +683,7 @@ class _Halo(torch.autograd.Function):
         n = g.shape[2] - lo - hi
         g_lo, g_mid, g_hi = g.split([lo, n, hi], dim=2)
         # rank r + 1 read my last lo rows as its rows before; rank r - 1 my first hi rows as its rows after
-        parts = sg.all_gather(torch.cat([g_lo, g_hi], dim=2), "halo_bwd", ctx.n_bytes)
+        parts = sg.all_gather(torch.cat([g_lo, g_hi], dim=2), "halo_bwd", ctx.n_received)
         gx = g_mid.clone()
         if rank < size - 1:
             gx[:, :, n - lo:] += parts[rank + 1][:, :, :lo]
@@ -678,10 +726,12 @@ class _SpaceSum(torch.autograd.Function):
         return ctx.sg.sum(g, "sum_bwd"), None
 
 
-def space_sum(t):
-    """A sum over this rank's slab -> the sum over the image's rows inside a
-    spatial forward; the identity outside one."""
-    sg = space()
+def space_sum(t, sg=None):
+    """A sum over this rank's slab -> the sum over the image's rows: over
+    ``sg`` where given (a sum taken after the forward, as the seg loss's),
+    else over the running spatial forward's group; the identity outside
+    one."""
+    sg = space() if sg is None else sg
     return t if sg is None else _SpaceSum.apply(t, sg)
 
 
@@ -693,21 +743,21 @@ class _GatherY(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, sg):
         ctx.sg = sg
-        parts = sg.all_gather(t, "gather", t.numel() * t.element_size() * (sg.size - 1))
-        return parts.movedim(0, 2).reshape(*t.shape[:2], sg.size * t.shape[2], *t.shape[3:])
+        return sg.gather_y(t)
 
     @staticmethod
     def backward(ctx, g):
         sg = ctx.sg
-        whole = sg.sum(g.contiguous(), "gather_bwd")
-        n = g.shape[2] // sg.size
-        return whole[:, :, sg.rank * n:(sg.rank + 1) * n], None
+        return sg.slab(sg.sum(g.contiguous(), "gather_bwd")), None
 
 
 def gather_y(t):
     """This rank's Y slab ``t`` (dim 2) -> the whole tensor, the group's
     slabs joined in rank order, inside a spatial forward; the identity
-    outside one."""
+    outside one. The slabs cross in ``SpaceGroup.wire_dtype`` (float32 for
+    a bfloat16 head, integers as themselves), and ``stats["gather"]``
+    counts the other ranks' slabs at that size; the backward
+    (``gather_bwd``) the whole gradient's other S - 1 copies."""
     sg = space()
     return t if sg is None else _GatherY.apply(t, sg)
 
@@ -716,21 +766,23 @@ def slab_of(t):
     """This rank's Y slab of a whole (replicated) tensor inside a spatial
     forward; the identity outside one."""
     sg = space()
-    if sg is None:
-        return t
-    n = t.shape[2] // sg.size
-    return t[:, :, sg.rank * n:(sg.rank + 1) * n]
+    return t if sg is None else sg.slab(t)
+
+
+def keeps_split(n: int, stride: int = 1, halo: int = 1) -> bool:
+    """Whether a slab of ``n`` rows stays split ahead of a stage whose first
+    op has ``stride`` and reads ``halo`` rows beyond the slab: its rows
+    divide by ``stride`` and cover ``halo``."""
+    return n % stride == 0 and n >= halo
 
 
 def space_fence(x, split: bool, stride: int = 1, halo: int = 1):
-    """``(x, whether it stays split)`` ahead of a stage whose first op has
-    ``stride`` and reads ``halo`` rows beyond the slab: a split tensor stays
-    split while its slab's rows divide by ``stride`` and cover ``halo``;
-    otherwise it is gathered and the stage runs replicated."""
+    """``(x, whether it stays split)`` ahead of such a stage: a split tensor
+    stays split while ``keeps_split``; otherwise it is gathered and the
+    stage runs replicated."""
     if not split or space() is None:
         return x, False
-    n = x.shape[2]
-    if n % stride == 0 and n >= halo:
+    if keeps_split(x.shape[2], stride, halo):
         return x, True
     return gather_y(x), False
 

@@ -567,9 +567,23 @@ def sp_case(name):
 
 
 def sp_heads_fn(net):
-    """The module forward whose outputs a spatial forward gathers:
-    ``extract`` of the two-stage detectors, the module itself otherwise."""
-    return net.module.extract if hasattr(net.module, "extract") else net.module
+    """The module forward (``extract`` of the two-stage detectors, the
+    module itself otherwise) with every output whole along Y: the heads and
+    maps it gathers itself, and the P0 seg logits (its last output, or its
+    only one), which the detectors keep on the slab, gathered here."""
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    fn = net.module.extract if hasattr(net.module, "extract") else net.module
+
+    def heads(img):
+        out = fn(img)
+        seg = out[-1] if isinstance(out, tuple) else out
+        if seg is not None:
+            with mesh.on_slabs(net.module.fpn.slab_levels[0]):
+                seg = mesh.gather_y(seg)
+        return (*out[:-1], seg) if isinstance(out, tuple) else seg
+
+    return heads
 
 
 def sp_primitives():
@@ -732,8 +746,10 @@ def _sp_forward_rank(case, out_dir, device, world):
 def sp_rank_main(argv=None):
     """A rank of the spatial parity runs (``run_ranks``): ``out_dir device
     case...``, each case ``primitives``, ``grad_primitives``, ``cap``,
-    ``verify``, one of ``SP_CASES`` (a test forward) or ``train:NAME``
-    (``_sp_train_rank``, NAME one of ``SP_CASES`` or ``grid``); joins the ``MDT_DIST_*`` process group (gloo) and writes
+    ``verify``, one of ``SP_CASES`` (a test forward), ``train:NAME``
+    (``_sp_train_rank``, NAME one of ``SP_CASES`` or ``grid``), ``seg_loss``
+    or ``seg:NAME`` (NAME one of ``SP_SEG_CASES``); joins the ``MDT_DIST_*``
+    process group (gloo) and writes
     each case's result to ``out_dir/{case}_rank{r}.pt`` (``:`` written as
     ``_``)."""
     import sys
@@ -754,6 +770,10 @@ def sp_rank_main(argv=None):
                 result = _sp_grad_rank(world)
             elif case.startswith("train:"):
                 result = _sp_train_rank(case.partition(":")[2], out_dir, device, world)
+            elif case == "seg_loss":
+                result = _sp_seg_loss_rank(world)
+            elif case.startswith("seg:"):
+                result = _sp_seg_rank(case.partition(":")[2], device, world)
             else:
                 result = _sp_forward_rank(case, out_dir, device, world)
             torch.save(result, os.path.join(out_dir, f"{case.replace(':', '_')}_rank{rank}.pt"))
@@ -985,6 +1005,150 @@ def _sp_train_rank(case, out_dir, device, world):
             cf.use_remat = remat
             out[remat] = sp_train_step(cf, batch, init, device, draws, grid=(world // 2, 2))
         return out
+
+
+#############################
+#   the seg path on slabs   #
+#############################
+
+# Detection U-Net's seg loss modes, each a spatial step case; ``replicated_p0``
+# is 2D Retina U-Net with P0's fence made to gather (P0 and every deeper
+# level replicated), so the seg path runs whole
+SP_SEG_CASES = ("retina_unet", "ufrcnn", "dice", "wce", "dice_wce", "replicated_p0")
+
+
+def sp_seg_loss_cases():
+    """[(name, logits, seg, n_classes, false_positive_weight, class_weights)]
+    of ``fused_seg_loss`` on seeded float64 inputs of 16 rows (4 per rank at
+    S = 4): 2 and 3 classes, 2D and 3D, false-positive weights 1, 2.5 and
+    0.5, with and without class weights."""
+    rng = np.random.RandomState(3)
+    cases = []
+    for name, n_classes, spatial, fpw, weights in (("c2", 2, (16, 6, 4), 1.0, None),
+                                                    ("c3_fp", 3, (16, 10), 2.5, None),
+                                                    ("c3_weighted", 3, (16, 6, 4), 0.5, [0.2, 1.0, 3.0]),
+                                                    ("c2_weighted", 2, (16, 10), 1.0, [1.0, 4.0])):
+        logits = rng.randn(2, n_classes, *spatial) * 2
+        seg = rng.randint(0, n_classes, (2, 1, *spatial)).astype(np.int32)
+        cases.append((name, logits, seg, n_classes, fpw, weights))
+    return cases
+
+
+def _sp_seg_loss_rank(world):
+    """``fused_seg_loss`` on this rank's slabs of ``sp_seg_loss_cases`` at S
+    = ``world`` (one space group) and, on 4 ranks, at S = 2 (a 2 x 2 grid),
+    outside any spatial forward, the group given as the detectors give it:
+    per case and dtype (float64, float32) the dice, the CE, the slab's
+    logits gradient of dice + CE (float64) and the collectives' counts; and
+    ``dropped``: float64 dice and CE with the sums' ``space_sum`` given no
+    group (the identity there, as a loss that relied on ``mesh.space()``
+    would have it)."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.ops import losses
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out = {}
+    for n_space in (world, 2) if world == 4 else (world,):
+        sg = mesh.SpaceGroup(mesh.grid_layout(world // n_space, n_space))
+        res = {"space_index": sg.rank, "cases": {}}
+        for name, logits, seg, n_classes, fpw, weights in sp_seg_loss_cases():
+            case = {}
+            for dtype in (torch.float64, torch.float32):
+                sg.reset_stats()
+                x = torch.from_numpy(sg.slab(logits)).to(dtype).requires_grad_(True)
+                lab = torch.from_numpy(np.ascontiguousarray(sg.slab(seg)))
+                dice, ce = losses.fused_seg_loss(x, lab, n_classes, fpw, weights, space=sg)
+                (dice + ce).backward()
+                case[str(dtype)] = {"dice": dice.detach(), "ce": ce.detach(), "grad": x.grad,
+                                    "stats": {k: dict(v) for k, v in sg.stats.items()}}
+            space_sum = mesh.space_sum
+            mesh.space_sum = lambda t, sg=None: space_sum(t)
+            try:
+                case["dropped"] = [float(v) for v in losses.fused_seg_loss(
+                    torch.from_numpy(sg.slab(logits)), torch.from_numpy(np.ascontiguousarray(sg.slab(seg))),
+                    n_classes, fpw, weights, space=sg)]
+            finally:
+                mesh.space_sum = space_sum
+            res["cases"][name] = case
+        out[n_space] = res
+    return out
+
+
+def sp_seg_case(name):
+    """(cf, batch, env) of a ``SP_SEG_CASES`` step at S = 2: 3D Retina
+    U-Net as ``sp_case``'s (K3's plain version on the slabs), 2D U-Faster
+    R-CNN+ and 2D Detection U-Net at patch 64, the latter with no norm (so
+    that the seg loss's is the step's one ``sum``), a false-positive weight
+    of 2 and class weights (0.5, 1, 2) in each ``seg_loss_mode``; 2D Retina
+    U-Net at patch 64 for ``replicated_p0``."""
+    if name == "retina_unet":
+        return sp_case(name)
+    if name == "ufrcnn":
+        cf = make_config(model="ufrcnn", dim=2, retina_scales=False)
+    elif name == "replicated_p0":
+        cf = make_config(model="retina_unet", dim=2)
+    else:
+        cf = make_config(model="detection_unet", dim=2)
+        cf.seg_loss_mode, cf.fp_dice_weight, cf.wce_weights = name, 2.0, [0.5, 1.0, 2.0]
+    return cf, make_batch(cf, seed=7), {}
+
+
+def sp_seg_step(cf, batch, device="cpu", n_space=None):
+    """A validation step, a train step and a test forward of ``cf``'s
+    detector (init seed 1) on ``batch``, seg_preds asked for in each
+    convert: with ``n_space``, spatially partitioned over the process group
+    (``enable_spatial_parallel``), else on one process. Returns the monitor
+    values, the gradients Adam took, the seg_preds of the train convert and
+    of the test forward, and under ``n_space`` the collectives' counts of
+    each dispatch and convert (``{step}_dispatch``, ``{step}_convert``)."""
+    from medicaldetectiontoolkit_torch.models import build_model
+
+    net = build_model(cf, None, device=device)
+    net.initialize(seed=1)
+    if n_space is not None:
+        net.enable_spatial_parallel(n_space=n_space)
+    out, stats = {}, {}
+
+    def counted(key, fn):
+        if net.space is not None:
+            net.space.reset_stats()
+        result = fn()
+        if net.space is not None:
+            stats[key] = {k: dict(v) for k, v in net.space.stats.items()}
+        return result
+
+    for key in ("val", "train"):
+        handles = counted(f"{key}_dispatch", lambda: net.train_forward_dispatch(batch, is_validation=key == "val"))
+        res = counted(f"{key}_convert", lambda: net.train_forward_convert(handles, batch, need_seg_preds=True))
+        monitor = handles[1] if isinstance(handles[1], dict) else {"loss": res["loss"]}
+        out[key] = {k: float(v) for k, v in monitor.items()}
+        out[f"{key}_seg_preds"] = res["seg_preds"]
+        if key == "train":
+            out["grads"] = {n: p.grad.detach().clone() for n, p in net.module.named_parameters()}
+    handles = counted("test_dispatch", lambda: net.test_forward_dispatch(batch))
+    out["test_seg_preds"] = counted("test_convert", lambda: net.test_forward_convert(handles, batch))["seg_preds"]
+    if net.space is not None:
+        out["stats"] = stats
+        out["slab_levels"] = net.module.fpn.slab_levels
+    return out
+
+
+def _sp_seg_rank(name, device, world):
+    """``sp_seg_step`` of ``SP_SEG_CASES`` ``name`` on this rank at S =
+    ``world``; ``replicated_p0`` with ``mesh.keeps_split`` refusing every
+    stride-1 fence, so that P0's gathers the image."""
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    cf, batch, env = sp_seg_case(name)
+    keeps_split = mesh.keeps_split
+    if name == "replicated_p0":
+        mesh.keeps_split = lambda n, stride=1, halo=1: stride > 1 and keeps_split(n, stride, halo)
+    try:
+        with env_scope(env):
+            return sp_seg_step(cf, batch, device, n_space=world)
+    finally:
+        mesh.keeps_split = keeps_split
 
 
 def same_detections(a, b, score_tol=1e-5, coord_tol=1e-3):

@@ -1,7 +1,7 @@
 """Helpers shared by the measurement scripts: the card's identity, float32
 precision switches, device timers, the least time of a piece of work on the
 card, the served slices and the training slice, one pipelined window of
-chunks, and timed training steps."""
+chunks, timed training steps, and what is alive at a step's memory peak."""
 
 from __future__ import annotations
 
@@ -140,3 +140,56 @@ def train_steps(net, batches):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return results, times
+
+
+def _origin(frames, package="medicaldetectiontoolkit_torch"):
+    """Where an allocation was made: the innermost frame of ``package`` and
+    the next one of another file (its caller), as ``file:line function``."""
+    ours = [f for f in frames if package in f.get("filename", "")]
+    if not ours:
+        return "no frame of the port (autograd's C++ backward, or outside the port)"
+    names = [f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']} {f['name']}" for f in ours]
+    caller = next((n for f, n in zip(ours[1:], names[1:]) if f["filename"] != ours[0]["filename"]), None)
+    return names[0] if caller is None else f"{names[0]} < {caller}"
+
+
+def peak_allocations(fn, top=5):
+    """Run ``fn()`` with the caching allocator's history on (Python frames)
+    and replay its allocations and completed frees to the moment of most
+    device memory allocated. Returns ``{"peak": bytes, "before": bytes
+    allocated when ``fn`` started, "top": [(origin, bytes, count)]}``: the
+    ``top`` origins (``_origin``) of the blocks alive at the peak, by bytes,
+    the blocks allocated before ``fn`` and still alive there as one origin."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(stacks="python", max_entries=10_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+    def replay(stop):
+        live, old_freed, cur, peak, peak_at = {}, 0, 0, 0, -1
+        for i, ev in enumerate(trace[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+            elif ev["action"] == "free_completed":
+                if live.pop(ev["addr"], None) is None:
+                    old_freed += ev["size"]  # a block allocated before fn
+                cur -= ev["size"]
+            if cur > peak:
+                peak, peak_at = cur, i
+        return live, old_freed, peak, peak_at
+
+    _, _, peak, peak_at = replay(len(trace))
+    live, old_freed, _, _ = replay(peak_at + 1)
+    by_origin = {"allocated before the step and alive (parameters, Adam state, ...)": [before - old_freed, 0]}
+    for ev in live.values():
+        entry = by_origin.setdefault(_origin(ev.get("frames", [])), [0, 0])
+        entry[0] += ev["size"]
+        entry[1] += 1
+    ranked = sorted(by_origin.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"peak": before + peak, "before": before, "top": [(k, v[0], v[1]) for k, v in ranked]}

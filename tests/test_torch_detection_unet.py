@@ -55,7 +55,10 @@ class _Log:
 
 
 def _previous_fused_seg_loss(seg_logits, seg, n_classes):
-    """The port's ``fused_seg_loss`` before it took weights."""
+    """The port's ``fused_seg_loss`` before it took weights, its sums
+    accumulated in float64 and the dice and CE formed in float64, then
+    rounded to float32, as the port's are since its spatial form adds the Y
+    slabs' sums (``ops/losses.py``)."""
     lab = seg[:, 0]
     chans = [seg_logits[:, c].to(torch.float32) for c in range(n_classes)]
     mx = chans[0]
@@ -67,13 +70,13 @@ def _previous_fused_seg_loss(seg_logits, seg, n_classes):
         m = (lab == c).to(torch.float32)
         logp_c = chans[c] - lse
         probs_c = torch.exp(logp_c)
-        intersect.append((probs_c * m).sum())
-        psum.append(probs_c.sum())
-        count.append(m.sum())
+        intersect.append((probs_c * m).sum(dtype=torch.float64))
+        psum.append(probs_c.sum(dtype=torch.float64))
+        count.append(m.sum(dtype=torch.float64))
         lp_y = lp_y + logp_c * m
     denom = torch.stack(psum) + torch.stack(count)
     dice = (2.0 * torch.stack(intersect) + 1e-6) / (denom + 1e-6)
-    return 1.0 - dice[1:].mean(), -lp_y.mean()
+    return (1.0 - dice[1:].mean()).float(), (-(lp_y.sum(dtype=torch.float64) / lp_y.numel())).float()
 
 
 def _seg_loss_f64(logits, seg, fp_weight, class_weights):

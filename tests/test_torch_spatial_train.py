@@ -330,9 +330,11 @@ def test_spatial_train_step_equals_the_single_process_step(runs, case, remat):
     for res in ranks:
         _check_step(res, ref, case)
         stats = res["stats"]
-        assert stats["halo_bwd"]["calls"] > 0 and stats["gather_bwd"]["calls"] > 0
-        if case in ("detection_unet", "instance_norm"):
-            assert stats["sum_bwd"]["calls"] > 0
+        assert stats["halo_bwd"]["calls"] > 0
+        if case in ("detection_unet", "instance_norm"):  # its softmax is joined detached: no gather's backward
+            assert stats["sum_bwd"]["calls"] > 0 and stats["gather_bwd"]["calls"] == 0
+        else:
+            assert stats["gather_bwd"]["calls"] > 0
     a, b = ranks
     for name in a["grads"]:
         assert torch.equal(a["grads"][name], b["grads"][name]) and torch.equal(a["params"][name], b["params"][name])
