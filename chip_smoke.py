@@ -216,7 +216,15 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      starts itself (``n_space_parallel`` 2, backend gloo) on phase 15c's
      small patients, one epoch and the test: every train and validation
      loss within 1e-5 relative of a one-process run of the same seed,
-     ``last_checkpoint`` and ``results.txt`` written.
+     ``last_checkpoint`` and ``results.txt`` written. Mask R-CNN's GT masks
+     go up as each rank's Y slab (its bytes printed against one process's)
+     and its mask targets' rows meet in one ``mask_rows`` sum (calls and
+     bytes asserted); the step's target layer outputs on each rank equal,
+     bit for bit, one process's on the rank's inputs and the whole masks;
+ 17. the host-path bench (``tools/host_bench.py``: WBC, the 2D->3D merge,
+     the evaluator, spatial augmentation) at its default sizes on the
+     machine's CPUs, the native host library on and off, one JSON line
+     each.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -2207,13 +2215,67 @@ SP_TRAIN_SMALL = {"start_filts": 8, "end_filts": 16, "n_rpn_features": 16, "n_cv
                   "plot_prediction_histograms": False, "test_n_epochs": 1}
 
 
+@contextlib.contextmanager
+def _recorded_targets():
+    """Inside, each call of Mask R-CNN's ``detection_target_layer`` (as the
+    detector makes it) is recorded: the GT masks (on the device) with their
+    shape and bytes, and on the host the draws, the other inputs, the space
+    group and the outputs."""
+    from medicaldetectiontoolkit_torch.models import mrcnn
+
+    layer, calls = mrcnn.detection_target_layer, []
+
+    def recorded(draws, *args, **kwargs):
+        out = layer(draws, *args, **kwargs)
+        masks = args[6]
+        calls.append({"masks": masks, "masks_shape": tuple(masks.shape),
+                      "masks_bytes": masks.numel() * masks.element_size(), "space": kwargs.get("space"),
+                      "draws": [d.cpu() for d in draws], "inputs": [t.cpu() for t in args[:6]],
+                      "out": [t.cpu() for t in out]})
+        return out
+
+    mrcnn.detection_target_layer = recorded
+    try:
+        yield calls
+    finally:
+        mrcnn.detection_target_layer = layer
+
+
+def _with_gt_proposals(torch, inputs, copies=4):
+    """The target layer's inputs with each element's first proposals
+    replaced by ``copies`` jitters (0.005) of each valid GT box, so that the
+    GTs yield positives whatever random heads propose."""
+    proposals, prop_valid, scores, gt_boxes, gt_ids, gt_valid = inputs
+    near = torch.cat([gt_boxes] * copies, dim=1)
+    near = near + torch.randn(near.shape, generator=torch.Generator().manual_seed(0)) * 0.005
+    n = near.shape[1]
+    near = torch.where(torch.cat([gt_valid] * copies, dim=1)[..., None], near, proposals[:, :n])
+    return [torch.cat([near, proposals[:, n:]], dim=1), prop_valid, scores, gt_boxes, gt_ids, gt_valid]
+
+
+def _gt_proposal_targets(torch, cf, calls):
+    """Per recorded call, the layer again on the card with the GT boxes
+    among the proposals (``_with_gt_proposals``) and the same slab of the
+    masks and space group: its inputs and outputs on the host (the masks
+    dropped)."""
+    from medicaldetectiontoolkit_torch.models import mrcnn
+
+    for call in calls:
+        inputs = _with_gt_proposals(torch, call["inputs"])
+        out = mrcnn.detection_target_layer([d.cuda() for d in call["draws"]], *[t.cuda() for t in inputs],
+                                           call.pop("masks"), cf, space=call.pop("space"))
+        call["gt_proposals"] = {"inputs": inputs, "out": [t.cpu() for t in out]}
+    return calls
+
+
 def _sp_train_rank(out_dir, configs, device):
     """A rank of phase 16a (started by ``mesh.spawn_ranks``): joins the two
     ranks' gloo group on the one card and, per model of ``configs``, makes
     the detector spatially partitioned for training over them (S = 2), then
     takes one checked step of the global batch (launches counted from 0,
-    the collectives' counts and bytes, the peak device memory; the
-    gradients Adam took and the loss saved), one step with the collectives
+    the collectives' counts and bytes, the peak device memory, Mask R-CNN's
+    target layer recorded with its slab of the GT masks; the gradients Adam
+    took and the loss saved), one step with the collectives
     fenced by synchronises (their seconds), one plain timed step and one
     with the allocator's history on (``common.peak_allocations``: what is
     alive at the peak)."""
@@ -2239,10 +2301,12 @@ def _sp_train_rank(out_dir, configs, device):
             for wrapper in counters.values():
                 wrapper.launches = 0
             net.space.reset_stats()
-            (res,), (step_s,) = common.train_steps(net, [batch])
+            with _recorded_targets() as targets:
+                (res,), (step_s,) = common.train_steps(net, [batch])
             launches = {k: w.launches for k, w in counters.items()}
             peak = torch.cuda.max_memory_allocated()
             comm = {k: dict(v) for k, v in net.space.stats.items()}
+            targets = _gt_proposal_targets(torch, cf, targets)
             grads = {n: p.grad.detach().float().cpu() for n, p in net.module.named_parameters()}
             net.space.reset_stats()
             net.space.timing = True
@@ -2253,7 +2317,7 @@ def _sp_train_rank(out_dir, configs, device):
             at_peak = common.peak_allocations(lambda: common.train_steps(net, [batch]))
             torch.save({"loss": res["loss"], "grads": grads, "launches": launches, "peak": peak, "comm": comm,
                         "comm_s": comm_s, "first_ms": step_s * 1e3, "fenced_ms": fenced_s * 1e3, "ms": wall_s * 1e3,
-                        "at_peak": at_peak}, os.path.join(out_dir, f"{model}_rank{rank}.pt"))
+                        "at_peak": at_peak, "targets": targets}, os.path.join(out_dir, f"{model}_rank{rank}.pt"))
             del net, grads
             torch.cuda.empty_cache()
     finally:
@@ -2276,8 +2340,12 @@ def _sp_train_expected(np, cf, model):
     logits and deltas and the level itself), each the other rank's float32
     slab forward and the whole gradient backward; Detection U-Net's softmax,
     joined detached; the seg loss's one float64 ``sum`` of 3 C + 1 values
-    (3 C + 2 with class weights) and its ``sum_bwd``. No GroupNorm (norm
-    None at LIDC)."""
+    (3 C + 2 with class weights) and its ``sum_bwd``; Mask R-CNN's one
+    ``mask_rows`` sum of the GT mask rows its mask targets read (two per
+    crop row of every positive slot, uint8). No GroupNorm (norm None at
+    LIDC)."""
+    from medicaldetectiontoolkit_torch.models.mrcnn import roi_slots
+
     A, b = cf.n_anchors_per_pos, cf.batch_size
     voxels = sum(int(np.prod(shape)) for shape in cf.backbone_shapes)
     if model == "detection_unet":
@@ -2291,7 +2359,47 @@ def _sp_train_expected(np, cf, model):
     seg = (0, 0)
     if model in ("retina_unet", "detection_unet"):
         seg = (1, (3 * cf.num_seg_classes + (2 if model == "detection_unet" else 1)) * 8)
-    return {"gather": gathers, "gather_bwd": whole, "sum": seg, "sum_bwd": seg}
+    rows = (0, 0)
+    if model == "mrcnn":
+        rows = (1, 2 * b * roi_slots(cf)[0] * cf.mask_shape[0] * int(np.prod(cf.patch_size[1:])))
+    return {"gather": gathers, "gather_bwd": whole, "sum": seg, "sum_bwd": seg, "mask_rows": rows}
+
+
+def _check_mask_targets(torch, cf, ranks, whole_masks, card):
+    """Mask R-CNN's GT masks on the slabs: each rank's target layer was given
+    its Y slab of the masks (bytes against the arithmetic and against one
+    process's upload), and its outputs, in the step and again with the GT
+    boxes among the proposals (so that crops read rows of both slabs),
+    equal, bit for bit, the layer's on one process given the rank's inputs
+    and draws and the whole masks. Prints the positives with mask targets
+    and those whose crops read rows of both slabs."""
+    from medicaldetectiontoolkit_torch.models import mrcnn
+    from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
+
+    whole_bytes = whole_masks.numel() * whole_masks.element_size()
+    slab_shape = (*whole_masks.shape[:2], whole_masks.shape[2] // 2, *whole_masks.shape[3:])
+    n_pos, half = mrcnn.roi_slots(cf)[0], whole_masks.shape[2] // 2
+
+    def held(draws, inputs, got):
+        want = mrcnn.detection_target_layer([d.cuda() for d in draws], *[t.cuda() for t in inputs], whole_masks, cf)
+        rois, mask_pos = got[0][:, :n_pos], got[6][:, :n_pos]
+        y0, y1, _ = roi_ops.roi_axes(rois.reshape(-1, 2 * cf.dim), cf.mask_shape, whole_masks.shape[2:])[0]
+        straddle = ((y0.amin(dim=1) < half) & (y1.amax(dim=1) >= half)).reshape(mask_pos.shape) & mask_pos
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(want, got))
+        return same, f"{same} ({int(mask_pos.sum())} positives with mask targets, {int(straddle.sum())} reading rows " \
+            "of both slabs)"
+
+    for r, res in enumerate(ranks):
+        (call,) = res["targets"]
+        same, line = held(call["draws"], call["inputs"], call["out"])
+        same_gt, line_gt = held(call["draws"], call["gt_proposals"]["inputs"], call["gt_proposals"]["out"])
+        print(f"  mrcnn rank {r}: GT masks uploaded as {call['masks_shape']} uint8, {call['masks_bytes'] / 1e6:.1f} "
+              f"MB (expected {slab_shape}, {whole_bytes / 2e6:.1f} MB; one process {whole_bytes / 1e6:.1f} MB); "
+              f"target layer bit-identical to one process's on the whole masks, in the step: {line}; with the GT "
+              f"boxes among the proposals: {line_gt} ({card})")
+        if call["masks_shape"] != slab_shape or not (same and same_gt):
+            raise AssertionError(f"mrcnn rank {r}: GT masks {call['masks_shape']} (expected the slab {slab_shape}) or "
+                                 "target layer outputs that differ from one process's")
 
 
 def _size(n_bytes):
@@ -2351,6 +2459,8 @@ def _drive_spatial_training(torch, np, common, card, root):
         _, (wall_s,) = common.train_steps(net, [batch])
         at_peak = common.peak_allocations(lambda: common.train_steps(net, [batch]))
         ref[model] = {"loss": res["loss"], "grads": grads, "peak": peak, "ms": wall_s * 1e3, "at_peak": at_peak}
+        if model == "mrcnn":  # the whole GT masks as one process uploads them
+            ref[model]["masks"] = net._prep(batch)[4]
         del net
         torch.cuda.empty_cache()
     out_dir = os.path.join(root, "sp_train_ranks")
@@ -2397,6 +2507,10 @@ def _drive_spatial_training(torch, np, common, card, root):
                 launches[k] += res["launches"][k]
         if any(not torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in one["grads"]):
             raise AssertionError(f"{model}: the two ranks hold different summed gradients")
+        if model == "mrcnn":
+            _check_mask_targets(torch, cf, ranks, one.pop("masks"), card)
+        for res in ranks:
+            del res["targets"]
         for res in ranks:
             del res["grads"]
         _print_peak(f"{model}, one process", one["at_peak"], card)
@@ -2442,6 +2556,24 @@ def _drive_spatial_training(torch, np, common, card, root):
     torch.cuda.empty_cache()
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s ({card})")
     return {"launches": launches, "models": figures, "exec_s": walls}
+
+
+def _drive_host_bench(card):
+    """Phase 17: the port's host-path bench (``tools/host_bench.py``) at its
+    default sizes on this machine's CPUs, the native host library on and
+    off: one JSON line per bench and mode; the two modes keep the same WBC
+    clusters and 2D->3D boxes."""
+    from medicaldetectiontoolkit_torch.tools import host_bench
+
+    print(f"== phase 17: host-path bench (WBC, the 2D->3D merge, the evaluator, spatial augmentation) on "
+          f"{os.cpu_count()} CPUs, the native library on and off ({card}'s host)")
+    lines = host_bench.main([])
+    for key in ("clusters", "kept"):
+        counts = {d["native"]: d[key] for d in lines if key in d}
+        if len(set(counts.values())) != 1:
+            raise AssertionError(f"host bench: {key} {counts} differ between the native and NumPy paths")
+    if not all(math.isfinite(d["value"]) and d["value"] > 0 for d in lines):
+        raise AssertionError(f"host bench: a non-positive time in {lines}")
 
 
 def main() -> int:
@@ -2563,6 +2695,8 @@ def main() -> int:
     lap("16: spatial training")
     with tempfile.TemporaryDirectory() as root:
         spt = _drive_spatial_training(torch, np, common, card, root)
+    lap("17: the host-path bench")
+    _drive_host_bench(card)
 
     print(f"== summary ({card}; {time.perf_counter() - t_start:.1f} s)")
     for pname, t in patients["times"].items():

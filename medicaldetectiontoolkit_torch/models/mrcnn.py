@@ -27,8 +27,9 @@ Under spatial partitioning (``parallel/mesh.py``) ``extract`` runs on this
 rank's Y slab and gathers, per level along Y, the RPN heads and the pyramid
 levels that the RoI stage reads; the proposals, K1, K2 and the mask pass
 then run on whole tensors, identically on every rank. In training so do the
-RPN targets, ``detection_target_layer`` (the whole GT masks on every rank),
-the heads on the sampled RoIs and their losses; K2's backward writes the
+RPN targets, ``detection_target_layer``, the heads on the sampled RoIs and
+their losses; the GT masks stay on the slabs, and the rows the mask targets
+read are joined by one exact sum (``mask_targets``); K2's backward writes the
 gathered maps' gradients, which ``gather_y``'s backward returns to the
 slabs. U-Faster R-CNN+'s seg logits, its seg labels, the seg loss's sums and
 the argmax stay on the slab (``Detector._seg_space``); the argmax is joined
@@ -301,8 +302,40 @@ def roi_slots(cf):
     return n_pos, max(1, int(n_pos * (1.0 / cf.roi_positive_ratio - 1.0)))
 
 
+def mask_targets(gt_masks, assignment, rois, keep, mask_shape, space=None):
+    """The mask targets of the positive slots: each slot's assigned GT mask
+    cropped at its RoI by the plain ``roi_align`` (``mask_shape``), rounded,
+    and 0 where ``keep`` is false (``mrcnn.py:403-411``).
+
+    gt_masks (b, M, Y, ...) uint8, or under spatial partitioning this rank's
+    Y slab of them, ``space`` its SpaceGroup; assignment (b, S_pos) mask
+    slot; rois (b, S_pos, 2d) normalised; keep (b, S_pos). The two rows each
+    crop row reads are indexed in the whole image and gathered as uint8, on
+    a slab where this rank owns them and zeros elsewhere, then joined by one
+    ``space.sum`` (kind ``mask_rows``) of a fixed shape, every slot valid or
+    not: each row has one owner, so the sum is exact and the lerps
+    (``roi_ops.roi_lerp``) run on the rows one process gathers. Returns (b,
+    S_pos, *mask_shape) float32."""
+    bsz, n_slots = assignment.shape
+    n_rows, rest = gt_masks.shape[2], tuple(gt_masks.shape[3:])
+    dim, ch = len(mask_shape), mask_shape[0]
+    axes = roi_ops.roi_axes(rois.reshape(-1, 2 * dim), mask_shape,
+                            (n_rows * (1 if space is None else space.size), *rest))
+    ys = torch.stack(axes[0][:2]).long().reshape(2, bsz, n_slots, ch)  # whole-image rows
+    local = ys if space is None else ys - space.rank * n_rows
+    b_ix = torch.arange(bsz, device=ys.device)[:, None, None]
+    rows = gt_masks[b_ix, assignment[..., None], local.clamp(0, n_rows - 1)]  # (2, b, S_pos, ch, W, (Z))
+    if space is not None:
+        own = ((local >= 0) & (local < n_rows)).reshape(ys.shape + (1,) * len(rest))
+        rows = space.sum(torch.where(own, rows, torch.zeros((), dtype=rows.dtype, device=rows.device)),
+                         "mask_rows")
+    rows = rows.to(torch.float32).reshape(2, bsz * n_slots, ch, *rest, 1)
+    crops = roi_ops.roi_lerp(rows[0], rows[1], axes, mask_shape)[:, 0].reshape(bsz, n_slots, *mask_shape)
+    return torch.round(torch.where(keep.reshape(bsz, n_slots, *(1,) * dim), crops, 0.0))
+
+
 def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_boxes_norm, gt_ids, gt_valid,
-                           gt_masks, cf):
+                           gt_masks, cf, space=None):
     """Sample RoIs and build the second-stage targets, batched over elements
     (``mrcnn.py:349-428``, which JAX ``vmap``s).
 
@@ -310,13 +343,17 @@ def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_b
     draws: positive sampling, SHEM's pool draw, negative sampling (JAX draws
     the last two from one key). proposals_norm (b, P, 2d), prop_valid (b, P),
     class_scores (b, P, C), gt_boxes_norm (b, G, 2d), gt_ids (b, G), gt_valid
-    (b, G), gt_masks (b, M, *spatial) uint8 with M <= G mask slots.
+    (b, G), gt_masks (b, M, *spatial) uint8 with M <= G mask slots, this
+    rank's Y slab of them under spatial partitioning (``space``, the
+    SpaceGroup: the layer runs after the forward, where ``mesh.space()`` is
+    None), or None without a mask head.
 
     Returns per element S = n_pos + n_neg slots: rois (b, S, 2d), slot_valid,
     target_class (int32), target_deltas (b, S, 2d), target_masks (b, S,
     *mask_shape), pos_mask, and mask_pos: pos_mask restricted to positives
     whose GT has a mask slot. Mask targets are the assigned GT masks cropped
-    by the plain ``roi_align`` at ``cf.mask_shape``, rounded.
+    by the plain ``roi_align`` at ``cf.mask_shape``, rounded
+    (``mask_targets``); target_masks and mask_pos are None when gt_masks is.
     """
     pos_rand, shem_rand, neg_rand = draws
     dim = cf.dim
@@ -348,18 +385,14 @@ def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_b
     deltas = torch.where(pos_valid[..., None], box_ops.box_refinement(safe_rois, safe_gt) / std, 0.0)
     target_class_pos = torch.where(pos_valid, torch.gather(gt_ids.to(torch.int32), 1, assignment), 0)
 
-    # mask targets: the assigned GT masks gathered first, then cropped; a
-    # positive assigned past the mask slots gets no mask supervision
-    n_masks = gt_masks.shape[1]
-    mask_pos_valid = pos_valid & (assignment < n_masks)
-    mask_assignment = assignment.clamp(0, n_masks - 1)
-    b_ix = torch.arange(bsz, device=dev)[:, None]
-    sel_masks = gt_masks[b_ix, mask_assignment].to(torch.float32)  # (b, S_pos, *spatial)
-    flat = sel_masks.reshape(bsz * n_pos_slots, 1, *sel_masks.shape[2:])
-    target_masks = roi_ops.roi_align(flat, pos_rois.reshape(-1, 2 * dim), torch.arange(flat.shape[0], device=dev),
-                                     tuple(cf.mask_shape))[:, 0].reshape(bsz, n_pos_slots, *cf.mask_shape)
-    keep = mask_pos_valid.reshape(bsz, n_pos_slots, *(1,) * dim)
-    target_masks = torch.round(torch.where(keep, target_masks, 0.0))
+    # mask targets: a positive assigned past the mask slots gets no mask
+    # supervision
+    target_masks = mask_pos_valid = None
+    if gt_masks is not None:
+        n_masks = gt_masks.shape[1]
+        mask_pos_valid = pos_valid & (assignment < n_masks)
+        target_masks = mask_targets(gt_masks, assignment.clamp(0, n_masks - 1), pos_rois, mask_pos_valid,
+                                    tuple(cf.mask_shape), space)
 
     # negatives: SHEM on the predicted fg scores, then the lowest draws
     fg_scores = class_scores[..., 1:].amax(dim=-1)
@@ -374,9 +407,11 @@ def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_b
     slot_valid = torch.cat([pos_valid, neg_valid], dim=1)
     target_class = torch.cat([target_class_pos, zeros(dtype=torch.int32)], dim=1)
     target_deltas = torch.cat([deltas, zeros(2 * dim)], dim=1)
-    target_masks = torch.cat([target_masks, zeros(*cf.mask_shape)], dim=1)
     pos_mask = torch.cat([pos_valid, zeros(dtype=torch.bool)], dim=1)
-    mask_pos = torch.cat([mask_pos_valid, zeros(dtype=torch.bool)], dim=1)
+    mask_pos = None
+    if gt_masks is not None:
+        target_masks = torch.cat([target_masks, zeros(*cf.mask_shape)], dim=1)
+        mask_pos = torch.cat([mask_pos_valid, zeros(dtype=torch.bool)], dim=1)
     return rois, slot_valid, target_class, target_deltas, target_masks, pos_mask, mask_pos
 
 
@@ -562,26 +597,34 @@ class MaskRCNNDetector(base.Detector):
     def _prep(self, batch):
         """Upload one batch (``mrcnn.py:790-819``): image, padded GTs, the
         GT masks as uint8 (b, max_gt_masks, *spatial) with the first
-        ``max_gt_masks`` of each element's masks, and (ufrcnn) seg labels,
-        this rank's Y slab of them under spatial partitioning."""
+        ``max_gt_masks`` of each element's masks, and (ufrcnn) seg labels.
+        Under spatial partitioning the masks are this rank's Y slab, cut on
+        the host before the copy, as the seg labels are where the seg path
+        runs on slabs. Without a mask head (U-Faster R-CNN+, ``frcnn_mode``)
+        no masks go up: nothing reads them (JAX's are dropped as unused)."""
         cf, dev = self.cf, self.device
         img = base.host_to_device(batch["data"], dev)
         bsz, spatial = img.shape[0], tuple(img.shape[2:])
         gt = base.pad_gt_boxes(batch["bb_target"], batch["roi_labels"], bsz, cf.dim, cf.max_gt_boxes, dev)
-        max_gt_masks = min(cf.max_gt_boxes, getattr(cf, "max_gt_masks", None) or cf.max_gt_boxes)
-        gt_masks = np.zeros((bsz, max_gt_masks) + spatial, dtype=np.uint8)
-        for b, rm in enumerate(batch.get("roi_masks", ())):
-            rm = np.asarray(rm)
-            if rm.ndim == len(spatial) + 2:  # (n_rois, 1, *spatial)
-                rm = rm[:, 0]
-            n = min(rm.shape[0], max_gt_masks)
-            if n and rm.shape[1:] == spatial:
-                gt_masks[b, :n] = rm[:n]
+        gt_masks = None
+        if self.module.mask is not None:
+            max_gt_masks = min(cf.max_gt_boxes, getattr(cf, "max_gt_masks", None) or cf.max_gt_boxes)
+            ys = slice(None) if self.space is None else self.space.rows(spatial[0])
+            n_rows = spatial[0] if self.space is None else spatial[0] // self.space.size
+            gt_masks = np.zeros((bsz, max_gt_masks, n_rows) + spatial[1:], dtype=np.uint8)
+            for b, rm in enumerate(batch.get("roi_masks", ())):
+                rm = np.asarray(rm)
+                if rm.ndim == len(spatial) + 2:  # (n_rois, 1, *spatial)
+                    rm = rm[:, 0]
+                n = min(rm.shape[0], max_gt_masks)
+                if n and rm.shape[1:] == spatial:
+                    gt_masks[b, :n] = rm[:n, ys]
+            gt_masks = base.host_to_device(gt_masks, dev, np.uint8)
         seg = None
         if self.with_seg_head:
             labels = batch["seg"] if "seg" in batch else np.zeros((bsz, 1, *spatial), np.int32)
             seg = base.host_to_device(self._seg_slab(labels), dev, np.int32)
-        return (img, *gt, base.host_to_device(gt_masks, dev, np.uint8), seg)
+        return (img, *gt, gt_masks, seg)
 
     def draws(self, n_micro: int, m: int):
         """One step's uniform draws from ``self.generator``, per microbatch of
@@ -624,7 +667,7 @@ class MaskRCNNDetector(base.Detector):
         probs_pe = softmax(cls_logits_all).reshape(bsz, -1, cls_logits_all.shape[-1])
         s_rois, s_valid, s_class, s_deltas, s_masks, s_pos, s_mask_pos = detection_target_layer(
             (pos_rand, roi_shem_rand, neg_rand), rois_norm, prop_valid, probs_pe, gt_boxes / scale, gt_ids, gt_valid,
-            gt_masks, cf)
+            gt_masks, cf, space=self.space)
         S = s_rois.shape[1]
         flat_s_rois = s_rois.reshape(-1, 2 * cf.dim)
         s_bix = torch.arange(bsz, dtype=torch.int32, device=dev).repeat_interleave(S)

@@ -8,7 +8,10 @@ plain half of ``ops/roi_align_pallas.py``, with the same float32 numerics:
     crop``; for ``crop == 1`` the box centre ``0.5 * (lo + hi) * S``; the
     coordinate (not the index) is clamped to ``[0, S - 1]``;
   * floor/+1-clamped neighbours and one lerp per axis, in the order y, then
-    x, then z (``roi_align.py:89-95``, ``:110-127``).
+    x, then z (``roi_align.py:89-95``, ``:110-127``). ``roi_axes`` gives the
+    indices and weights, ``roi_lerp`` the lerps after the rows are gathered,
+    so a caller can gather the rows itself (the mask targets of
+    ``models/mrcnn.py`` from a Y slab).
 
 Maps are the port's channel-first ``(B, C, H, W, (Z))``; crops come out
 channel-first ``(R, C, *crop)``, the layout the two-stage heads' convs take.
@@ -55,8 +58,46 @@ def _lerp_weights(coords, size: int):
 _AXIS_COLS = ((0, 2), (1, 3), (4, 5))
 
 
+def roi_axes(boxes, crop_size, sizes):
+    """Per axis (y, x, (z)) of the crops of ``boxes`` (N, 2d) normalised:
+    the floor index and the +1-clamped index (int32, (N, crop)) and the lerp
+    weight (float32), from the whole map's extents ``sizes``."""
+    boxes = boxes.to(torch.float32)
+    return [_lerp_weights(_axis_coords(boxes[:, lo], boxes[:, hi], crop, int(size)), int(size))
+            for (lo, hi), crop, size in zip(_AXIS_COLS, crop_size, sizes)]
+
+
+def roi_lerp(top, bottom, axes, crop_size):
+    """The lerps of ``roi_align`` after its y-gather: ``top`` / ``bottom``
+    (N, ch, W, (Z,) C) are the map's rows ``axes[0][0]`` / ``axes[0][1]`` of
+    each crop, channel-last; ``axes`` is ``roi_axes``'. Lerps y, then x,
+    then z; returns (N, C, *crop_size)."""
+    dim = len(crop_size)
+    n = top.shape[0]
+    dev = top.device
+    (_, _, ly), (x0, x1, lx) = axes[0], axes[1]
+    tail = (None,) * dim  # (W, (Z,) C) after the y-gather
+    w_y = ly[(...,) + tail]
+    out = top * (1 - w_y) + bottom * w_y  # (N, ch, W, (Z,) C)
+    n_ix = torch.arange(n, device=dev)[:, None, None]
+    h_ix = torch.arange(crop_size[0], device=dev)[None, :, None]
+    w_x = lx[(slice(None), None, slice(None)) + tail[1:]]
+    out = out[n_ix, h_ix, x0.long()[:, None, :]] * (1 - w_x) + out[n_ix, h_ix, x1.long()[:, None, :]] * w_x
+    if dim == 3:
+        z0, z1, lz = axes[2]
+        n_ix3 = torch.arange(n, device=dev)[:, None, None, None]
+        h_ix3 = torch.arange(crop_size[0], device=dev)[None, :, None, None]
+        w_ix3 = torch.arange(crop_size[1], device=dev)[None, None, :, None]
+        w_z = lz[:, None, None, :, None]
+        front = out[n_ix3, h_ix3, w_ix3, z0.long()[:, None, None, :]]
+        back = out[n_ix3, h_ix3, w_ix3, z1.long()[:, None, None, :]]
+        out = front * (1 - w_z) + back * w_z
+    return out.movedim(-1, 1)  # (N, C, *crop)
+
+
 def roi_align(image, boxes, box_indices, crop_size):
-    """Crop-and-resize RoIs out of one feature map.
+    """Crop-and-resize RoIs out of one feature map: the rows each crop reads
+    gathered (``roi_axes``), then lerped (``roi_lerp``).
 
     image (B, C, H, W) or (B, C, H, W, Z), any float dtype; boxes (N, 4|6)
     normalised; box_indices (N,) batch element of each box; crop_size
@@ -66,33 +107,12 @@ def roi_align(image, boxes, box_indices, crop_size):
     dim = len(crop_size)
     if dim not in (2, 3) or image.dim() != dim + 2:
         raise ValueError(f"crop_size {crop_size} does not fit a map of shape {tuple(image.shape)}")
-    sizes = image.shape[2:]
-    boxes = boxes.to(torch.float32)
-    rows = [_lerp_weights(_axis_coords(boxes[:, lo], boxes[:, hi], crop, int(size)), int(size))
-            for (lo, hi), crop, size in zip(_AXIS_COLS, crop_size, sizes)]
-    n = boxes.shape[0]
-    dev = image.device
-    # a channel-last view, so the gathers below are those of the JAX code
+    axes = roi_axes(boxes, crop_size, image.shape[2:])
+    # a channel-last view, so the gathers are those of the JAX code
     img = image.movedim(1, -1)
     b_ix = box_indices.long()[:, None]
-    (y0, y1, ly), (x0, x1, lx) = rows[0], rows[1]
-    tail = (None,) * dim  # (W, (Z,) C) after the y-gather
-    w_y = ly[(...,) + tail]
-    out = img[b_ix, y0.long()] * (1 - w_y) + img[b_ix, y1.long()] * w_y  # (N, ch, W, (Z,) C)
-    n_ix = torch.arange(n, device=dev)[:, None, None]
-    h_ix = torch.arange(crop_size[0], device=dev)[None, :, None]
-    w_x = lx[(slice(None), None, slice(None)) + tail[1:]]
-    out = out[n_ix, h_ix, x0.long()[:, None, :]] * (1 - w_x) + out[n_ix, h_ix, x1.long()[:, None, :]] * w_x
-    if dim == 3:
-        z0, z1, lz = rows[2]
-        n_ix3 = torch.arange(n, device=dev)[:, None, None, None]
-        h_ix3 = torch.arange(crop_size[0], device=dev)[None, :, None, None]
-        w_ix3 = torch.arange(crop_size[1], device=dev)[None, None, :, None]
-        w_z = lz[:, None, None, :, None]
-        front = out[n_ix3, h_ix3, w_ix3, z0.long()[:, None, None, :]]
-        back = out[n_ix3, h_ix3, w_ix3, z1.long()[:, None, None, :]]
-        out = front * (1 - w_z) + back * w_z
-    return out.movedim(-1, 1)  # (N, C, *crop)
+    y0, y1, _ = axes[0]
+    return roi_lerp(img[b_ix, y0.long()], img[b_ix, y1.long()], axes, crop_size)
 
 
 def _level_axis_indices(boxes, levels_idx, crop: int, sizes, lo_col: int, hi_col: int):

@@ -77,6 +77,16 @@ order):
   argmax of the slab is joined as a uint8 map (``SpaceGroup.gather_y``,
   no backward) only where a caller asks for seg_preds; Detection U-Net
   joins its softmax, detached, for the host's components.
+* **The GT masks stay on the slabs** (JAX's Y in_sharding of
+  ``gt_masks``): a Mask R-CNN rank uploads only its Y slab of them. Each
+  mask target is a crop of its assigned mask that reads two rows per crop
+  row, at indices computed from the whole image; each rank gathers those
+  rows where it owns them and zeros elsewhere, and one ``SpaceGroup.sum``
+  (kind ``mask_rows``, uint8 on the wire) over every positive slot, valid
+  or not, joins them. Every row has one owner, so the sum adds only zeros
+  and is exact, and the lerps then run on the rows one process gathers
+  (``models/mrcnn.py::detection_target_layer``). The targets are
+  constants: the sum has no backward.
 * **Which levels split** (``space_fence``, JAX's ``space_fence``): a level
   stays split while its slab's rows divide by the next op's stride and
   cover its halo; from the first stage input where that fails the tensor is
@@ -520,7 +530,8 @@ class SpaceGroup:
 
     ``stats`` counts, per kind of collective (``halo``, ``sum``, ``gather``
     in the forward; ``halo_bwd``, ``sum_bwd``, ``gather_bwd`` in the
-    backward), the calls and the bytes this rank received from the other
+    backward; ``mask_rows``, the rows of the GT masks that Mask R-CNN's
+    mask targets read), the calls and the bytes this rank received from the other
     ranks (a halo's neighbour rows and their gradients, the other ranks'
     sums and slabs, and for ``gather_bwd`` their gradients of the whole
     tensor), at the size of the dtype they cross in (``wire_dtype``). An
@@ -529,14 +540,16 @@ class SpaceGroup:
     collective is fenced by a device synchronise before and after it and its
     seconds are summed (a measurement mode: it serialises the device)."""
 
+    # the collectives of the slab-aware ops, and of the training targets
     KINDS = ("halo", "sum", "gather", "halo_bwd", "sum_bwd", "gather_bwd")
+    TARGET_KINDS = ("mask_rows",)
 
     def __init__(self, grid: Grid):
         self.grid = grid
         self.group = grid.space_group
         self.rank, self.size = grid.space_index, grid.n_space
         self.timing = False
-        self.stats = {kind: {"calls": 0, "bytes": 0, "s": 0.0} for kind in self.KINDS}
+        self.stats = {kind: {"calls": 0, "bytes": 0, "s": 0.0} for kind in self.KINDS + self.TARGET_KINDS}
         self._verified = set()
 
     def reset_stats(self):
@@ -600,10 +613,14 @@ class SpaceGroup:
         parts = self.all_gather(t, kind, t.numel() * (self.size - 1))
         return parts.movedim(0, 2).reshape(*t.shape[:2], self.size * t.shape[2], *t.shape[3:])
 
+    def rows(self, y: int):
+        """This rank's rows of an image of ``y`` rows, as a slice."""
+        n = y // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
+
     def slab(self, t):
         """This rank's Y slab (dim 2) of a whole tensor or array."""
-        n = t.shape[2] // self.size
-        return t[:, :, self.rank * n:(self.rank + 1) * n]
+        return t[:, :, self.rows(t.shape[2])]
 
     @contextlib.contextmanager
     def forward(self):

@@ -747,8 +747,9 @@ def sp_rank_main(argv=None):
     """A rank of the spatial parity runs (``run_ranks``): ``out_dir device
     case...``, each case ``primitives``, ``grad_primitives``, ``cap``,
     ``verify``, one of ``SP_CASES`` (a test forward), ``train:NAME``
-    (``_sp_train_rank``, NAME one of ``SP_CASES`` or ``grid``), ``seg_loss``
-    or ``seg:NAME`` (NAME one of ``SP_SEG_CASES``); joins the ``MDT_DIST_*``
+    (``_sp_train_rank``, NAME one of ``SP_CASES`` or ``grid``), ``seg_loss``,
+    ``seg:NAME`` (NAME one of ``SP_SEG_CASES``), ``mask_layer`` or
+    ``mask:NAME`` (NAME one of ``SP_MASK_CASES``); joins the ``MDT_DIST_*``
     process group (gloo) and writes
     each case's result to ``out_dir/{case}_rank{r}.pt`` (``:`` written as
     ``_``)."""
@@ -774,6 +775,10 @@ def sp_rank_main(argv=None):
                 result = _sp_seg_loss_rank(world)
             elif case.startswith("seg:"):
                 result = _sp_seg_rank(case.partition(":")[2], device, world)
+            elif case == "mask_layer":
+                result = _sp_mask_layer_rank(out_dir, world)
+            elif case.startswith("mask:"):
+                result = _sp_mask_rank(case.partition(":")[2], device, world)
             else:
                 result = _sp_forward_rank(case, out_dir, device, world)
             torch.save(result, os.path.join(out_dir, f"{case.replace(':', '_')}_rank{rank}.pt"))
@@ -821,7 +826,8 @@ def sp_train_step(cf, batch, init_seed, device="cpu", draws=None, lr=1e-3, grid=
     ``draws`` (the global tensors of ``Detector.draws``) replace the train
     step's own. Returns the monitor values of the three steps, the
     gradients Adam took and the updated parameters (CPU tensors), and under
-    ``grid`` the train step's collective counts."""
+    ``grid`` the train step's collective counts (``stats``) and each step's
+    (``step_stats``)."""
     import torch
 
     from medicaldetectiontoolkit_torch.models import build_model
@@ -836,7 +842,7 @@ def sp_train_step(cf, batch, init_seed, device="cpu", draws=None, lr=1e-3, grid=
         index, n_data = g.data_index, g.n_data
     net.current_lr = lr
     n_micro = resolve_grad_accum(cf, cf.batch_size)
-    out = {}
+    out, step_stats = {}, {}
     for key in ("val", "train", "val_after"):
         local = mesh.shard_batch(batch, index, n_data, n_micro if key == "train" else 1)
         if key == "train" and draws is not None:
@@ -848,12 +854,13 @@ def sp_train_step(cf, batch, init_seed, device="cpu", draws=None, lr=1e-3, grid=
         monitor = handles[1] if isinstance(handles[1], dict) else {"loss": handles[0]}
         net.train_forward_convert(handles, local, need_seg_preds=False)
         out[key] = {k: float(v) for k, v in monitor.items()}
+        if net.space is not None:
+            step_stats[key] = {k: dict(v) for k, v in net.space.stats.items()}
         if key == "train":
             out["grads"] = {n: p.grad.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
             out["params"] = {n: p.detach().float().cpu().clone() for n, p in net.module.named_parameters()}
-            if net.space is not None:
-                out["stats"] = {k: dict(v) for k, v in net.space.stats.items()}
     if net.space is not None:
+        out["stats"], out["step_stats"] = step_stats["train"], step_stats
         out["slab_levels"] = net.module.fpn.slab_levels
     return out
 
@@ -1149,6 +1156,155 @@ def _sp_seg_rank(name, device, world):
             return sp_seg_step(cf, batch, device, n_space=world)
     finally:
         mesh.keeps_split = keeps_split
+
+
+#############################
+#   the GT masks on slabs   #
+#############################
+
+# the crafted masks' extent: 16 rows per rank at S = 2, 8 at S = 4
+SP_MASK_SPATIAL = {2: (32, 32), 3: (32, 32, 8)}
+# normalised GT boxes (y1, x1, y2, x2, (z1, z2)) per element of the crafted
+# target-layer batch, and the jitters of each GT among the proposals; the
+# elements hold 2 mask slots, so element 1's third GT has none
+_SP_MASK_GTS = (
+    ([[0.35, 0.1, 0.65, 0.5, 0.2, 0.8], [0.03, 0.55, 0.2, 0.9, 0.1, 0.6]], (2, 2)),  # across row 16; rows 0-7
+    ([[0.15, 0.2, 0.35, 0.6, 0.25, 0.75], [0.6, 0.5, 0.9, 0.8, 0.3, 0.9], [0.4, 0.05, 0.6, 0.35, 0.1, 0.5]],
+     (1, 1, 2)),  # across row 8; across row 24; across row 16, past the mask slots
+    ([], ()),  # no GT
+    ([[0.2, 0.2, 0.8, 0.8, 0.0, 1.0], [0.55, 0.1, 0.72, 0.3, 0.4, 0.7]], (2, 2)),  # rows 6-26; rows 17-23
+)
+
+
+_AXES = ((0, 2), (1, 3), (4, 5))  # (lo, hi) box columns of y, x, z
+
+
+def sp_mask_layer_case(dim):
+    """(cf, [per-element inputs]) of ``detection_target_layer`` crafted for
+    the GT masks on slabs: 2D or 3D Mask R-CNN's config, 4 GT slots and 2
+    mask slots per element on masks of ``SP_MASK_SPATIAL`` (random voxels,
+    denser inside each GT's box, so that every row differs), 12 proposals:
+    each GT jittered by 0.01 as ``_SP_MASK_GTS`` says (positives), then
+    random boxes. Crops cross the rows 8, 16 and 24 where slabs meet at S =
+    2 and 4, and lie inside one slab; element 1 has a positive assigned past
+    the mask slots, element 2 no GT. Inputs per element: proposals, their
+    valid flags, class scores, GT boxes, ids, valid flags, masks."""
+    cf = make_config("mrcnn", dim=dim, retina_scales=False)
+    spatial, G, P, n_slots = SP_MASK_SPATIAL[dim], 4, 12, 2
+    rng = np.random.RandomState(dim)
+    elements = []
+    for gts, jitters in _SP_MASK_GTS:
+        gt = np.asarray([g[:2 * dim] for g in gts], np.float32).reshape(-1, 2 * dim)
+        near = np.repeat(gt, np.asarray(jitters, int), axis=0)
+        near = near + rng.randn(*near.shape).astype(np.float32) * 0.01
+        lo = rng.rand(P - len(near), dim) * 0.6
+        far = np.concatenate([lo[:, :2], lo[:, :2] + 0.1 + rng.rand(len(lo), 2) * 0.3] + (
+            [lo[:, 2:], lo[:, 2:] + 0.2 + rng.rand(len(lo), 1) * 0.3] if dim == 3 else []), axis=1)
+        proposals = np.concatenate([near, far]).astype(np.float32)
+        boxes, ids, valid = np.zeros((G, 2 * dim), np.float32), np.zeros((G,), np.int32), np.zeros((G,), bool)
+        boxes[:len(gt)], ids[:len(gt)], valid[:len(gt)] = gt, rng.randint(1, 3, len(gt)), True
+        masks = (rng.rand(n_slots, *spatial) < 0.3).astype(np.uint8)
+        for i, g in enumerate(gt[:n_slots]):
+            box = (i, *(slice(int(g[lo] * n), int(np.ceil(g[hi] * n))) for (lo, hi), n in zip(_AXES, spatial)))
+            masks[box] |= (rng.rand(*masks[box].shape) < 0.9).astype(np.uint8)
+        elements.append([proposals, np.ones((P,), bool), rng.rand(P, 3).astype(np.float32), boxes, ids, valid,
+                         masks])
+    return cf, elements
+
+
+def sp_mask_layer_inputs(elements):
+    """The batched torch inputs of ``sp_mask_layer_case``'s elements."""
+    import torch
+
+    return [torch.from_numpy(np.stack(parts)) for parts in zip(*elements)]
+
+
+def _sp_mask_layer_rank(out_dir, world):
+    """``detection_target_layer`` on this rank's Y slab of
+    ``sp_mask_layer_case``'s masks at S = ``world`` (one space group) and,
+    on 4 ranks, at S = 2 (a 2 x 2 grid), the group given and no spatial
+    forward running (as the detectors call it), with the draws the test
+    wrote to ``out_dir/mask_layer_{dim}d_draws.pt``: per S and dim the
+    outputs, the slab's shape and the collectives' counts; and two traps'
+    target masks: ``skipped``, the ``mask_rows`` sum left out (each rank
+    keeps only its own rows), and ``own_extent``, the slab taken as the
+    whole image (rows indexed by the slab's extent)."""
+    import torch
+
+    from medicaldetectiontoolkit_torch.models import mrcnn
+    from medicaldetectiontoolkit_torch.parallel import mesh
+
+    out = {}
+    for n_space in (world, 2) if world == 4 else (world,):
+        sg = mesh.SpaceGroup(mesh.grid_layout(world // n_space, n_space))
+        res = {"space_index": sg.rank, "dims": {}}
+        for dim in (2, 3):
+            cf, elements = sp_mask_layer_case(dim)
+            draws = torch.load(os.path.join(out_dir, f"mask_layer_{dim}d_draws.pt"))
+            *inputs, masks = sp_mask_layer_inputs(elements)
+            slab = sg.slab(masks).contiguous()
+            sg.reset_stats()
+            got = mrcnn.detection_target_layer(draws, *inputs, slab, cf, space=sg)
+            stats = {k: dict(v) for k, v in sg.stats.items()}
+            sg.sum = lambda t, kind="sum": t
+            try:
+                skipped = mrcnn.detection_target_layer(draws, *inputs, slab, cf, space=sg)[4]
+            finally:
+                del sg.sum
+            own_extent = mrcnn.detection_target_layer(draws, *inputs, slab, cf)[4]
+            res["dims"][dim] = {"out": got, "slab_shape": tuple(slab.shape), "stats": stats, "skipped": skipped,
+                                "own_extent": own_extent}
+        out[n_space] = res
+    return out
+
+
+# the steps of the GT masks on slabs: 3D Mask R-CNN, whose masks go up as
+# slabs, and 2D U-Faster R-CNN+, which uploads none
+SP_MASK_CASES = ("mrcnn", "ufrcnn")
+
+
+def sp_mask_case(name):
+    """(cf, batch, init seed, env) of a ``SP_MASK_CASES`` step: Mask
+    R-CNN as ``sp_train_case``'s (3D, K3's plain version on the slabs,
+    positive RoIs sampled) with its batch of 2 in 2 microbatches and no
+    remat; U-Faster R-CNN+ as ``sp_seg_case``'s (2D), init seed 1."""
+    if name == "mrcnn":
+        cf, batch, init, env = sp_train_case(name)
+        cf.grad_accum_steps, cf.use_remat = 2, False
+        return cf, batch, init, env
+    if name == "ufrcnn":
+        cf, batch, env = sp_seg_case(name)
+        return cf, batch, 1, env
+    raise ValueError(f"unknown GT-mask case {name!r}")
+
+
+def sp_mask_step(cf, batch, init_seed, device="cpu", n_space=None):
+    """``sp_train_step`` on one process or, with ``n_space``, over the
+    process group as one space group, with each call of
+    ``detection_target_layer`` recorded: ``mask_uploads`` lists, per call,
+    the shape and dtype of the GT masks it was given (None without)."""
+    from medicaldetectiontoolkit_torch.models import mrcnn
+
+    layer, uploads = mrcnn.detection_target_layer, []
+
+    def recorded(*args, **kwargs):
+        masks = args[7]
+        uploads.append(None if masks is None else (tuple(masks.shape), str(masks.dtype)))
+        return layer(*args, **kwargs)
+
+    mrcnn.detection_target_layer = recorded
+    try:
+        out = sp_train_step(cf, batch, init_seed, device, grid=None if n_space is None else (1, n_space))
+    finally:
+        mrcnn.detection_target_layer = layer
+    out["mask_uploads"] = uploads
+    return out
+
+
+def _sp_mask_rank(name, device, world):
+    cf, batch, init, env = sp_mask_case(name)
+    with env_scope(env):
+        return sp_mask_step(cf, batch, init, device, n_space=world)
 
 
 def same_detections(a, b, score_tol=1e-5, coord_tol=1e-3):
