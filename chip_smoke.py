@@ -224,7 +224,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  17. the host-path bench (``tools/host_bench.py``: WBC, the 2D->3D merge,
      the evaluator, spatial augmentation) at its default sizes on the
      machine's CPUs, the native host library on and off, one JSON line
-     each.
+     each; then LIDC's raw-scan preprocessing on arrays (one chest CT of
+     133 x 512 x 512 resampled to 266 x 512 x 512, a nodule of two raters
+     fused), once, its line ``"native": "n/a"``.
 
 Each phase's start is printed with the seconds since the script began.
 The last lines are a JSON object with one entry per kernel of the paths and
@@ -2562,12 +2564,16 @@ def _drive_host_bench(card):
     """Phase 17: the port's host-path bench (``tools/host_bench.py``) at its
     default sizes on this machine's CPUs, the native host library on and
     off: one JSON line per bench and mode; the two modes keep the same WBC
-    clusters and 2D->3D boxes."""
+    clusters and 2D->3D boxes. Then the LIDC preprocessing line (no native
+    mode): the CT resampled to LIDC's spacing and the nodule kept."""
     from medicaldetectiontoolkit_torch.tools import host_bench
 
-    print(f"== phase 17: host-path bench (WBC, the 2D->3D merge, the evaluator, spatial augmentation) on "
-          f"{os.cpu_count()} CPUs, the native library on and off ({card}'s host)")
+    print(f"== phase 17: host-path bench (WBC, the 2D->3D merge, the evaluator, spatial augmentation; LIDC "
+          f"preprocessing) on {os.cpu_count()} CPUs, the native library on and off ({card}'s host)")
     lines = host_bench.main([])
+    lidc = [d for d in lines if d["native"] == "n/a"]
+    if len(lidc) != 1 or lidc[0]["shape"] != [266, 512, 512] or not lidc[0]["fused_voxels"] > 0:
+        raise AssertionError(f"host bench: the LIDC preprocessing line {lidc}")
     for key in ("clusters", "kept"):
         counts = {d["native"]: d[key] for d in lines if key in d}
         if len(set(counts.values())) != 1:

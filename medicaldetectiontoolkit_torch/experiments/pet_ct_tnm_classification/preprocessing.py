@@ -1,13 +1,22 @@
-"""PET/CT data of the port: the synthetic two-modality generator, the index,
-and the scipy helpers of the raw preprocessing.
+"""PET/CT preprocessing of the port: the raw scans to normalized volumes,
+the index, and the synthetic two-modality generator.
 
 Counterpart of ``experiments/pet_ct_tnm_classification/preprocessing.py``,
 without pandas:
+  * ``pp_patient`` reads one raw LungStage patient (``lsa_ct.nii.gz``,
+    ``lsa_pet.nii.gz`` and the rater segmentation ``lsa.seg.nrrd``, one
+    segment per layer of 4D data), drops the segments of
+    ``BACKGROUND_CATEGORIES``, resamples the CT to (0.976562, 0.976562,
+    3.27) mm where it is finer and the PET and the segmentation onto the
+    CT's grid, crops the lung's z range (``get_z_crops``), normalizes CT
+    (clipped to [-1200, 600], scaled to [0, 1], z-scored) and PET
+    (z-scored) and writes ``{pid}_img.npy`` (2, z, y, x) float32,
+    ``{pid}_rois.npy`` (the binary segmentation) and
+    ``meta_info_{pid}.pickle`` ({pid, raw_pid, class_target: the names of
+    the segments left, fg_slices});
   * ``generate_synthetic_petct`` writes, from the same seed, the same
-    ``{pid}_img.npy`` (2, z, y, x) float32 volumes (CT and PET), binary
-    ``{pid}_rois.npy`` and ``meta_info_{pid}.pickle`` dicts ({pid, raw_pid,
-    class_target, fg_slices}), which is the per-patient contract of the raw
-    preprocessing as well;
+    ``{pid}_img.npy`` volumes (CT and PET), binary ``{pid}_rois.npy`` and
+    ``meta_info_{pid}.pickle`` dicts as the JAX package's generator;
   * ``aggregate_meta_info`` writes ``info_df.pickle``, the index of the
     directory, with its rows in ``os.listdir`` order of the meta files: a
     pandas ``DataFrame`` pickle (``dataloader_utils.dataframe_pickle``), so
@@ -17,11 +26,14 @@ without pandas:
     near the slice center) with ``_clear_border``, and ``collect_paths``
     (the raw patients' directories).
 
-Resampling and normalizing the raw LungStage scans (``pp_patient``) needs
-the raw data, SimpleITK and pynrrd, and is not ported.
+SimpleITK and pynrrd read the raw files. As in the JAX package they are
+imported only where a file is read, so the module imports without them.
 
-    python -m medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing --out_dir DIR \\
-        [--n_patients N] [--shape Z Y X] [--seed S]
+    # every patient under cf.raw_data_dir (collect_paths) into cf.pp_dir (MDT_PETCT_ROOT sets the root)
+    python -m medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing
+    # synthetic patients into --out_dir (default cf.pp_data_path)
+    python -m medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.preprocessing --synthetic \\
+        [--out_dir DIR] [--n_patients N] [--shape Z Y X] [--seed S]
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 from scipy import ndimage
@@ -36,6 +49,19 @@ from scipy import ndimage
 from medicaldetectiontoolkit_torch.data.dataloader_utils import dataframe_pickle
 
 INDEX_COLUMNS = ["pid", "raw_pid", "class_target", "fg_slices"]
+BACKGROUND_CATEGORIES = ["M1b_brain", "N_inflammation", "T_benign", "T_other"]
+
+
+def _require_sitk():
+    try:
+        import SimpleITK as sitk
+
+        return sitk
+    except ImportError as e:
+        raise ImportError(
+            "SimpleITK is required for raw PET/CT preprocessing. Install it, or use "
+            "generate_synthetic_petct() / pre-converted npy data."
+        ) from e
 
 
 def _clear_border(mask):
@@ -92,6 +118,87 @@ def get_z_crops(x, ix, min_pix=1500, n_comps=2, rad_crit=20000):
     if dist <= 43 and n_comps > 1:
         return get_z_crops(x, ix, n_comps=1, min_pix=min_pix - 100, rad_crit=rad_crit + 100)
     return z_min, z_max
+
+
+def pp_patient(inputs, cf):
+    """Preprocess one raw patient: ``inputs`` is (index, its directory); the
+    index is the pid. Writes ``{pid}_img.npy``, ``{pid}_rois.npy`` and
+    ``meta_info_{pid}.pickle`` into ``cf.pp_dir``."""
+    sitk = _require_sitk()
+    try:
+        import nrrd
+    except ImportError as e:
+        raise ImportError("pynrrd is required to read .seg.nrrd rater segmentations") from e
+
+    ix, path = inputs
+    pid = ix
+    print("processing", pid, path)
+    x = sitk.ReadImage(os.path.join(path, "lsa_ct.nii.gz"))
+    p = sitk.ReadImage(os.path.join(path, "lsa_pet.nii.gz"))
+    readdata, header = nrrd.read(os.path.join(path, "lsa.seg.nrrd"))
+    if len(readdata.shape) == 3:
+        readdata = readdata[None]
+        spacing = np.diagonal(header["space directions"])
+    else:
+        spacing = np.diagonal(header["space directions"][1:, :])
+
+    # one label per segment (layer), 0 for those of the background categories
+    origin = header["space origin"] * np.sign(spacing)
+    labels = [header[k].split("=")[-1] for k in header.keys() if "_Name" in k]
+    seg = np.zeros_like(readdata[0])
+    for rix in range(readdata.shape[0]):
+        if labels[rix] not in BACKGROUND_CATEGORIES:
+            seg[readdata[rix] == 1] = rix + 1
+    seg = seg.astype("uint8")
+    s = sitk.GetImageFromArray(np.transpose(seg, axes=(2, 1, 0)))
+    s.SetSpacing(tuple(abs(spacing)))
+    s.SetOrigin(tuple(origin))
+
+    x_spacing = x.GetSpacing()
+    if x_spacing[0] < 0.95 or x_spacing[2] < 3:
+        new_spacing = (0.976562, 0.976562, 3.27)
+        new_size = [int(x.GetSize()[ii] * x_spacing[ii] / new_spacing[ii]) for ii in range(3)]
+        reference_image = sitk.Image(new_size, x.GetPixelIDValue())
+        reference_image.SetOrigin(x.GetOrigin())
+        reference_image.SetDirection(x.GetDirection())
+        reference_image.SetSpacing(new_spacing)
+        x = sitk.Resample(x, reference_image)
+
+    # PET and seg onto the CT's grid
+    resampler = sitk.ResampleImageFilter()
+    resampler.SetReferenceImage(x)
+    rp = resampler.Execute(p)
+    rs = resampler.Execute(s)
+    pi = sitk.GetArrayFromImage(rp)
+    si = sitk.GetArrayFromImage(rs)
+    xi = sitk.GetArrayFromImage(x)
+
+    # the lung's z range; numpy's own promotion: an integer CT stays integer until the division
+    zmin, zmax = get_z_crops(xi, ix)
+    xa = xi[zmin:zmax]
+    pa = pi[zmin:zmax]
+    sa = si[zmin:zmax]
+
+    xa = np.clip(xa, -1200, 600)
+    xa = (1200 + xa) / (600 + 1200)
+    xa = (xa - np.mean(xa)) / np.std(xa)
+    pa = (pa - np.mean(pa)) / np.std(pa)
+
+    assert np.all(np.array(xa.shape) == np.array(sa.shape))
+    img = np.concatenate((xa[None], pa[None])).astype(np.float32)
+
+    remaining_comps = np.unique(sa)
+    remaining_labels = [ii for lix, ii in enumerate(labels) if lix + 1 in remaining_comps]
+    sa[sa > 0] = 1
+    fg_slices = [int(ii) for ii in np.unique(np.argwhere(sa != 0)[:, 0])]
+
+    np.save(os.path.join(cf.pp_dir, f"{pid}_rois.npy"), sa)
+    np.save(os.path.join(cf.pp_dir, f"{pid}_img.npy"), img)
+    with open(os.path.join(cf.pp_dir, f"meta_info_{pid}.pickle"), "wb") as handle:
+        pickle.dump(
+            {"pid": pid, "raw_pid": os.path.basename(path), "class_target": remaining_labels, "fg_slices": fg_slices},
+            handle,
+        )
 
 
 def read_meta_info(pp_dir):
@@ -157,10 +264,24 @@ def generate_synthetic_petct(out_dir, n_patients=4, shape=(40, 96, 96), seed=0):
 
 
 if __name__ == "__main__":
-    ap = argparse.ArgumentParser(description="write a synthetic PET/CT data set")
-    ap.add_argument("--out_dir", required=True)
+    from medicaldetectiontoolkit_torch.experiments.pet_ct_tnm_classification.configs import configs
+
+    ap = argparse.ArgumentParser(description="preprocess the raw PET/CT scans, or write a synthetic PET/CT data set")
+    ap.add_argument("--synthetic", action="store_true", help="generate a synthetic PET/CT-shaped dataset instead")
+    ap.add_argument("--out_dir", default=None)
     ap.add_argument("--n_patients", type=int, default=4)
-    ap.add_argument("--shape", type=int, nargs=3, default=(40, 96, 96), help="z y x of each volume")
+    ap.add_argument("--shape", type=int, nargs=3, default=(40, 96, 96), help="z y x of each synthetic volume")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    generate_synthetic_petct(args.out_dir, n_patients=args.n_patients, shape=tuple(args.shape), seed=args.seed)
+
+    cf = configs()
+    if args.synthetic:
+        generate_synthetic_petct(args.out_dir or cf.pp_data_path, n_patients=args.n_patients, shape=tuple(args.shape),
+                                 seed=args.seed)
+    else:
+        paths = collect_paths(cf.raw_data_dir)
+        print("all paths", len(paths))
+        os.makedirs(cf.pp_dir, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(lambda i: pp_patient(i, cf), enumerate(paths)))
+        aggregate_meta_info(cf.pp_dir)

@@ -1,5 +1,6 @@
 """Host-path benchmarks of the port (no device needed): WBC consolidation,
-the 2D->3D merge, evaluation and spatial augmentation.
+the 2D->3D merge, evaluation and spatial augmentation, and LIDC's raw-scan
+preprocessing.
 
 The port's counterpart of the root ``tools/host_bench.py``, with the same
 four benches and inputs, run through ``predictor.weighted_box_clustering``,
@@ -9,11 +10,15 @@ training and serving once the card is fast enough (PERF.md section 5).
 Each bench runs with the native host library on and off (``MDT_NO_NATIVE``,
 read per call: the Evaluator has no native path, so its two lines time the
 same code). A warm-up call (which builds the native library on first use)
-precedes the timed repetitions.
+precedes the timed repetitions. The LIDC preprocessing bench
+(``experiments/lidc_exp/preprocessing.py``: ``normalize_ct``, the
+arithmetic of ``_load_normalized_ct``, and ``fuse_masks`` of one nodule of
+two raters, on arrays: no file is read) has no native path: it runs once,
+one repetition with no warm-up, and prints ``"native": "n/a"``.
 
 Prints one JSON line per bench and mode, the root tool's keys plus the mode
 and the host's CPU count:
-  {"metric": "...", "value": N, "unit": "...", "native": "on" | "off", "cpus": N, ...}
+  {"metric": "...", "value": N, "unit": "...", "native": "on" | "off" | "n/a", "cpus": N, ...}
 
     python -m medicaldetectiontoolkit_torch.tools.host_bench [--reps 3] [--wbc-boxes 4000] ...
 """
@@ -139,6 +144,32 @@ def bench_augmentation(shape=(156, 156, 96), patch=(128, 128, 64), reps=3):
     return {"metric": "augment_3d_patch", "value": dt * 1e3, "unit": "ms"}
 
 
+def bench_lidc_pp(shape=(133, 512, 512), spacing=(0.7, 0.7, 2.5)):
+    """One raw chest CT of ``shape`` (z, y, x) int16 HU at ``spacing``
+    (x, y, z) mm to LIDC's target spacing: the CT normalized, then one
+    nodule's two rater masks (the CT's shape, uint8) resampled and fused.
+    Three volume resamples, timed once each stage."""
+    from medicaldetectiontoolkit_torch.experiments.lidc_exp.preprocessing import fuse_masks, normalize_ct
+
+    target = (0.7, 0.7, 1.25)
+    rng = np.random.RandomState(4)
+    ct = rng.randint(-1100, 500, size=shape).astype(np.int16)
+    center = np.array(shape) // 2
+    zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
+    masks = []
+    for shift in (0, 1):  # a nodule of 8 mm radius, the second rater's one voxel over in x
+        dist = ((zz - center[0]) * spacing[2]) ** 2 + ((yy - center[1]) * spacing[1]) ** 2 + \
+            ((xx - center[2] - shift) * spacing[0]) ** 2
+        masks.append(((dist < 8.0**2).astype(np.uint8), spacing))
+    t0 = time.perf_counter()
+    img = normalize_ct(ct, spacing, target)
+    t1 = time.perf_counter()
+    fused, _ = fuse_masks(masks, [3, 4], target, img.shape)
+    t2 = time.perf_counter()
+    return {"metric": "lidc_pp_" + "x".join(map(str, shape)), "value": t2 - t0, "unit": "s", "ct_s": t1 - t0,
+            "fuse_s": t2 - t1, "shape": list(img.shape), "fused_voxels": int(fused.sum())}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=3)
@@ -148,6 +179,7 @@ def main(argv=None):
     parser.add_argument("--boxes-per-patient", type=int, default=30)
     parser.add_argument("--aug-shape", type=int, nargs=3, default=[156, 156, 96])
     parser.add_argument("--aug-patch", type=int, nargs=3, default=[128, 128, 64])
+    parser.add_argument("--lidc-ct", type=int, nargs=3, default=[133, 512, 512], help="z y x of the raw CT")
     args = parser.parse_args(argv)
     benches = (lambda: bench_wbc(args.wbc_boxes, reps=args.reps),
                lambda: bench_nms_2to3d(args.nms_boxes, reps=args.reps),
@@ -167,6 +199,9 @@ def main(argv=None):
             os.environ.pop("MDT_NO_NATIVE", None)
         else:
             os.environ["MDT_NO_NATIVE"] = saved
+    line = dict(bench_lidc_pp(tuple(args.lidc_ct)), native="n/a", cpus=os.cpu_count())
+    print(json.dumps(line), flush=True)
+    lines.append(line)
     return lines
 
 

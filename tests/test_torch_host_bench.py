@@ -2,7 +2,7 @@
 at tiny sizes on the CPU, in a process where jax cannot be imported: one
 JSON line per bench and native mode, with the root tool's keys, the mode
 and the CPU count; the native and NumPy paths keep the same clusters and
-boxes."""
+boxes; the LIDC preprocessing bench prints one line, with no native mode."""
 
 import json
 import os
@@ -13,7 +13,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--reps", "1", "--wbc-boxes", "120", "--nms-boxes", "150", "--patients", "4", "--boxes-per-patient", "5",
-        "--aug-shape", "24", "24", "12", "--aug-patch", "16", "16", "8"]
+        "--aug-shape", "24", "24", "12", "--aug-patch", "16", "16", "8", "--lidc-ct", "12", "32", "32"]
 RUN = ("import json, sys; sys.modules['jax'] = None; "
        "from medicaldetectiontoolkit_torch.tools import host_bench; host_bench.main(sys.argv[1:]); "
        "bad = [m for m in sys.modules if m.startswith(('jax', 'medicaldetectiontoolkit_tpu')) and sys.modules[m]]; "
@@ -31,11 +31,20 @@ def lines():
 
 
 def test_one_line_per_bench_and_mode(lines):
-    assert [(d["metric"], d["native"]) for d in lines] == [(m, mode) for mode in ("on", "off") for m in METRICS]
+    assert [(d["metric"], d["native"]) for d in lines] == \
+        [(m, mode) for mode in ("on", "off") for m in METRICS] + [("lidc_pp_12x32x32", "n/a")]
     for d in lines:
         assert {"metric", "value", "unit", "native", "cpus"} <= set(d)
         assert d["value"] > 0 and d["cpus"] == os.cpu_count()
-        assert d["unit"] == ("s" if d["metric"].startswith("evaluator") else "ms")
+        assert d["unit"] == ("s" if d["metric"].startswith(("evaluator", "lidc_pp")) else "ms")
+
+
+def test_lidc_pp_line(lines):
+    """The CT of 12 slices at 2.5 mm resampled to 1.25 mm, both stages
+    timed, the two raters' nodule kept."""
+    d = lines[-1]
+    assert d["shape"] == [24, 32, 32] and d["fused_voxels"] > 0
+    assert d["ct_s"] > 0 and d["fuse_s"] > 0 and d["value"] == pytest.approx(d["ct_s"] + d["fuse_s"])
 
 
 @pytest.mark.parametrize("key", ["clusters", "kept"])

@@ -93,9 +93,15 @@ def test_synthetic_generator_matches_jax(tmp_path):
     kw = dict(n_patients=3, shape=(16, 40, 36), seed=5)
     jax_generate(str(tmp_path / "jax"), **kw)
     metas = generate_synthetic_lidc(str(tmp_path / "port"), **kw)
-    assert not os.path.exists(tmp_path / "port" / "info_df.pickle")
+    # the port's index equals JAX's under pandas, its rows in each directory's listdir order of the meta files
+    frames = [pd.read_pickle(tmp_path / d / "info_df.pickle") for d in ("port", "jax")]
+    for d, df in zip(("port", "jax"), frames):
+        assert df.pid.tolist() == [f[len("meta_info_"):-len(".pickle")] for f in os.listdir(tmp_path / d)
+                                   if "meta_info" in f]
+    frames = [df.sort_values("pid").reset_index(drop=True) for df in frames]
+    pd.testing.assert_frame_equal(frames[0], frames[1])
     jfiles = sorted(f for f in os.listdir(tmp_path / "jax") if f != "info_df.pickle")
-    assert jfiles == sorted(os.listdir(tmp_path / "port"))
+    assert sorted(jfiles + ["info_df.pickle"]) == sorted(os.listdir(tmp_path / "port"))
     for f in jfiles:
         if f.endswith(".npy"):
             assert_same(np.load(tmp_path / "port" / f), np.load(tmp_path / "jax" / f))
