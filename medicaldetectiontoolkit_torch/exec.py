@@ -63,6 +63,7 @@ refused unless the caller of ``main`` names the gloo backend
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import tempfile
@@ -75,6 +76,7 @@ from medicaldetectiontoolkit_torch.models import build_model
 from medicaldetectiontoolkit_torch.parallel import mesh
 from medicaldetectiontoolkit_torch.plotting import plot_batch_prediction
 from medicaldetectiontoolkit_torch.predictor import Predictor
+from medicaldetectiontoolkit_torch.utils import trace
 
 
 def _n_ranks(cf) -> int:
@@ -132,7 +134,9 @@ def _data_parallel(cf, net):
 
 class _StepProfiler:
     """``torch.profiler`` over train steps 2-6 of an epoch (``cf.profile``),
-    the trace written to ``exp_dir/profile``."""
+    the trace written to ``exp_dir/profile/trace.json`` and the program's
+    spans and counters of those steps (``utils/trace.py``: ``mdt.`` ranges
+    in the trace) summed in ``spans.json`` beside it."""
 
     def __init__(self, cf, logger, device):
         self.out_dir = os.path.join(cf.exp_dir, "profile")
@@ -163,7 +167,9 @@ class _StepProfiler:
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, "trace.json")
         self.prof.export_chrome_trace(path)
-        self.logger.info(f"profiler trace written to {path}")
+        with open(os.path.join(self.out_dir, "spans.json"), "w") as f:
+            json.dump(trace.summary(), f, indent=1)
+        self.logger.info(f"profiler trace and span summary written to {self.out_dir}")
         self.prof = None
 
 

@@ -30,6 +30,14 @@ rank's Y slab of each uploaded batch within its space group and give the
 single-process outputs on every rank of the group; after
 ``enable_spatial_parallel`` its train and validation steps do too, over a
 (data x space) grid, and equal the single-card step on the global batch.
+
+Every dispatch draws a request id (``utils/trace.py``) and returns its
+handles as ``Handles``: a tuple, opened as before, that carries the id as
+``rid``; the convert's spans take the id from the handles, so one step's or
+chunk's spans share it even with step i + 1 dispatched before step i is
+converted. The spans of the stages (``dispatch``, ``upload``, ``forward``,
+``losses``, ``backward``, ``update``, ``refine``, ``host_copies``,
+``convert``, ``wait``, ``assemble``) record only while tracing is on.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from medicaldetectiontoolkit_torch.ops.topk import top_k
+from medicaldetectiontoolkit_torch.utils import trace
 
 
 def default_device() -> torch.device:
@@ -60,6 +69,8 @@ def host_to_device(array, device: torch.device, dtype=np.float32) -> torch.Tenso
     wait for the previous batch's device work.
     """
     t = torch.from_numpy(np.ascontiguousarray(array, dtype=dtype))
+    trace.count("upload.bytes", t.nbytes)
+    trace.count("upload.calls", 1)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -95,6 +106,7 @@ def detections_to_box_results(cf, detections, det_mask, box_results_list=None):
     if box_results_list is None:
         box_results_list = [[] for _ in range(bsz)]
     ncoords = 2 * cf.dim
+    served = 0
     for b in range(bsz):
         for i in np.flatnonzero(det_mask[b]):
             coords = detections[b, i, :ncoords].astype(np.int32)
@@ -108,6 +120,8 @@ def detections_to_box_results(cf, detections, det_mask, box_results_list=None):
             box_results_list[b].append(
                 {"box_coords": coords, "box_score": score, "box_type": "det", "box_pred_class_id": class_id}
             )
+            served += 1
+    trace.count("detections", served)
     return box_results_list
 
 
@@ -176,13 +190,38 @@ def start_host_copies(tensors):
     waits for this work alone, not for work enqueued later on the stream.
     Returns (host tensors, event); CPU tensors come back as they are, with
     no event."""
-    if all(t is None or t.device.type == "cpu" for t in tensors):
-        return list(tensors), None
-    host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-            for t in tensors]
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+    with trace.span("host_copies"):
+        if all(t is None or t.device.type == "cpu" for t in tensors):
+            return list(tensors), None
+        host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                for t in tensors]
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+
+class Handles(tuple):
+    """A dispatch's handles: the tuple its convert takes, with the request
+    id of the dispatch's spans as ``rid`` (``utils/trace.py``)."""
+
+    def __new__(cls, rid: int, items):
+        handles = super().__new__(cls, items)
+        handles.rid = rid
+        return handles
+
+
+def convert_span(handles):
+    """The ``convert`` span of a dispatch's handles, under their request id
+    (None for handles made by hand)."""
+    return trace.span("convert", rid=getattr(handles, "rid", None))
+
+
+def wait_for(event, what: str):
+    """Block until ``event`` (``start_host_copies``' event) has completed,
+    inside a ``wait`` span; no event (CPU tensors) waits for nothing."""
+    if event is not None:
+        with trace.span("wait", what=what):
+            event.synchronize()
 
 
 def resolve_remat(cf) -> bool:
@@ -221,7 +260,8 @@ def accum_backward(params, loss_fn, n_micro: int):
     losses, auxs = [], []
     for i in range(n_micro):
         loss, aux = loss_fn(i)
-        loss.backward()
+        with trace.span("backward", device=loss.device):
+            loss.backward()
         losses.append(loss.detach())
         auxs.append(aux)
     for p in params:
@@ -401,14 +441,16 @@ class Detector:
         under spatial partitioning, run on this rank's slab of ``img``
         within its space group (``mesh.SpaceGroup.run``, a test forward);
         on one process plainly."""
-        return fn(img) if self.space is None else self.space.run(fn, img, self.cf)
+        with trace.span("forward", device=self.device):
+            return fn(img) if self.space is None else self.space.run(fn, img, self.cf)
 
     def _spatial_train(self, fn, img):
         """``_spatial`` for a train or validation step's forward, with
         autograd as the caller has it (``mesh.SpaceGroup.train``): the
         outputs come back gathered and the backward of the step's loss runs
         the slabs' backward collectives."""
-        return fn(img) if self.space is None else self.space.train(fn, img, self.cf)
+        with trace.span("forward", device=self.device):
+            return fn(img) if self.space is None else self.space.train(fn, img, self.cf)
 
     def _seg_space(self, y: int):
         """The SpaceGroup whose ranks each keep a Y slab of the P0 seg path
@@ -490,22 +532,30 @@ class Detector:
         detectors without one."""
         if seg_preds is None:
             return np.zeros((data_shape[0], 1) + tuple(data_shape[2:]), dtype=np.float32)
-        return self._seg_whole(seg_preds, data_shape[2]).cpu().numpy()
+        seg_preds = self._seg_whole(seg_preds, data_shape[2])
+        with trace.span("wait", what="seg_preds"):
+            return seg_preds.cpu().numpy()
 
     def test_forward_dispatch(self, batch, return_masks=True, **kwargs):
         """Enqueue the forward pass and detection refinement (and, for
         detectors with a mask head, the masks when ``return_masks``); return
         un-synchronised device tensors (nothing waits for the device until
-        convert)."""
+        convert) as ``Handles``."""
         with_masks = bool(return_masks)
-        with torch.inference_mode():
-            img = host_to_device(batch["data"], self.device)
-            return with_masks, self._forward(img, with_masks)
+        rid = trace.request()
+        with trace.span("dispatch", rid=rid, kind="test"), torch.inference_mode():
+            with trace.span("upload"):
+                img = host_to_device(batch["data"], self.device)
+            return Handles(rid, (with_masks, self._forward(img, with_masks)))
 
     def test_forward_convert(self, handles, batch, **kwargs):
-        with_masks, (det, det_mask, det_masks_raw, seg_preds) = handles
-        boxes = detections_to_box_results(self.cf, det.cpu().numpy(), det_mask.cpu().numpy())
-        seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape, with_masks)
+        with convert_span(handles):
+            with_masks, (det, det_mask, det_masks_raw, seg_preds) = handles
+            with trace.span("wait", what="detections"):  # a pageable copy: waits for every chunk queued before it
+                det_host, mask_host = det.cpu().numpy(), det_mask.cpu().numpy()
+            with trace.span("assemble"):
+                boxes = detections_to_box_results(self.cf, det_host, mask_host)
+                seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape, with_masks)
         return {"boxes": boxes, "seg_preds": seg}
 
     def test_forward(self, batch, **kwargs):
@@ -522,11 +572,12 @@ class Detector:
     def _update(self):
         """One Adam step at ``current_lr``, on the gradients summed over the
         ranks in a data-parallel run."""
-        if self.dp is not None:
-            self.dp.reduce_gradients(list(self.module.parameters()))
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.current_lr
-        self.optimizer.step()
+        with trace.span("update", device=self.device):
+            if self.dp is not None:
+                self.dp.reduce_gradients(list(self.module.parameters()))
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.current_lr
+            self.optimizer.step()
 
     def train_forward(self, batch, is_validation: bool = False, do_update: bool = True,
                       need_seg_preds: bool = True):

@@ -38,6 +38,7 @@ from medicaldetectiontoolkit_torch.models import base, register
 from medicaldetectiontoolkit_torch.models.backbone import FPN, ConvND, init_weights
 from medicaldetectiontoolkit_torch.ops import losses as loss_ops
 from medicaldetectiontoolkit_torch.parallel import mesh
+from medicaldetectiontoolkit_torch.utils import trace
 
 
 class SegUNetModule(nn.Module):
@@ -150,7 +151,8 @@ class DetectionUNetDetector(base.Detector):
     def _losses(self, img, seg):
         """(loss, detached softmax, whole along Y) of one (micro)batch."""
         seg_logits = self._spatial_train(self.module, img)  # this rank's Y slab under spatial partitioning
-        loss = self._seg_loss(seg_logits, seg, self._seg_space(img.shape[2]))
+        with trace.span("losses", device=self.device):
+            loss = self._seg_loss(seg_logits, seg, self._seg_space(img.shape[2]))
         return loss, self._seg_whole(channel_softmax(seg_logits.detach()), img.shape[2])
 
     def _prep(self, batch):
@@ -191,6 +193,7 @@ class DetectionUNetDetector(base.Detector):
                             "box_pred_class_id": cl,
                             "box_type": "det",
                         })
+        trace.count("detections", sum(map(len, box_results_list)))
         return box_results_list
 
     # ---- host API -------------------------------------------------------
@@ -198,32 +201,37 @@ class DetectionUNetDetector(base.Detector):
         """Enqueue one step (the update unless validating) and the host
         copies of its loss and softmax; return handles nothing has waited
         for yet."""
-        img, seg = self._prep(batch)
         validating = is_validation or not do_update
-        with self.data_parallel_step(self.step_layout(img.shape[0], 1 if validating else None)[0]):
-            if validating:
-                with torch.no_grad():
-                    loss, smax = self._losses(img, seg)
-            else:
-                loss, smax = self._accumulate(img, seg)
-                self._update()
-        host, copied = base.start_host_copies([loss.detach(), smax])
-        return host[0], host[1], copied
+        rid = trace.request()
+        with trace.span("dispatch", rid=rid, kind="val" if validating else "train"):
+            with trace.span("upload"):
+                img, seg = self._prep(batch)
+            with self.data_parallel_step(self.step_layout(img.shape[0], 1 if validating else None)[0]):
+                if validating:
+                    with torch.no_grad():
+                        loss, smax = self._losses(img, seg)
+                else:
+                    loss, smax = self._accumulate(img, seg)
+                    self._update()
+            host, copied = base.start_host_copies([loss.detach(), smax])
+        return base.Handles(rid, (host[0], host[1], copied))
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
         """One step's handles -> the reference results dict. The boxes
         derive from the softmax volume, so it is read whatever
         ``need_seg_preds`` says."""
         loss, smax, copied = handles
-        if copied is not None:
-            copied.synchronize()
-        smax = smax.numpy()
-        boxes = self._boxes_from_softmax(smax)
-        base.add_gt_boxes_to_results(batch, boxes)
+        with base.convert_span(handles):
+            base.wait_for(copied, "host copies")
+            with trace.span("assemble"):
+                smax = smax.numpy()
+                boxes = self._boxes_from_softmax(smax)
+                base.add_gt_boxes_to_results(batch, boxes)
+                seg = np.argmax(smax, axis=1)[:, None].astype("uint8")
         loss = float(loss)
         return {
             "boxes": boxes,
-            "seg_preds": np.argmax(smax, axis=1)[:, None].astype("uint8"),
+            "seg_preds": seg,
             "loss": loss,
             "torch_loss": loss,
             "monitor_values": {"loss": loss},
@@ -233,16 +241,19 @@ class DetectionUNetDetector(base.Detector):
     def test_forward_dispatch(self, batch, **kwargs):
         """Enqueue the forward, its softmax (joined along Y under spatial
         partitioning) and the softmax's host copy."""
-        with torch.inference_mode():
-            img = base.host_to_device(batch["data"], self.device)
+        rid = trace.request()
+        with trace.span("dispatch", rid=rid, kind="test"), torch.inference_mode():
+            with trace.span("upload"):
+                img = base.host_to_device(batch["data"], self.device)
             smax = self._seg_whole(channel_softmax(self._spatial(self.module, img)), img.shape[2])
             host, copied = base.start_host_copies([smax])
-        return host[0], copied
+        return base.Handles(rid, (host[0], copied))
 
     def test_forward_convert(self, handles, batch, **kwargs):
         smax, copied = handles
-        if copied is not None:
-            copied.synchronize()
-        smax = smax.numpy()
-        return {"boxes": self._boxes_from_softmax(smax),
-                "seg_preds": np.argmax(smax, axis=1)[:, None].astype("uint8")}
+        with base.convert_span(handles):
+            base.wait_for(copied, "host copies")
+            with trace.span("assemble"):
+                smax = smax.numpy()
+                return {"boxes": self._boxes_from_softmax(smax),
+                        "seg_preds": np.argmax(smax, axis=1)[:, None].astype("uint8")}

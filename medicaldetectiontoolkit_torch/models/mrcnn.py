@@ -64,6 +64,7 @@ from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
 from medicaldetectiontoolkit_torch.ops.losses import softmax
 from medicaldetectiontoolkit_torch.ops.topk import top_k
 from medicaldetectiontoolkit_torch.parallel import mesh
+from medicaldetectiontoolkit_torch.utils import trace
 
 
 class RPNHead(nn.Module):
@@ -194,7 +195,8 @@ def roi_levels(boxes_norm, pyramid_levels):
     h = boxes_norm[:, 2] - boxes_norm[:, 0]
     w = boxes_norm[:, 3] - boxes_norm[:, 1]
     hw = torch.clamp_min(h * w, 1e-12)
-    log2 = torch.tensor(math.log(2.0), dtype=torch.float32, device=boxes_norm.device)
+    with trace.span("wait", what="log(2) to the card"):  # a pageable copy: the host waits for the queued work
+        log2 = torch.tensor(math.log(2.0), dtype=torch.float32, device=boxes_norm.device)
     level = torch.round(4.0 + torch.log(torch.sqrt(hw)) / log2).to(torch.int32)
     level = torch.clamp(level, pyramid_levels[0], pyramid_levels[-1])
     if len(pyramid_levels) == 5:
@@ -228,6 +230,8 @@ def proposal_layer(rpn_probs_fg, rpn_deltas, anchors, cf, proposal_count: int, n
     top_scores, order = top_k(rpn_probs_fg, k, dim=1)  # (b, k), lax.top_k's tie order
     deltas = torch.take_along_dim(rpn_deltas, order[..., None], dim=1) * std
     boxes = box_ops.clip_boxes(box_ops.apply_box_deltas(anchors[order], deltas), window)
+    trace.count("k1.lanes", boxes.shape[0])
+    trace.count("k1.candidates", boxes.shape[0] * k)
     keep_idx, keep_mask = nms_fn(boxes, top_scores, cf.rpn_nms_threshold, proposal_count)
 
     safe = keep_idx.long().clamp(0, k - 1)
@@ -270,6 +274,8 @@ def refine_detections(rois_norm, probs, deltas, batch_ix, cf, batch_size: int, n
     lane_valid = conf_ok[None, :] & (cand_batch[None, :] == lane_elem[:, None]) & (
         cand_class[None, :] == lane_class[:, None])
     n = cand_scores.shape[0]
+    trace.count("k1.lanes", n_lanes)
+    trace.count("k1.candidates", n_lanes * n)
     lane_idx, lane_mask = nms_fn(
         boxes.expand(n_lanes, n, 2 * dim), cand_scores.expand(n_lanes, n),
         cf.detection_nms_threshold, max_inst, valid=lane_valid,
@@ -379,7 +385,9 @@ def detection_target_layer(draws, proposals_norm, prop_valid, class_scores, gt_b
     pos_rois = torch.take_along_dim(proposals_norm, pos_idx[..., None], dim=1)
     roi_gt_boxes = torch.take_along_dim(gt_boxes_norm, assignment[..., None], dim=1)
     safe_gt = torch.where(pos_valid[..., None], roi_gt_boxes, pos_rois + 1e-3)
-    eps = torch.tensor([0.0, 0.0, 1e-3, 1e-3] + ([0.0, 1e-3] if dim == 3 else []), dtype=torch.float32, device=dev)
+    with trace.span("wait", what="eps to the card"):  # a pageable copy: the host waits for the queued work
+        eps = torch.tensor([0.0, 0.0, 1e-3, 1e-3] + ([0.0, 1e-3] if dim == 3 else []), dtype=torch.float32,
+                           device=dev)
     safe_rois = torch.where((box_ops.box_area(pos_rois) > 0)[..., None], pos_rois, pos_rois + eps)
     std = base.host_to_device(np.asarray(cf.bbox_std_dev), dev)
     deltas = torch.where(pos_valid[..., None], box_ops.box_refinement(safe_rois, safe_gt) / std, 0.0)
@@ -503,9 +511,10 @@ class MaskRCNNDetector(base.Detector):
         """(normalised proposals (b, P, 2d), out_proposals, valid) of the
         RPN heads (``mrcnn.py:526-534``); P is ``count``, by default
         ``post_nms_rois_inference``. No gradient flows through them."""
-        rpn_probs_fg = softmax(rpn_logits.detach())[..., 1]
-        return proposal_layer(rpn_probs_fg, rpn_deltas.detach(), self.anchors, self.cf,
-                              count or self.cf.post_nms_rois_inference, nms_fn=self.nms_fn)
+        with trace.span("proposals", device=self.device):
+            rpn_probs_fg = softmax(rpn_logits.detach())[..., 1]
+            return proposal_layer(rpn_probs_fg, rpn_deltas.detach(), self.anchors, self.cf,
+                                  count or self.cf.post_nms_rois_inference, nms_fn=self.nms_fn)
 
     def _second_stage_all(self, maps, rois_norm):
         """Classify every proposal in chunks of ``cf.roi_chunk_size`` RoIs
@@ -516,21 +525,25 @@ class MaskRCNNDetector(base.Detector):
         batch_ix = torch.arange(bsz, dtype=torch.int32, device=rois_norm.device).repeat_interleave(P)
         chunk = getattr(self.cf, "roi_chunk_size", None)
         R = flat_rois.shape[0]
-        if chunk and R > chunk:
-            pad = (-R) % chunk
-            rois_c = F.pad(flat_rois, (0, 0, 0, pad))
-            bix_c = F.pad(batch_ix, (0, pad))
-            outs = [self.module.classify_rois(maps, rois_c[i:i + chunk], bix_c[i:i + chunk], self.align_fn)
-                    for i in range(0, R + pad, chunk)]
-            logits = torch.cat([o[0] for o in outs])[:R]
-            bbox = torch.cat([o[1] for o in outs])[:R]
-        else:
-            logits, bbox = self.module.classify_rois(maps, flat_rois, batch_ix, self.align_fn)
+        with trace.span("classify_all", device=self.device):
+            if chunk and R > chunk:
+                pad = (-R) % chunk
+                trace.count("k2.slots", R + pad)
+                rois_c = F.pad(flat_rois, (0, 0, 0, pad))
+                bix_c = F.pad(batch_ix, (0, pad))
+                outs = [self.module.classify_rois(maps, rois_c[i:i + chunk], bix_c[i:i + chunk], self.align_fn)
+                        for i in range(0, R + pad, chunk)]
+                logits = torch.cat([o[0] for o in outs])[:R]
+                bbox = torch.cat([o[1] for o in outs])[:R]
+            else:
+                trace.count("k2.slots", R)
+                logits, bbox = self.module.classify_rois(maps, flat_rois, batch_ix, self.align_fn)
         return logits, bbox, flat_rois, batch_ix
 
     def _detections_and_masks(self, maps, flat_rois, batch_ix, logits, bbox, bsz, with_masks: bool):
         cf = self.cf
-        det, det_mask = refine_detections(flat_rois, softmax(logits), bbox, batch_ix, cf, bsz, nms_fn=self.nms_fn)
+        with trace.span("refine", device=self.device):
+            det, det_mask = refine_detections(flat_rois, softmax(logits), bbox, batch_ix, cf, bsz, nms_fn=self.nms_fn)
         det_masks_raw = self._masks(maps, det) if with_masks and self.module.mask is not None else None
         return det, det_mask, det_masks_raw
 
@@ -569,13 +582,16 @@ class MaskRCNNDetector(base.Detector):
         zero volume when no masks were asked for."""
         cf = self.cf
         if seg_preds is not None:
-            return self._seg_whole(seg_preds, data_shape[2]).cpu().numpy()
+            seg_preds = self._seg_whole(seg_preds, data_shape[2])
+            with trace.span("wait", what="seg_preds"):
+                return seg_preds.cpu().numpy()
         spatial = tuple(data_shape[2:])
         seg = np.zeros((data_shape[0], 1) + spatial, dtype=np.uint8)
         if det_masks_raw is None:
             return seg.astype(np.float32) if not with_masks else seg
-        det, det_mask = det.cpu().numpy(), det_mask.cpu().numpy()
-        masks = det_masks_raw.cpu().numpy()  # (b, max_inst, n_classes, *mask_shape)
+        with trace.span("wait", what="masks"):
+            det, det_mask = det.cpu().numpy(), det_mask.cpu().numpy()
+            masks = det_masks_raw.cpu().numpy()  # (b, max_inst, n_classes, *mask_shape)
         ncoords = 2 * cf.dim
         for b in range(det.shape[0]):
             full = np.zeros(spatial, dtype=np.float32)
@@ -653,57 +669,59 @@ class MaskRCNNDetector(base.Detector):
         rois_norm, out_proposals, prop_valid = self._proposals(rpn_logits, rpn_deltas, cf.post_nms_rois_training)
         with torch.no_grad():
             cls_logits_all, bbox_all, flat_rois, batch_ix = self._second_stage_all(maps, rois_norm)
+        with trace.span("losses", device=self.device):
+            # RPN losses on binary fg labels
+            rpn_match, rpn_tdeltas = match_ops.gt_anchor_matching(
+                match_rand, self.anchors, gt_boxes, torch.ones_like(gt_ids), gt_valid, cf.anchor_matching_iou,
+                neg_iou, cf.rpn_train_anchors_per_image, self.rpn_std)
+            rpn_class_losses, neg_sel = loss_ops.anchor_class_loss(
+                rpn_shem_rand, rpn_match, rpn_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
+            rpn_class_loss = mesh.batch_mean(rpn_class_losses)
+            rpn_bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(rpn_tdeltas, rpn_deltas, rpn_match))
 
-        # RPN losses on binary fg labels
-        rpn_match, rpn_tdeltas = match_ops.gt_anchor_matching(
-            match_rand, self.anchors, gt_boxes, torch.ones_like(gt_ids), gt_valid, cf.anchor_matching_iou, neg_iou,
-            cf.rpn_train_anchors_per_image, self.rpn_std)
-        rpn_class_losses, neg_sel = loss_ops.anchor_class_loss(
-            rpn_shem_rand, rpn_match, rpn_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
-        rpn_class_loss = mesh.batch_mean(rpn_class_losses)
-        rpn_bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(rpn_tdeltas, rpn_deltas, rpn_match))
+            # detection targets, then the heads on the sampled RoIs
+            probs_pe = softmax(cls_logits_all).reshape(bsz, -1, cls_logits_all.shape[-1])
+            with trace.span("targets", device=self.device):
+                s_rois, s_valid, s_class, s_deltas, s_masks, s_pos, s_mask_pos = detection_target_layer(
+                    (pos_rand, roi_shem_rand, neg_rand), rois_norm, prop_valid, probs_pe, gt_boxes / scale, gt_ids,
+                    gt_valid, gt_masks, cf, space=self.space)
+            S = s_rois.shape[1]
+            flat_s_rois = s_rois.reshape(-1, 2 * cf.dim)
+            s_bix = torch.arange(bsz, dtype=torch.int32, device=dev).repeat_interleave(S)
+            s_logits, s_bbox = self.module.classify_rois(maps, flat_s_rois, s_bix, self.align_fn)
+            flat_class, flat_pos = s_class.reshape(-1), s_pos.reshape(-1)
+            cls_loss = mrcnn_class_loss(flat_class, s_logits, s_valid.reshape(-1))
+            bbox_loss = mrcnn_bbox_loss(s_deltas.reshape(-1, 2 * cf.dim), s_bbox, flat_class, flat_pos)
+            mask_loss = torch.zeros((), device=dev)
+            if self.module.mask is not None:
+                s_pred_masks = self.module.mask_rois(maps, flat_s_rois, s_bix, self.align_fn)
+                mask_loss = mrcnn_mask_loss(s_masks.reshape(-1, *cf.mask_shape), s_pred_masks, flat_class,
+                                            s_mask_pos.reshape(-1))
 
-        # detection targets, then the heads on the sampled RoIs
-        probs_pe = softmax(cls_logits_all).reshape(bsz, -1, cls_logits_all.shape[-1])
-        s_rois, s_valid, s_class, s_deltas, s_masks, s_pos, s_mask_pos = detection_target_layer(
-            (pos_rand, roi_shem_rand, neg_rand), rois_norm, prop_valid, probs_pe, gt_boxes / scale, gt_ids, gt_valid,
-            gt_masks, cf, space=self.space)
-        S = s_rois.shape[1]
-        flat_s_rois = s_rois.reshape(-1, 2 * cf.dim)
-        s_bix = torch.arange(bsz, dtype=torch.int32, device=dev).repeat_interleave(S)
-        s_logits, s_bbox = self.module.classify_rois(maps, flat_s_rois, s_bix, self.align_fn)
-        flat_class, flat_pos = s_class.reshape(-1), s_pos.reshape(-1)
-        cls_loss = mrcnn_class_loss(flat_class, s_logits, s_valid.reshape(-1))
-        bbox_loss = mrcnn_bbox_loss(s_deltas.reshape(-1, 2 * cf.dim), s_bbox, flat_class, flat_pos)
-        mask_loss = torch.zeros((), device=dev)
-        if self.module.mask is not None:
-            s_pred_masks = self.module.mask_rois(maps, flat_s_rois, s_bix, self.align_fn)
-            mask_loss = mrcnn_mask_loss(s_masks.reshape(-1, *cf.mask_shape), s_pred_masks, flat_class,
-                                        s_mask_pos.reshape(-1))
-
-        loss = rpn_class_loss + rpn_bbox_loss + cls_loss + bbox_loss + mask_loss
-        monitor = {"loss": loss, "class_loss": cls_loss, "rpn_class_loss": rpn_class_loss,
-                   "rpn_bbox_loss": rpn_bbox_loss, "mrcnn_bbox_loss": bbox_loss, "mrcnn_mask_loss": mask_loss}
-        if seg_logits is not None:
-            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
-                                                       space=self._seg_space(img.shape[2]))
-            loss = loss + (seg_dice + seg_ce) / 2.0
-            monitor.update({"seg_dice_loss": seg_dice, "loss": loss})
-        max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
-        aux = {
-            "maps": [m.detach() for m in maps] if with_masks else None,
-            "flat_rois": flat_rois,
-            "batch_ix": batch_ix,
-            "cls_logits_all": cls_logits_all,
-            "bbox_all": bbox_all,
-            "seg_logits": None if seg_logits is None else seg_logits.detach(),
-            "out_proposals": out_proposals,
-            "anchor_info": base.compact_anchor_indices(rpn_match, neg_sel, max_half, max_half),
-            "sampled_rois": s_rois,
-            "sampled_valid": s_valid,
-            "sampled_class": s_class,
-            "monitor": {k: v.detach() for k, v in monitor.items()},
-        }
+            loss = rpn_class_loss + rpn_bbox_loss + cls_loss + bbox_loss + mask_loss
+            monitor = {"loss": loss, "class_loss": cls_loss, "rpn_class_loss": rpn_class_loss,
+                       "rpn_bbox_loss": rpn_bbox_loss, "mrcnn_bbox_loss": bbox_loss, "mrcnn_mask_loss": mask_loss}
+            if seg_logits is not None:
+                seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
+                                                           space=self._seg_space(img.shape[2]))
+                loss = loss + (seg_dice + seg_ce) / 2.0
+                monitor.update({"seg_dice_loss": seg_dice, "loss": loss})
+            max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
+            aux = {
+                "maps": [m.detach() for m in maps] if with_masks else None,
+                "flat_rois": flat_rois,
+                "batch_ix": batch_ix,
+                "cls_logits_all": cls_logits_all,
+                "bbox_all": bbox_all,
+                "seg_logits": None if seg_logits is None else seg_logits.detach(),
+                "out_proposals": out_proposals,
+                "prop_valid": prop_valid,
+                "anchor_info": base.compact_anchor_indices(rpn_match, neg_sel, max_half, max_half),
+                "sampled_rois": s_rois,
+                "sampled_valid": s_valid,
+                "sampled_class": s_class,
+                "monitor": {k: v.detach() for k, v in monitor.items()},
+            }
         return loss, aux
 
     def _finalize(self, aux, bsz: int, with_masks: bool = False):
@@ -741,7 +759,7 @@ class MaskRCNNDetector(base.Detector):
             return None if parts[0] is None else torch.cat(parts)
 
         outs = dict(zip(("det", "det_mask", "det_masks_raw", "seg_preds"), (cat(parts) for parts in zip(*fin))))
-        for key in ("out_proposals", "sampled_rois", "sampled_valid", "sampled_class"):
+        for key in ("out_proposals", "prop_valid", "sampled_rois", "sampled_valid", "sampled_class"):
             outs[key] = cat([a[key] for a in auxs])
         outs["anchor_info"] = [cat(parts) for parts in zip(*(a["anchor_info"] for a in auxs))]
         monitor = {k: torch.stack([a["monitor"][k] for a in auxs]).mean() for k in auxs[0]["monitor"]}
@@ -753,27 +771,33 @@ class MaskRCNNDetector(base.Detector):
         sampled anchors, proposals and RoIs, detections); return handles that
         nothing has waited for yet. Validation returns masks when
         ``cf.return_masks_in_val``."""
-        inputs = self._prep(batch)
-        bsz = inputs[0].shape[0]
         with_masks = bool(self.cf.return_masks_in_val) if is_validation else False
         validating = is_validation or not do_update
-        n_micro, m = self.step_layout(bsz, 1 if validating else None)
-        draws = self.step_draws(n_micro, m)
-        with self.data_parallel_step(n_micro):
-            if validating:
-                with torch.no_grad():
-                    _, aux = self._losses(inputs, [d[0] for d in draws], with_masks)
-                monitor, outs = self._merge([aux], bsz, with_masks)
-            else:
-                _, auxs = self._accumulate(inputs, draws)
-                self._update()
-                monitor, outs = self._merge(auxs, bsz // n_micro)
-        keys = list(monitor)
-        small = ["det", "det_mask", "out_proposals", "sampled_rois", "sampled_valid", "sampled_class"]
-        host, copied = base.start_host_copies([*monitor.values(), *outs["anchor_info"], *(outs[k] for k in small)])
+        rid = trace.request()
+        with trace.span("dispatch", rid=rid, kind="val" if validating else "train"):
+            with trace.span("upload"):
+                inputs = self._prep(batch)
+            bsz = inputs[0].shape[0]
+            n_micro, m = self.step_layout(bsz, 1 if validating else None)
+            draws = self.step_draws(n_micro, m)
+            with self.data_parallel_step(n_micro):
+                if validating:
+                    with torch.no_grad():
+                        _, aux = self._losses(inputs, [d[0] for d in draws], with_masks)
+                    monitor, outs = self._merge([aux], bsz, with_masks)
+                else:
+                    _, auxs = self._accumulate(inputs, draws)
+                    self._update()
+                    monitor, outs = self._merge(auxs, bsz // n_micro)
+            keys = list(monitor)
+            small = ["det", "det_mask", "out_proposals", "prop_valid", "sampled_rois", "sampled_valid",
+                     "sampled_class"]
+            host, copied = base.start_host_copies([*monitor.values(), *outs["anchor_info"],
+                                                   *(outs[k] for k in small)])
         n = len(keys)
-        return (tuple(inputs[0].shape), dict(zip(keys, host[:n])), host[n:n + 4], dict(zip(small, host[n + 4:])),
-                outs["det_masks_raw"], outs["seg_preds"], with_masks, copied)
+        return base.Handles(rid, (tuple(inputs[0].shape), dict(zip(keys, host[:n])), host[n:n + 4],
+                                  dict(zip(small, host[n + 4:])), outs["det_masks_raw"], outs["seg_preds"], with_masks,
+                                  copied))
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
         """One step's handles -> the reference results dict
@@ -782,28 +806,32 @@ class MaskRCNNDetector(base.Detector):
         / ``neg_class``, then the detections."""
         cf = self.cf
         img_shape, monitor, anchor_info, small, det_masks_raw, seg_preds, with_masks, copied = handles
-        if copied is not None:
-            copied.synchronize()
         bsz = img_shape[0]
-        boxes = [[] for _ in range(bsz)]
-        base.add_gt_boxes_to_results(batch, boxes)
-        base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:], boxes)
-        props = small["out_proposals"].numpy()
-        for b in range(bsz):
-            order = np.argsort(-props[b, :, -1])
-            for r in props[b][order][: getattr(cf, "n_plot_rpn_props", 5), :-1]:
-                boxes[b].append({"box_coords": r, "box_type": "prop"})
-        srois, svalid, sclass = (small[k].numpy() for k in ("sampled_rois", "sampled_valid", "sampled_class"))
-        for b in range(bsz):
-            for s in np.flatnonzero(svalid[b]):
-                boxes[b].append({"box_coords": srois[b, s] * np.asarray(cf.scale),
-                                 "box_type": "pos_class" if sclass[b, s] > 0 else "neg_class"})
-        det, det_mask = small["det"], small["det_mask"]
-        base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
-        if need_seg_preds:
-            seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape, with_masks)
-        else:  # skip the full-volume copy
-            seg = np.zeros((bsz, 1) + tuple(batch["data"].shape[2:]), dtype=np.float32)
+        with base.convert_span(handles):
+            base.wait_for(copied, "host copies")
+            with trace.span("assemble"):
+                boxes = [[] for _ in range(bsz)]
+                base.add_gt_boxes_to_results(batch, boxes)
+                base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:],
+                                                  boxes)
+                props = small["out_proposals"].numpy()
+                trace.count("proposals", int(np.count_nonzero(small["prop_valid"].numpy())))
+                for b in range(bsz):
+                    order = np.argsort(-props[b, :, -1])
+                    for r in props[b][order][: getattr(cf, "n_plot_rpn_props", 5), :-1]:
+                        boxes[b].append({"box_coords": r, "box_type": "prop"})
+                srois, svalid, sclass = (small[k].numpy() for k in ("sampled_rois", "sampled_valid", "sampled_class"))
+                for b in range(bsz):
+                    for s in np.flatnonzero(svalid[b]):
+                        boxes[b].append({"box_coords": srois[b, s] * np.asarray(cf.scale),
+                                         "box_type": "pos_class" if sclass[b, s] > 0 else "neg_class"})
+                det, det_mask = small["det"], small["det_mask"]
+                base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
+                if need_seg_preds:
+                    seg = self._make_seg_preds(det, det_mask, det_masks_raw, seg_preds, batch["data"].shape,
+                                               with_masks)
+                else:  # skip the full-volume copy
+                    seg = np.zeros((bsz, 1) + tuple(batch["data"].shape[2:]), dtype=np.float32)
         monitor = {k: float(v) for k, v in monitor.items()}
         return {
             "boxes": boxes,

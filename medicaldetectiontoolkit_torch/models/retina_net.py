@@ -44,6 +44,7 @@ from medicaldetectiontoolkit_torch.ops import matching as match_ops
 from medicaldetectiontoolkit_torch.ops import nms as nms_ops
 from medicaldetectiontoolkit_torch.ops.topk import top_k
 from medicaldetectiontoolkit_torch.parallel import mesh
+from medicaldetectiontoolkit_torch.utils import trace
 
 
 class DenseHead(nn.Module):
@@ -143,6 +144,8 @@ def refine_detections(anchors, class_logits, pred_deltas, cf, nms_fn=nms_ops.bat
     # one NMS lane per (element, class); boxes and scores are broadcast to
     # every lane (stride 0), the lane's own candidates marked valid
     n_lanes = bsz * n_fg
+    trace.count("k1.lanes", n_lanes)
+    trace.count("k1.candidates", n_lanes * k)
     lane_elem = torch.arange(bsz, device=dev).repeat_interleave(n_fg)
     lane_class = torch.arange(1, C, device=dev).repeat(bsz)
     lane_valid = (cand_elem[None, :] == lane_elem[:, None]) & (cand_class[None, :] == lane_class[:, None])
@@ -213,7 +216,8 @@ class RetinaNetDetector(base.Detector):
         return self._spatial(self.module, img)
 
     def _finalize_outputs(self, class_logits, bb_deltas, seg_logits):
-        det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf, nms_fn=self.nms_fn)
+        with trace.span("refine", device=self.device):
+            det, det_mask = refine_detections(self.anchors, class_logits, bb_deltas, self.cf, nms_fn=self.nms_fn)
         seg_preds = None
         if seg_logits is not None:  # (b, 1, *spatial); a Y slab under spatial partitioning
             seg_preds = torch.argmax(seg_logits, dim=1, keepdim=True).to(torch.uint8)
@@ -247,27 +251,28 @@ class RetinaNetDetector(base.Detector):
         cf = self.cf
         class_logits, bb_deltas, seg_logits = self._spatial_train(self.module, img)  # heads gathered along Y
         neg_iou = 0.1 if cf.dim == 2 else 0.01
-        matches, tdeltas = match_ops.gt_anchor_matching(
-            match_rand, self.anchors, gt_boxes, gt_ids, gt_valid, cf.anchor_matching_iou, neg_iou,
-            cf.rpn_train_anchors_per_image, self.bbox_std)
-        class_losses, neg_sel = loss_ops.anchor_class_loss(
-            shem_rand, matches, class_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
-        class_loss = mesh.batch_mean(class_losses)
-        bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(tdeltas, bb_deltas, matches))
-        loss = class_loss + bbox_loss
-        monitor = {"class_loss": class_loss, "bbox_loss": bbox_loss}
-        if seg_logits is not None:
-            seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
-                                                       space=self._seg_space(img.shape[2]))
-            loss = loss + (seg_dice + seg_ce) / 2.0
-            monitor.update({"seg_dice_loss": seg_dice, "seg_ce_loss": seg_ce})
-        monitor["loss"] = loss
-        max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
-        aux = {
-            "heads": tuple(None if h is None else h.detach() for h in (class_logits, bb_deltas, seg_logits)),
-            "anchor_info": base.compact_anchor_indices(matches, neg_sel, max_half, max_half),
-            "monitor": {k: v.detach() for k, v in monitor.items()},
-        }
+        with trace.span("losses", device=self.device):
+            matches, tdeltas = match_ops.gt_anchor_matching(
+                match_rand, self.anchors, gt_boxes, gt_ids, gt_valid, cf.anchor_matching_iou, neg_iou,
+                cf.rpn_train_anchors_per_image, self.bbox_std)
+            class_losses, neg_sel = loss_ops.anchor_class_loss(
+                shem_rand, matches, class_logits, cf.shem_poolsize, cf.rpn_train_anchors_per_image // 2)
+            class_loss = mesh.batch_mean(class_losses)
+            bbox_loss = mesh.batch_mean(loss_ops.anchor_bbox_loss(tdeltas, bb_deltas, matches))
+            loss = class_loss + bbox_loss
+            monitor = {"class_loss": class_loss, "bbox_loss": bbox_loss}
+            if seg_logits is not None:
+                seg_dice, seg_ce = loss_ops.fused_seg_loss(seg_logits, seg, cf.num_seg_classes,
+                                                           space=self._seg_space(img.shape[2]))
+                loss = loss + (seg_dice + seg_ce) / 2.0
+                monitor.update({"seg_dice_loss": seg_dice, "seg_ce_loss": seg_ce})
+            monitor["loss"] = loss
+            max_half = max(cf.rpn_train_anchors_per_image // 2, 1)
+            aux = {
+                "heads": tuple(None if h is None else h.detach() for h in (class_logits, bb_deltas, seg_logits)),
+                "anchor_info": base.compact_anchor_indices(matches, neg_sel, max_half, max_half),
+                "monitor": {k: v.detach() for k, v in monitor.items()},
+            }
         return loss, aux
 
     def _accumulate(self, inputs, draws):
@@ -290,34 +295,43 @@ class RetinaNetDetector(base.Detector):
         refinement of its heads and the host copies of its small results
         (monitor values, sampled anchors, detections); return handles that
         nothing has waited for yet."""
-        inputs = self._prep(batch)
         validating = is_validation or not do_update
-        n_micro, m = self.step_layout(inputs[0].shape[0], 1 if validating else None)
-        draws = self.step_draws(n_micro, m)
-        with self.data_parallel_step(n_micro):
-            if validating:
+        rid = trace.request()
+        with trace.span("dispatch", rid=rid, kind="val" if validating else "train"):
+            with trace.span("upload"):
+                inputs = self._prep(batch)
+            n_micro, m = self.step_layout(inputs[0].shape[0], 1 if validating else None)
+            draws = self.step_draws(n_micro, m)
+            with self.data_parallel_step(n_micro):
+                if validating:
+                    with torch.no_grad():
+                        _, aux = self._losses_and_outputs(*inputs, *(d[0] for d in draws))
+                else:
+                    _, aux = self._accumulate(inputs, draws)
+                    self._update()
                 with torch.no_grad():
-                    _, aux = self._losses_and_outputs(*inputs, *(d[0] for d in draws))
-            else:
-                _, aux = self._accumulate(inputs, draws)
-                self._update()
-            with torch.no_grad():
-                det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
-        keys = list(aux["monitor"])
-        host, copied = base.start_host_copies([*aux["monitor"].values(), *aux["anchor_info"], det, det_mask])
-        return tuple(inputs[0].shape), dict(zip(keys, host)), host[len(keys):-2], host[-2], host[-1], seg_preds, copied
+                    det, det_mask, seg_preds = self._finalize_outputs(*aux["heads"])
+            keys = list(aux["monitor"])
+            host, copied = base.start_host_copies([*aux["monitor"].values(), *aux["anchor_info"], det, det_mask])
+        return base.Handles(rid, (tuple(inputs[0].shape), dict(zip(keys, host)), host[len(keys):-2], host[-2],
+                                  host[-1], seg_preds, copied))
 
     def train_forward_convert(self, handles, batch, need_seg_preds: bool = True):
         """One step's handles -> the reference results dict
         (``retina_net.py:386-417``), waiting for that step's host copies."""
         cf = self.cf
         img_shape, monitor, anchor_info, det, det_mask, seg_preds, copied = handles
-        if copied is not None:
-            copied.synchronize()
-        boxes = [[] for _ in range(img_shape[0])]
-        base.add_gt_boxes_to_results(batch, boxes)
-        base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:], boxes)
-        base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
+        with base.convert_span(handles):
+            base.wait_for(copied, "host copies")
+            with trace.span("assemble"):
+                boxes = [[] for _ in range(img_shape[0])]
+                base.add_gt_boxes_to_results(batch, boxes)
+                base.add_anchor_boxes_to_results(self.np_anchors, [t.numpy() for t in anchor_info], img_shape[2:],
+                                                  boxes)
+                base.detections_to_box_results(cf, det.numpy(), det_mask.numpy(), boxes)
+                # need_seg_preds=False skips the full-volume copy
+                seg = self._make_seg_preds(det, det_mask, None, seg_preds if need_seg_preds else None,
+                                           batch["data"].shape, True)
         monitor = {k: float(v) for k, v in monitor.items()}
         logger_string = "loss: {0:.2f}, class: {1:.2f}, bbox: {2:.2f}".format(
             monitor["loss"], monitor["class_loss"], monitor["bbox_loss"])
@@ -326,9 +340,7 @@ class RetinaNetDetector(base.Detector):
                 monitor["seg_dice_loss"], monitor["seg_ce_loss"])
         return {
             "boxes": boxes,
-            # need_seg_preds=False skips the full-volume copy
-            "seg_preds": self._make_seg_preds(det, det_mask, None, seg_preds if need_seg_preds else None,
-                                              batch["data"].shape, True),
+            "seg_preds": seg,
             "loss": monitor["loss"],
             "torch_loss": monitor["loss"],  # legacy key some callers expect
             "monitor_values": {"loss": monitor["loss"], "class_loss": monitor["class_loss"]},

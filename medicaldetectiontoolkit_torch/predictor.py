@@ -28,7 +28,9 @@ below that, or under ``MDT_NO_NATIVE=1``, their NumPy loops. ``Predictor.times``
 sums host seconds per stage: ``forward`` (dispatch and convert, ending in the
 device->host copies), ``patient`` (all of ``predict_patient``; the rest of it
 beyond ``forward`` is stitching: mirroring, seg averaging, box offsets) and
-``consolidation`` (WBC and 2D->3D merging).
+``consolidation`` (WBC and 2D->3D merging), kept by the spans
+``predictor.forward``, ``predictor.patient`` and ``predictor.consolidation``
+(``utils/trace.py``), which add to them whether tracing is on or off.
 
 In a data-parallel run (``parallel/mesh.py``) each rank predicts the whole
 patients of its slice on its own card, with no collective (``Detector.
@@ -46,7 +48,6 @@ from __future__ import annotations
 
 import os
 import pickle
-import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -54,6 +55,7 @@ import numpy as np
 
 from medicaldetectiontoolkit_torch import native
 from medicaldetectiontoolkit_torch.parallel import mesh
+from medicaldetectiontoolkit_torch.utils import trace
 from medicaldetectiontoolkit_torch.utils.exp_utils import load_checkpoint_state
 
 
@@ -87,11 +89,9 @@ class Predictor:
     def predict_patient(self, batch):
         """Predict one patient; in val mode also adds 3D GT + consolidates."""
         self.logger.info(f"evaluating patient {batch['pid']} for fold {getattr(self.cf, 'fold', 0)}")
-        t0 = time.perf_counter()
         self.patched_patient = "patch_crop_coords" in list(batch.keys())
-        with self.net.single_card():  # this rank's patient, whole on its card
+        with trace.span("predictor.patient", into=self.times), self.net.single_card():  # whole on this rank's card
             results_dict = self.data_aug_forward(batch)
-        self.times["patient"] += time.perf_counter() - t0
 
         if self.mode == "val":
             for b in range(len(batch["patient_bb_target"])):
@@ -103,14 +103,13 @@ class Predictor:
                             "box_type": "gt",
                         }
                     )
-            t0 = time.perf_counter()
-            if self.patched_patient:
-                wcs_input = [results_dict["boxes"], "dummy_pid", self.cf.class_dict, self.cf.wcs_iou, self.n_ens]
-                results_dict["boxes"] = apply_wbc_to_patient(wcs_input)[0]
-            if self.cf.merge_2D_to_3D_preds:
-                merge_dims_inputs = [results_dict["boxes"], "dummy_pid", self.cf.class_dict, self.cf.merge_3D_iou]
-                results_dict["boxes"] = merge_2D_to_3D_preds_per_patient(merge_dims_inputs)[0]
-            self.times["consolidation"] += time.perf_counter() - t0
+            with trace.span("predictor.consolidation", into=self.times):
+                if self.patched_patient:
+                    wcs_input = [results_dict["boxes"], "dummy_pid", self.cf.class_dict, self.cf.wcs_iou, self.n_ens]
+                    results_dict["boxes"] = apply_wbc_to_patient(wcs_input)[0]
+                if self.cf.merge_2D_to_3D_preds:
+                    merge_dims_inputs = [results_dict["boxes"], "dummy_pid", self.cf.class_dict, self.cf.merge_3D_iou]
+                    results_dict["boxes"] = merge_2D_to_3D_preds_per_patient(merge_dims_inputs)[0]
 
         return results_dict
 
@@ -173,18 +172,18 @@ class Predictor:
             return mesh.gather_interleaved(self._consolidate(list_of_results_per_patient, self.n_ens), group)
 
     def _consolidate(self, list_of_results_per_patient, n_ens):
-        t0 = time.perf_counter()
-        self.logger.info(f"applying wcs to test set predictions with iou = {self.cf.wcs_iou} and n_ens = {n_ens}.")
-        mp_inputs = [[ii[0], ii[1], self.cf.class_dict, self.cf.wcs_iou, n_ens] for ii in list_of_results_per_patient]
-        with ThreadPoolExecutor(max_workers=6) as pool:
-            out = list(pool.map(apply_wbc_to_patient, mp_inputs))
-
-        if self.cf.merge_2D_to_3D_preds:
-            self.logger.info(f"applying 2Dto3D merging to test set predictions with iou = {self.cf.merge_3D_iou}.")
-            mp_inputs = [[ii[0], ii[1], self.cf.class_dict, self.cf.merge_3D_iou] for ii in out]
+        with trace.span("predictor.consolidation", into=self.times):
+            self.logger.info(f"applying wcs to test set predictions with iou = {self.cf.wcs_iou} and n_ens = {n_ens}.")
+            mp_inputs = [[ii[0], ii[1], self.cf.class_dict, self.cf.wcs_iou, n_ens]
+                         for ii in list_of_results_per_patient]
             with ThreadPoolExecutor(max_workers=6) as pool:
-                out = list(pool.map(merge_2D_to_3D_preds_per_patient, mp_inputs))
-        self.times["consolidation"] += time.perf_counter() - t0
+                out = list(pool.map(apply_wbc_to_patient, mp_inputs))
+
+            if self.cf.merge_2D_to_3D_preds:
+                self.logger.info(f"applying 2Dto3D merging to test set predictions with iou = {self.cf.merge_3D_iou}.")
+                mp_inputs = [[ii[0], ii[1], self.cf.class_dict, self.cf.merge_3D_iou] for ii in out]
+                with ThreadPoolExecutor(max_workers=6) as pool:
+                    out = list(pool.map(merge_2D_to_3D_preds_per_patient, mp_inputs))
         return out
 
     def load_saved_predictions(self, apply_wbc=False):
@@ -371,10 +370,8 @@ class Predictor:
         """Chunk oversized patch batches into batch_size chunks (padded so the
         device function compiles once per patient shape)."""
         self.logger.info(f"forwarding (patched) patient with shape: {batch['data'].shape}")
-        t0 = time.perf_counter()
-        results_dict = self._batch_tiling_forward(batch)
-        self.times["forward"] += time.perf_counter() - t0
-        return results_dict
+        with trace.span("predictor.forward", into=self.times):
+            return self._batch_tiling_forward(batch)
 
     def _batch_tiling_forward(self, batch):
         img = batch["data"]

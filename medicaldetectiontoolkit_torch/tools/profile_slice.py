@@ -8,12 +8,12 @@ CUDA card.
 For float32 and bfloat16, on the 3D Retina U-Net slice (``make_slice_config``)
 or the 3D Mask R-CNN slice (``make_mrcnn_slice_config``), batch 8, random
 weights from seed 0:
-  * stage times per chunk, CUDA-event means over the chunks. Retina U-Net:
-    upload, ``_predict`` (FPN + heads), ``_finalize_outputs``
-    (refine_detections + seg argmax), and the stable sort of the batch's
-    foreground scores alone. Mask R-CNN: upload, FPN + RPN, proposal layer,
-    classify-all, refine, mask pass; and the host time of converting one
-    chunk (detections and the unmolded mask union);
+  * stage times per chunk from the program's own spans (``utils/trace.py``)
+    over one window of the public dispatch and convert: each stage's device
+    ms from its CUDA-event pair (``forward``; ``refine``; Mask R-CNN's
+    ``proposals`` and ``classify_all``), the host ms of ``upload``,
+    ``convert`` and ``wait``, and the counters per chunk; for Retina U-Net
+    also the stable sort of the batch's foreground scores alone;
   * peak device memory of one chunk;
   * a ``torch.profiler`` trace of one pipelined window (every chunk
     dispatched, then converted): host wall and dispatch time, device span,
@@ -26,15 +26,14 @@ With ``--train``, the training slice (``make_train_slice_config``: 3D Retina
 U-Net at LIDC width, batch 2 x 4, remat; with ``--model mrcnn`` the Mask
 R-CNN slice, ``make_mrcnn_slice_config``, batch 8 as one microbatch, remat;
 with ``--model detection_unet`` the Detection U-Net slice,
-``make_det_unet_slice_config``, the same layout, whose "refine" stage is the
-softmax's copy to the host, queued as its dispatch queues it, and whose
-profiled steps include the host's connected components in each convert)
-with ``MDT_STEM_PALLAS`` set to
-``--stem`` (default 1: the stem kernels K3/K4): per-step CUDA-event stage
-times (upload, forward + loss and backward summed over the microbatches,
-optimizer, refine), the peak device memory of one step, and the profiler's
-view of three steps (host wall, device busy and idle share, device time per
-step by kernel class).
+``make_det_unet_slice_config``, the same layout, whose profiled steps
+include the host's connected components in each convert) with
+``MDT_STEM_PALLAS`` set to ``--stem`` (default 1: the stem kernels K3/K4):
+per-step stage times from the spans (device ms of ``forward``, ``losses``,
+``backward``, ``update``, ``refine`` and Mask R-CNN's ``proposals``,
+``classify_all``, ``targets``; host ms of ``upload``), the peak device memory
+of one step, and the profiler's view of three steps (host wall, device busy
+and idle share, device time per step by kernel class).
 """
 
 from __future__ import annotations
@@ -46,12 +45,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from medicaldetectiontoolkit_torch.models.base import (host_to_device, merge_microbatch_aux, resolve_grad_accum,
-                                                       start_host_copies)
-from medicaldetectiontoolkit_torch.models.mrcnn import refine_detections
-from medicaldetectiontoolkit_torch.ops.losses import softmax
 from medicaldetectiontoolkit_torch.tools.common import (run_window, setup_card, slice_batches, slice_net,
                                                          train_steps)
+from medicaldetectiontoolkit_torch.utils import trace
 
 # kernel-name substrings -> class, first match wins
 CLASSES = (
@@ -79,128 +75,40 @@ def kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def stage_times(net, batches):
-    """Mean CUDA-event ms per chunk of each stage, and the sort alone."""
-    sums = [0.0, 0.0, 0.0]
-    with torch.inference_mode():
-        for b in batches:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            img = host_to_device(b["data"], net.device)
-            ev[1].record()
-            heads = net._predict(img)
-            ev[2].record()
-            net._finalize_outputs(*heads)
-            ev[3].record()
-            torch.cuda.synchronize()
-            for i in range(3):
-                sums[i] += ev[i].elapsed_time(ev[i + 1])
-        n_fg = heads[0].shape[-1] - 1
-        flat = torch.rand(heads[0].shape[0] * heads[0].shape[1] * n_fg, device=net.device)
-        torch.sort(flat, descending=True, stable=True)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        torch.sort(flat, descending=True, stable=True)
-        ev[1].record()
+def span_stages(run, n: int):
+    """``run()`` with the program's tracing on, ending in a synchronise:
+    per span name (device ms, host ms) per unit of ``n``, and the counters
+    per unit."""
+    trace.enable()
+    try:
+        run()
         torch.cuda.synchronize()
-    return [s / len(batches) for s in sums], ev[0].elapsed_time(ev[1]), flat.numel()
+    finally:
+        trace.disable()
+    s = trace.summary()
+    stages = {name: (None if v["device_ms"] is None else v["device_ms"] / n, v["host_ms"] / n)
+              for name, v in s["spans"].items()}
+    return stages, {k: v / n for k, v in s["counters"].items()}
 
 
-MRCNN_STAGES = ("upload", "FPN + RPN", "proposal layer", "classify-all", "refine", "mask pass")
+def print_stages(dtype, unit, stages, counters):
+    timed = [(k, v[0]) for k, v in stages.items() if v[0] is not None]
+    print(f"[{dtype}] span device ms per {unit}: " + ", ".join(f"{k} {ms:.2f}" for k, ms in timed))
+    print(f"[{dtype}] span host ms per {unit}: " + ", ".join(f"{k} {v[1]:.2f}" for k, v in stages.items())
+          + "; counters per " + unit + ": " + ", ".join(f"{k} {v:g}" for k, v in counters.items()))
 
 
-def mrcnn_stage_times(net, batches):
-    """Mean CUDA-event ms per chunk of each Mask R-CNN stage, and the mean
-    host ms of converting one chunk's outputs."""
-    sums = [0.0] * len(MRCNN_STAGES)
-    convert = 0.0
-    cf = net.cf
-    with torch.inference_mode():
-        for b in batches:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(MRCNN_STAGES) + 1)]
-            ev[0].record()
-            img = host_to_device(b["data"], net.device)
-            ev[1].record()
-            maps, rpn_logits, rpn_deltas, _ = net.module.extract(img)
-            ev[2].record()
-            rois_norm, _, _ = net._proposals(rpn_logits, rpn_deltas)
-            ev[3].record()
-            logits, bbox, flat_rois, batch_ix = net._second_stage_all(maps, rois_norm)
-            ev[4].record()
-            det, det_mask = refine_detections(flat_rois, softmax(logits), bbox, batch_ix, cf, img.shape[0])
-            ev[5].record()
-            masks = net._masks(maps, det)
-            ev[6].record()
-            torch.cuda.synchronize()
-            for i in range(len(MRCNN_STAGES)):
-                sums[i] += ev[i].elapsed_time(ev[i + 1])
-            t0 = time.perf_counter()
-            net.test_forward_convert((True, (det, det_mask, masks, None)), b)
-            convert += time.perf_counter() - t0
-    return [s / len(batches) for s in sums], convert * 1e3 / len(batches)
-
-
-TRAIN_STAGES = ("upload", "forward + loss", "backward", "optimizer", "refine")
-
-
-def train_stage_times(net, batches):
-    """Mean CUDA-event ms per step of each training stage: the composition of
-    ``train_forward_dispatch`` with events between its parts (forward + loss
-    and backward summed over the microbatches; for Mask R-CNN "refine" is
-    the refinement per microbatch and the merge)."""
-    two_stage = hasattr(net, "_merge")
-    seg_only = not hasattr(net, "draws")  # Detection U-Net: no draws, no refinement
-    sums = dict.fromkeys(TRAIN_STAGES, 0.0)
-    params = list(net.module.parameters())
-    for b in batches:
-        marks = []
-
-        def mark(stage):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((stage, ev))
-
-        mark(None)
-        inputs = net._prep(b)
-        mark("upload")
-        bsz = inputs[0].shape[0]
-        n_micro = resolve_grad_accum(net.cf, bsz)
-        m = bsz // n_micro
-        draws = None if seg_only else net.draws(n_micro, m)
-        for p in params:
-            p.grad = None
-        auxs = []
-        for i in range(n_micro):
-            part = [None if t is None else t[i * m:(i + 1) * m] for t in inputs]
-            if seg_only:
-                loss, aux = net._losses(*part)
-            elif two_stage:
-                loss, aux = net._losses(part, [d[i] for d in draws])
-            else:
-                loss, aux = net._losses_and_outputs(*part, *(d[i] for d in draws))
-            mark("forward + loss")
-            loss.backward()
-            mark("backward")
-            auxs.append(aux)
-        for p in params:
-            if p.grad is None:  # not reached by the loss: zero, as accum_backward gives it
-                p.grad = torch.zeros_like(p)
-            else:
-                p.grad.div_(n_micro)
-        net._update()
-        mark("optimizer")
-        with torch.no_grad():
-            if seg_only:
-                start_host_copies([loss.detach(), torch.cat(auxs)])
-            elif two_stage:
-                net._merge(auxs, m)
-            else:
-                net._finalize_outputs(*merge_microbatch_aux(auxs)["heads"])
-        mark("refine")
-        torch.cuda.synchronize()
-        for (_, start), (stage, end) in zip(marks, marks[1:]):
-            sums[stage] += start.elapsed_time(end)
-    return {k: v / len(batches) for k, v in sums.items()}
+def sort_alone_ms(net, n_scores: int):
+    """CUDA-event ms of the stable sort of ``n_scores`` foreground scores
+    alone (the refinement's batch top-k)."""
+    flat = torch.rand(n_scores, device=net.device)
+    torch.sort(flat, descending=True, stable=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    torch.sort(flat, descending=True, stable=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
 
 
 def train_peak_memory_gib(net, batch):
@@ -278,9 +186,7 @@ def main_train(args):
         net = slice_net(dtype, model=model)
         net.current_lr = 1e-4
         train_steps(net, batches[:1])  # warm-up: cuDNN plans, kernel build and load
-        stages = train_stage_times(net, batches)
-        print(f"[{dtype}] CUDA-event stage ms per step of 8: "
-              + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; device total {sum(stages.values()):.2f}")
+        print_stages(dtype, "step of 8", *span_stages(lambda: train_steps(net, batches), len(batches)))
         print(f"[{dtype}] peak device memory, one step: {train_peak_memory_gib(net, batches[0]):.2f} GiB")
         table = (os.path.join(args.out_dir, f"profile_train_{args.model}_stem{args.stem}_{dtype}.txt")
                  if args.out_dir else None)
@@ -316,15 +222,10 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         net = slice_net(dtype, model=args.model)
         run_window(net, batches[:1])  # warm-up: cuDNN plans, kernel build and load
-        if args.model == "mrcnn":
-            stages, convert_ms = mrcnn_stage_times(net, batches)
-            print(f"[{dtype}] CUDA-event stage ms per chunk of 8: "
-                  + ", ".join(f"{n} {t:.2f}" for n, t in zip(MRCNN_STAGES, stages))
-                  + f"; device total {sum(stages):.2f}; host convert (detections + mask union) {convert_ms:.1f}")
-        else:
-            (up, pred, fin), sort_ms, n_sort = stage_times(net, batches)
-            print(f"[{dtype}] CUDA-event stage ms per chunk of 8: upload {up:.2f}, predict (FPN+heads) {pred:.2f}, "
-                  f"finalize (refine+seg argmax) {fin:.2f}; stable sort of {n_sort} scores alone {sort_ms:.2f}")
+        print_stages(dtype, "chunk of 8", *span_stages(lambda: run_window(net, batches), len(batches)))
+        if args.model == "retina_unet":
+            n_sort = len(net.anchors) * net.cf.batch_size * (net.cf.head_classes - 1)
+            print(f"[{dtype}] stable sort of {n_sort} scores alone {sort_alone_ms(net, n_sort):.2f} ms")
         print(f"[{dtype}] peak device memory, one chunk: {peak_memory_gib(net, batches[0]):.2f} GiB")
         t0 = time.perf_counter()
         table = os.path.join(args.out_dir, f"profile_{args.model}_{dtype}.txt") if args.out_dir else None

@@ -19,6 +19,7 @@
 """
 
 import copy
+import json
 import importlib.util
 import math
 import os
@@ -364,5 +365,12 @@ def test_serial_loop_gives_the_pipelined_results(tmp_path, monkeypatch):
         state = exp_utils.load_checkpoint_state(os.path.join(cf.exp_dir, "fold_0", "last_checkpoint"))
         outs[mode] = (out["monitor_metrics"], state)
         assert os.path.isfile(os.path.join(cf.exp_dir, "profile", "trace.json")) == (mode == "1")
+        if mode == "1":  # the program's spans: ranges in the trace, totals in spans.json beside it
+            with open(os.path.join(cf.exp_dir, "profile", "trace.json")) as f:
+                names = {e.get("name") for e in json.load(f)["traceEvents"]}
+            assert {"mdt.dispatch", "mdt.upload"} <= names
+            with open(os.path.join(cf.exp_dir, "profile", "spans.json")) as f:
+                spans = json.load(f)["spans"]
+            assert spans["dispatch"]["count"] >= 1 and spans["upload"]["count"] == spans["dispatch"]["count"]
         shutil.rmtree(os.path.join(root, "data"))
     assert_same(outs["0"], outs["1"])

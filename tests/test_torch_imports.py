@@ -45,6 +45,7 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.models.detection_unet",
     "medicaldetectiontoolkit_torch.utils",
     "medicaldetectiontoolkit_torch.utils.convert",
+    "medicaldetectiontoolkit_torch.utils.trace",
     "medicaldetectiontoolkit_torch.tools",
     "medicaldetectiontoolkit_torch.tools.common",
     "medicaldetectiontoolkit_torch.tools.profile_slice",
