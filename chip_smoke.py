@@ -54,6 +54,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      (14,14,5) on the 36-channel pyramid, float32 and bfloat16); each case
      twice, the runs within the atomics' tolerance; the launch alone, the
      wrapper, its host time per call and the bound;
+  3e. the conv weight-gradient kernel K5 vs its plain PyTorch version on the
+     card (the cases of ``tools/time_conv_wgrad.py``): the six largest weight
+     gradients of the LIDC training cells (timed: the launch alone, the
+     wrapper and its host time per call, the bound), then the mask head's
+     and classifier's shapes (4-byte copies, RoIs batched in a chunk), a
+     slab's padding (0, 1, 1), odd cout, the deepest level and a 1-channel
+     k 7 stem; each within ``time_conv_wgrad.TOL`` of the plain version's
+     max |dw| and bit-identical twice;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
@@ -73,7 +81,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      batch 2 x 4 accumulated, remat, 300 training anchors per image) with
      ``MDT_STEM_PALLAS=1``, float32 and bfloat16, through
      ``train_forward_dispatch``/``convert``: one warm-up step, three timed
-     steps; the K3, K4 and NMS counters rise by the counts derived per step;
+     steps; the K3, K4, K5 and NMS counters rise by the counts derived per
+     step (K5 62 per float32 microbatch, none in bfloat16);
      from the same weights and draws the cuDNN stem (the opt-in unset) gives
      the same loss and gradients within the stated tolerance, and both
      step times are printed; small 3D retina_unet, retina_net, mrcnn, ufrcnn
@@ -169,8 +178,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      within 1e-5 relative and gradients within 1e-3 of each tensor's max of
      the single-process step on the whole batch (phase 7b's tolerances), the
      two ranks' summed gradients bit-identical, and per rank and step the
-     launches Retina U-Net K1 1, K3 2, K4 1 and Mask R-CNN K1 2, K2 3, K2's
-     backward 2, K3 2, K4 1; ms per step per rank (two ranks sharing one
+     launches Retina U-Net K1 1, K3 2, K4 1, K5 62 and Mask R-CNN K1 2, K2 3,
+     K2's backward 2, K3 2, K4 1, K5 29; ms per step per rank (two ranks sharing one
      card: not a scaling figure), the gradient buffer's MB and its
      all-reduce's ms. 14b: ``exec --mode train_test`` through the
      data-parallel path at world size 1 over NCCL (the ``MDT_DIST_*`` triple
@@ -190,7 +199,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      voxels, Mask R-CNN's mask union within 1e-4 of its voxels; per rank and
      forward the launches K3 1 (on the haloed slab), K1 1 (Retina U-Net) or
      K1 2 and K2 for the classify-all chunks plus the mask pass (Mask R-CNN,
-     on the gathered levels); the halo and gather collectives' calls, bytes
+     on the gathered levels), and no K5; the halo and gather collectives' calls, bytes
      and ms (fenced by synchronises), the forward's ms (two ranks sharing one
      card: not a scaling figure) and the peak device memory per rank against
      one process. 15c: ``exec --mode test`` of one small patient over two
@@ -206,9 +215,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      float32, TF32 off, ``MDT_STEM_PALLAS=1``), held against the one-process
      step on the card (loss 1e-5 relative, gradients 1e-3 of each tensor's
      max: phase 7b's tolerances; the two ranks' gradients bit-identical);
-     per rank and step the launches K1 1, K3 2, K4 1 (Retina U-Net) and K1
-     2, K2 3, K2 bwd 2, K3 2, K4 1 (Mask R-CNN), K3 and K4 on the haloed
-     slab (phase 3c holds them at those shapes), K1, K2 and K2's backward on
+     per rank and step the launches K1 1, K3 2, K4 1, K5 62 (Retina U-Net),
+     K1 2, K2 3, K2 bwd 2, K3 2, K4 1, K5 29 (Mask R-CNN) and K3 2, K4 1, K5
+     18 (Detection U-Net), K3, K4 and K5 on the haloed slab (phase 3c holds
+     K3 and K4 at those shapes), K1, K2 and K2's backward on
      the gathered tensors; the forward and backward collectives' calls, MB
      and ms (fenced), ms per step (two ranks sharing one card: not a
      scaling figure) and the peak device memory per rank against one
@@ -402,6 +412,23 @@ def _check_stem(torch, np, common, stem_conv, stem_conv_cuda, time_stem, cases):
         del x, w, b, out, ref, g, dw, dw2, dw_ref
         torch.cuda.empty_cache()
     return entries, timings
+
+
+def _check_wgrad(torch, common, conv_wgrad, conv_wgrad_cuda, time_conv_wgrad):
+    """Phase 3e: K5 against its plain version on every case of
+    ``tools/time_conv_wgrad.py`` (``TOL`` of the plain version's max |dw|:
+    float32 sums of up to 8.4 M products in other orders), each twice
+    bit-identical; the six largest timed beside their bounds, the plain
+    version and cuDNN's ``conv3d_weight`` (benchmark mode off and on; a
+    yardstick the port never calls for these convs). Returns the kernels
+    line's entry (the out0 shape's times, cuDNN's with benchmark mode off as
+    ``library_ms``) and the timings."""
+    print(f"== phase 3e: conv weight-gradient kernel K5 vs plain PyTorch (tol {time_conv_wgrad.TOL:.0e} of max|dw|);"
+          f" twice bit-identical")
+    timings = time_conv_wgrad.check_cases(torch, common, conv_wgrad, conv_wgrad_cuda, time_conv_wgrad.wgrad_cases())
+    entry = dict(timings["out0_36to36"])
+    entry["library_ms"] = entry.pop("cudnn_ms")
+    return entry, timings
 
 
 def _check_results(np, results, cf, seg_dtype):
@@ -668,6 +695,7 @@ def _drive_train(torch, np, dtype, batches, common, kernels, card):
     difference of the bf16 stem output is carried through some 60 bf16
     layers."""
     from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
+    from medicaldetectiontoolkit_torch.ops import conv_wgrad_cuda
 
     print(f"== phase 7: retina_unet 3D training 128x128x64 sf18 ef36, batch 2 x 4, remat, MDT_STEM_PALLAS=1, {dtype}")
     os.environ["MDT_STEM_PALLAS"] = "1"
@@ -680,13 +708,17 @@ def _drive_train(torch, np, dtype, batches, common, kernels, card):
 
     for wrapper in kernels.values():
         wrapper.launches = 0
+    k5_before = conv_wgrad_cuda.conv3d_wgrad.launches  # the main path's running total (the kernels line)
     results, times = common.train_steps(net, batches)
     launches = {name: wrapper.launches for name, wrapper in kernels.items()}
+    launches["conv_wgrad"] = conv_wgrad_cuda.conv3d_wgrad.launches - k5_before
     n = len(batches)
-    expect = {"stem_fwd": 2 * n_micro * n, "stem_wgrad": n_micro * n, "nms": n}
+    k5 = K5_PER_STEP["retina_unet"] if dtype == "float32" else 0
+    expect = {"stem_fwd": 2 * n_micro * n, "stem_wgrad": n_micro * n, "nms": n, "conv_wgrad": k5 * n_micro * n}
     print(f"  expected launches over {n} steps of {n_micro} microbatches: K3 2 per microbatch (its forward and "
           f"the remat recompute in the backward) = {expect['stem_fwd']}, K4 1 per microbatch = "
-          f"{expect['stem_wgrad']}, K1 1 per step (refinement of the merged heads) = {expect['nms']}")
+          f"{expect['stem_wgrad']}, K1 1 per step (refinement of the merged heads) = {expect['nms']}, K5 {k5} per "
+          f"microbatch (the gate takes float32 with TF32 off) = {expect['conv_wgrad']}")
     print(f"  counted: {launches}")
     if launches != expect:
         raise AssertionError(f"expected kernel launches {expect}, counted {launches}")
@@ -1754,6 +1786,16 @@ def _drive_petct(torch, np, common, counters, card, root):
 
 
 DP_MODELS = ("retina_unet", "mrcnn")
+# K5 launches of one float32 training step (one microbatch, TF32 off) of the
+# LIDC-topology models: the convs ``conv_wgrad.admits`` takes (3D, stride 1,
+# a kernel larger than 1 voxel; not the cin-1 stem, which K4 takes under
+# MDT_STEM_PALLAS=1), each once: Retina U-Net 32 layers with its two heads'
+# 10 on 4 pyramid levels (62; the strided 7x7x7 stem keeps cuDNN), Mask
+# R-CNN 26 layers with the RPN's conv on 4 levels (29), Detection U-Net 18
+# of its 22 (the FPN's four pyramid outputs feed no loss, so run no
+# backward). The same per rank on a data-parallel rank's rows and on a spatial
+# rank's slab (``tests/test_torch_conv_wgrad.py`` counts them on the CPU).
+K5_PER_STEP = {"retina_unet": 62, "mrcnn": 29, "detection_unet": 18}
 
 
 def _dp_config(model):
@@ -1772,11 +1814,12 @@ def _dp_config(model):
 
 
 def _dp_counters():
-    from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv_cuda
+    from medicaldetectiontoolkit_torch.ops import conv_wgrad_cuda, nms_cuda, roi_align_cuda, stem_conv_cuda
 
     return {"stem_fwd": stem_conv_cuda.stem_conv3d, "stem_wgrad": stem_conv_cuda.stem_wgrad,
             "nms": nms_cuda.batched_nms, "roi_align": roi_align_cuda.pyramid_roi_align,
-            "roi_align_bwd": roi_align_cuda.pyramid_roi_align_backward}
+            "roi_align_bwd": roi_align_cuda.pyramid_roi_align_backward,
+            "conv_wgrad": conv_wgrad_cuda.conv3d_wgrad}
 
 
 def _reduce_ms(torch, net, params, iters=5):
@@ -1842,9 +1885,10 @@ def _drive_data_parallel(torch, np, common, counters, card, root):
     8, held against the single-process step on the whole batch (loss 1e-5
     relative, gradients 1e-3 of each tensor's max: phase 7b's tolerances;
     the two ranks' summed gradients bit-identical), with each rank's kernel
-    launches counted. 14b: ``exec --mode train_test`` through the
-    data-parallel path at world size 1 over NCCL (the ``MDT_DIST_*`` triple)
-    on phase 9's patients. Returns the launch counts and times."""
+    launches asserted (K5's: ``K5_PER_STEP``). 14b: ``exec --mode
+    train_test`` through the data-parallel path at world size 1 over NCCL
+    (the ``MDT_DIST_*`` triple) on phase 9's patients. Returns the launch
+    counts and times."""
     from medicaldetectiontoolkit_torch.models import build_model
     from medicaldetectiontoolkit_torch.parallel import mesh
     from medicaldetectiontoolkit_torch.testing import make_batch, make_lidc_experiment
@@ -1876,6 +1920,7 @@ def _drive_data_parallel(torch, np, common, counters, card, root):
             expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
         else:
             expect = two_stage_launches(cf, cf.batch_size // 2, "train")
+        expect["conv_wgrad"] = K5_PER_STEP[model]
         loss, grads = ref[model]
         ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
         for r, res in enumerate(ranks):
@@ -1972,11 +2017,12 @@ def _sp_config(model):
 def _sp_expected(cf, model):
     """Launches of one spatial test forward per rank (masks asked for): the
     refinement's K1 and K3 on conv0 (Retina U-Net) or on the C1 stem, K1
-    twice and K2 for the classify-all chunks and the mask pass (Mask R-CNN)."""
+    twice and K2 for the classify-all chunks and the mask pass (Mask R-CNN);
+    no K5 (no gradient)."""
     if model == "retina_unet":
-        return {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
+        return {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1, "roi_align": 0, "roi_align_bwd": 0, "conv_wgrad": 0}
     expect = two_stage_launches(cf, cf.batch_size, "test")
-    return dict(expect, roi_align=expect["roi_align"] + 1)
+    return dict(expect, roi_align=expect["roi_align"] + 1, conv_wgrad=0)
 
 
 def _sp_forward(torch, net, batch):
@@ -2426,8 +2472,8 @@ def _drive_spatial_training(torch, np, common, card, root):
     float32, TF32 off, ``MDT_STEM_PALLAS=1``), held against the one-process
     step on the card (loss 1e-5 relative, gradients 1e-3 of each tensor's
     max: phase 7b's tolerances), with each rank's kernel launches asserted
-    (K3 and K4 on the haloed slabs, K1, K2 and K2's backward on the gathered
-    tensors), the gathers and sums asserted against the shapes'
+    (K3, K4 and K5 on the haloed slabs, K1, K2 and K2's backward on the
+    gathered tensors), the gathers and sums asserted against the shapes'
     (``_sp_train_expected``: the seg path stays on the slabs), the forward
     and backward collectives' calls, MB and fenced ms, ms per step, the peak
     device memory and what is alive at the peak (rank 0 and one process)
@@ -2481,6 +2527,7 @@ def _drive_spatial_training(torch, np, common, card, root):
             expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 0, "roi_align": 0, "roi_align_bwd": 0}
         else:
             expect = two_stage_launches(cf, cf.batch_size, "train")
+        expect["conv_wgrad"] = K5_PER_STEP[model]
         want = _sp_train_expected(np, cf, model)
         ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
         for r, res in enumerate(ranks):
@@ -2598,9 +2645,11 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.models.mrcnn import roi_levels
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
+    from medicaldetectiontoolkit_torch.ops import conv_wgrad, conv_wgrad_cuda
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
-    from medicaldetectiontoolkit_torch.tools import time_nms, time_roi_align, time_roi_align_bwd, time_stem
+    from medicaldetectiontoolkit_torch.tools import time_conv_wgrad, time_nms, time_roi_align, time_roi_align_bwd
+    from medicaldetectiontoolkit_torch.tools import time_stem
 
     t_start = time.perf_counter()
 
@@ -2623,7 +2672,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
         host_lib = pool.submit(native.get_lib)
-        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda)))
+        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda, conv_wgrad_cuda)))
         host_lib.result()
     info = native.lib_info()
     print(f"  {', '.join(p.name for p in libs)}, {os.path.basename(info['path'])} ({info['compiler']}) in "
@@ -2640,6 +2689,8 @@ def main() -> int:
                                            _stem_cases(torch))
     bwd_entry, bwd_times = _check_roi_align_bwd(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
                                                 time_roi_align_bwd)
+    wgrad_entry, wgrad_times = _check_wgrad(torch, common, conv_wgrad, conv_wgrad_cuda, time_conv_wgrad)
+    conv_wgrad_cuda.conv3d_wgrad.launches = 0  # from here the main path's launches, for the kernels line
 
     lap("4: inference slices")
     batches = common.slice_batches(3)
@@ -2732,6 +2783,11 @@ def main() -> int:
     for case, t in bwd_times.items():
         print(f"  roi_align backward {case}: kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms (host "
               f"{t['host_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for case, t in wgrad_times.items():
+        print(f"  conv weight gradient K5 {case}: launch alone {t['ms']:.4f} ms ({t['tflops']:.2f} TFLOP/s), wrapper "
+              f"{t['wrapper_ms']:.4f} ms (host {t['host_ms']:.4f} ms), plain {t['plain_ms']:.2f} ms, conv3d_weight "
+              f"{t['cudnn_ms']:.4f} ms (benchmark mode {t['cudnn_benchmark_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
     ms = two_stage["step_ms"]
     print(f"  exec --mode train_test, mrcnn 3D float32 at LIDC width: {sum(ms) / len(ms):.1f} ms per step of 8 as the "
           f"loop logs it (median {sorted(ms)[len(ms) // 2]:.1f}); mrcnn slice bfloat16: "
@@ -2823,6 +2879,14 @@ def main() -> int:
         + two_stage["launches"]["stem_wgrad"] + det_unet["launches"]["stem_wgrad"] + petct["launches"]["stem_wgrad"]
         + dp["launches"]["stem_wgrad"] + spt["launches"]["stem_wgrad"],
         **stem_entries["stem_wgrad"],
+    }, {
+        "name": "conv_wgrad",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/conv_wgrad.cu",
+        "replaces": None,
+        "launches": conv_wgrad_cuda.conv3d_wgrad.launches + dp["launches"]["conv_wgrad"] + sp["launches"]["conv_wgrad"]
+        + spt["launches"]["conv_wgrad"],
+        **wgrad_entry,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,6 +20,10 @@ counterpart here. Its opt-in Pallas stem does: with ``MDT_STEM_PALLAS=1`` a
 3D conv that ``stem_viable`` admits runs the stem kernels K3 (forward) and
 K4 (weight gradient) through ``ops/stem_conv.py``, as in JAX
 (``backbone.py:344-362``); its parameters stay those of ``nn.Conv3d``.
+Every other 3D conv that ``conv_wgrad.admits`` admits at the call
+(float32 on the card with TF32 off, stride 1, a kernel larger than 1 voxel)
+takes its weight gradient from the kernel K5 (``ops/conv_wgrad.py``); its
+forward stays ``F.conv3d``.
 
 ``remat`` (on by default in 3D, ``resolve_remat``) recomputes the stem
 convs, the ResBlocks and the full-resolution laterals in the backward pass
@@ -51,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medicaldetectiontoolkit_torch.ops import conv_wgrad
 from medicaldetectiontoolkit_torch.ops.stem_conv import StemConv3dFunction, stem_viable
 from medicaldetectiontoolkit_torch.parallel import mesh
 
@@ -173,6 +178,7 @@ class ConvND(nn.Module):
         self.dtype = dtype
         self.remat = remat
         self.stem_kernel = False
+        self.wgrad_kernel = False
 
     def _takes_stem_kernel(self, x) -> bool:
         """JAX's gate (``backbone.py:343-356``) on the logical shape of ``x``."""
@@ -192,12 +198,13 @@ class ConvND(nn.Module):
         x, w, b = x.to(self.dtype), c.weight.to(self.dtype), c.bias.to(self.dtype)
         # the gate reads no Y extent: a slab takes the kernel where the whole image does
         self.stem_kernel = self._takes_stem_kernel(x)
+        self.wgrad_kernel = False
         if mesh.space() is not None and (c.kernel_size[0] > 1 or c.stride[0] > 1):
             x = self._slab_conv(x, w, b)
         elif self.stem_kernel:
             x = StemConv3dFunction.apply(x, w, b, c.stride[0], c.stride[1])
         else:
-            x = (F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d)(x, w, b, c.stride, c.padding)
+            x = self._conv(x, w, b, c.padding)
         if self.norm is not None:
             x = _flax_group_norm(x, self.norm).to(self.dtype)
         if self.relu == "relu":
@@ -219,8 +226,18 @@ class ConvND(nn.Module):
             lo = -(-p // s) * s
             out = StemConv3dFunction.apply(mesh.halo_exchange(x, lo, hi), w, b, s, c.stride[1])
             return out[:, :, lo // s:lo // s + n // s]
-        conv = F.conv2d if isinstance(c, nn.Conv2d) else F.conv3d
-        return conv(mesh.halo_exchange(x, p, hi), w, b, c.stride, (0, *c.padding[1:]))
+        return self._conv(mesh.halo_exchange(x, p, hi), w, b, (0, *c.padding[1:]))
+
+    def _conv(self, x, w, b, padding):
+        """The conv of ``x`` with ``padding``: ``F.conv2d`` / ``F.conv3d``, or
+        ``Conv3dWgradFunction`` where ``conv_wgrad.admits`` the call."""
+        c = self.conv
+        if isinstance(c, nn.Conv2d):
+            return F.conv2d(x, w, b, c.stride, padding)
+        self.wgrad_kernel = conv_wgrad.admits(x, w, c.stride, padding, c.dilation, c.groups)
+        if self.wgrad_kernel:
+            return conv_wgrad.Conv3dWgradFunction.apply(x, w, b, c.stride, padding)
+        return F.conv3d(x, w, b, c.stride, padding)
 
 
 class ResBlock(nn.Module):

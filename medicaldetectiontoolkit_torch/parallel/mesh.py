@@ -817,12 +817,23 @@ def checkpoint(fn, x):
     """``torch.utils.checkpoint`` (non-reentrant) of ``fn(x)`` whose
     recomputation in the backward sees the SpaceGroup (or None, on a
     replicated level) that the forward saw, so that it re-issues the same
-    halos and sums in the backward on every rank of the group."""
+    halos and sums in the backward on every rank of the group.
+
+    The recomputation runs to the region's end (no early stop): stopping
+    early raises out of the last op that saves a tensor, which is
+    ``ops/conv_wgrad.py``'s autograd function in a region that ends in a
+    conv, and with the allocator's Python stack recording on
+    (``tools/common.py::peak_allocations``) the frees of that unwinding lose
+    the exception (a ``SystemError``). The recomputation then also runs the
+    ops after the region's last saved tensor: none where the region ends in
+    a ReLU, as the port's rematerialised layers do, or in that conv."""
     from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    from torch.utils.checkpoint import set_checkpoint_early_stop
 
     sg = space()
-    return torch_checkpoint(fn, x, use_reentrant=False,
-                            context_fn=lambda: (contextlib.nullcontext(), _space_as(sg)))
+    with set_checkpoint_early_stop(False):
+        return torch_checkpoint(fn, x, use_reentrant=False,
+                                context_fn=lambda: (contextlib.nullcontext(), _space_as(sg)))
 
 
 def free_port() -> int:

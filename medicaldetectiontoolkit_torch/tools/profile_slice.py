@@ -55,6 +55,8 @@ CLASSES = (
     ("K3 stem_fwd", ("stem_fwd_kernel",)),
     ("K4 partial pass", ("stem_wgrad_partial_kernel",)),
     ("K4 reduce", ("stem_wgrad_reduce_kernel",)),
+    ("K5 partial pass", ("conv3d_wgrad_partial_kernel",)),
+    ("K5 reduce", ("conv3d_wgrad_reduce_kernel",)),
     ("roi_align", ("pyramid_roi_align_kernel",)),
     ("K2 backward", ("pyramid_roi_align_bwd_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
