@@ -62,6 +62,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      slab's padding (0, 1, 1), odd cout, the deepest level and a 1-channel
      k 7 stem; each within ``time_conv_wgrad.TOL`` of the plain version's
      max |dw| and bit-identical twice;
+  3f. the pointwise weight-gradient kernel K6 vs float64 on the card (the
+     cases of ``tools/time_pointwise_wgrad.py``): the 25 stride-1 1x1x1
+     weight gradients of the LIDC training cells (timed: the launch alone,
+     the wrapper and its host time per call, the bound), then V not a
+     multiple of 4 (4-byte copies), a misaligned x and dw in tiles along
+     both channel axes; each within ``time_pointwise_wgrad.TOL`` of the
+     float64 max |dw| and bit-identical twice, cuDNN's float64 errors
+     beside it;
   4. 3D Retina U-Net at LIDC width (patch 128x128x64, start_filts 18,
      end_filts 36, batch 8) through ``build_model`` ->
      ``test_forward_dispatch``/``convert``, three chunks dispatched before
@@ -81,8 +89,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      batch 2 x 4 accumulated, remat, 300 training anchors per image) with
      ``MDT_STEM_PALLAS=1``, float32 and bfloat16, through
      ``train_forward_dispatch``/``convert``: one warm-up step, three timed
-     steps; the K3, K4, K5 and NMS counters rise by the counts derived per
-     step (K5 62 per float32 microbatch, none in bfloat16);
+     steps; the K3, K4, K5, K6 and NMS counters rise by the counts derived
+     per step (K5 62 and K6 37 per float32 microbatch; in bfloat16 no K5
+     and K6 1, for the seg head, which stays float32);
      from the same weights and draws the cuDNN stem (the opt-in unset) gives
      the same loss and gradients within the stated tolerance, and both
      step times are printed; small 3D retina_unet, retina_net, mrcnn, ufrcnn
@@ -431,6 +440,20 @@ def _check_wgrad(torch, common, conv_wgrad, conv_wgrad_cuda, time_conv_wgrad):
     return entry, timings
 
 
+def _check_pointwise_wgrad(torch, common, pointwise_wgrad, pointwise_wgrad_cuda, time_pointwise_wgrad):
+    """Phase 3f: K6 against float64 on every case of
+    ``tools/time_pointwise_wgrad.py`` (``TOL`` of the float64 max |dw|),
+    each twice bit-identical; the 25 LIDC shapes timed beside their bounds
+    (the launch alone, the wrapper, its host time per call; the plain
+    version's and cuDNN's times are the tool's own). Returns the kernels
+    line's entry (lateral0's times) and the timings."""
+    print(f"== phase 3f: pointwise weight-gradient kernel K6 vs float64 (tol {time_pointwise_wgrad.TOL:.0e} of "
+          f"max|dw|); twice bit-identical")
+    timings = time_pointwise_wgrad.check_cases(torch, common, pointwise_wgrad, pointwise_wgrad_cuda,
+                                               time_pointwise_wgrad.wgrad_cases(), quick=True)
+    return dict(timings["lateral0_18to36"]), timings
+
+
 def _check_results(np, results, cf, seg_dtype):
     ps = tuple(cf.patch_size)
     for r in results:
@@ -695,7 +718,7 @@ def _drive_train(torch, np, dtype, batches, common, kernels, card):
     difference of the bf16 stem output is carried through some 60 bf16
     layers."""
     from medicaldetectiontoolkit_torch.models.base import resolve_grad_accum
-    from medicaldetectiontoolkit_torch.ops import conv_wgrad_cuda
+    from medicaldetectiontoolkit_torch.ops import conv_wgrad_cuda, pointwise_wgrad_cuda
 
     print(f"== phase 7: retina_unet 3D training 128x128x64 sf18 ef36, batch 2 x 4, remat, MDT_STEM_PALLAS=1, {dtype}")
     os.environ["MDT_STEM_PALLAS"] = "1"
@@ -708,17 +731,23 @@ def _drive_train(torch, np, dtype, batches, common, kernels, card):
 
     for wrapper in kernels.values():
         wrapper.launches = 0
-    k5_before = conv_wgrad_cuda.conv3d_wgrad.launches  # the main path's running total (the kernels line)
+    # the main path's running totals (the kernels line)
+    k5_before, k6_before = conv_wgrad_cuda.conv3d_wgrad.launches, pointwise_wgrad_cuda.pointwise_wgrad.launches
     results, times = common.train_steps(net, batches)
     launches = {name: wrapper.launches for name, wrapper in kernels.items()}
     launches["conv_wgrad"] = conv_wgrad_cuda.conv3d_wgrad.launches - k5_before
+    launches["pointwise_wgrad"] = pointwise_wgrad_cuda.pointwise_wgrad.launches - k6_before
     n = len(batches)
-    k5 = K5_PER_STEP["retina_unet"] if dtype == "float32" else 0
-    expect = {"stem_fwd": 2 * n_micro * n, "stem_wgrad": n_micro * n, "nms": n, "conv_wgrad": k5 * n_micro * n}
+    k5, k6 = ((K5_PER_STEP["retina_unet"], K6_PER_STEP["retina_unet"]) if dtype == "float32"
+              else (0, K6_PER_STEP_BF16["retina_unet"]))
+    expect = {"stem_fwd": 2 * n_micro * n, "stem_wgrad": n_micro * n, "nms": n, "conv_wgrad": k5 * n_micro * n,
+              "pointwise_wgrad": k6 * n_micro * n}
     print(f"  expected launches over {n} steps of {n_micro} microbatches: K3 2 per microbatch (its forward and "
           f"the remat recompute in the backward) = {expect['stem_fwd']}, K4 1 per microbatch = "
-          f"{expect['stem_wgrad']}, K1 1 per step (refinement of the merged heads) = {expect['nms']}, K5 {k5} per "
-          f"microbatch (the gate takes float32 with TF32 off) = {expect['conv_wgrad']}")
+          f"{expect['stem_wgrad']}, K1 1 per step (refinement of the merged heads) = {expect['nms']}, K5 {k5} and "
+          f"K6 {k6} per microbatch (the gate takes float32 convs with TF32 off: in bfloat16 the seg head's) = "
+          f"{expect['conv_wgrad']} and "
+          f"{expect['pointwise_wgrad']}")
     print(f"  counted: {launches}")
     if launches != expect:
         raise AssertionError(f"expected kernel launches {expect}, counted {launches}")
@@ -1796,6 +1825,17 @@ DP_MODELS = ("retina_unet", "mrcnn")
 # backward). The same per rank on a data-parallel rank's rows and on a spatial
 # rank's slab (``tests/test_torch_conv_wgrad.py`` counts them on the CPU).
 K5_PER_STEP = {"retina_unet": 62, "mrcnn": 29, "detection_unet": 18}
+# K6 launches of the same step: the stride-1 1x1x1 convs, each once (the
+# strided 1x1x1 shortcuts keep cuDNN): Retina U-Net and Detection U-Net 37
+# (the ResNet bottlenecks' 1x1 convs, the laterals, the seg head), Mask
+# R-CNN 44 (the RPN's two 1x1 heads on 4 levels, the classifier's second
+# conv, the mask head's last); the same per data-parallel and spatial rank
+# (``tests/test_torch_pointwise_wgrad.py`` counts them on the CPU).
+K6_PER_STEP = {"retina_unet": 37, "mrcnn": 44, "detection_unet": 37}
+# K6 launches of a bfloat16 training step: the 1x1x1 convs a bfloat16 model
+# keeps in float32 (Retina U-Net's seg head), which the gate takes as any
+# float32 conv
+K6_PER_STEP_BF16 = {"retina_unet": 1}
 
 
 def _dp_config(model):
@@ -1814,12 +1854,13 @@ def _dp_config(model):
 
 
 def _dp_counters():
-    from medicaldetectiontoolkit_torch.ops import conv_wgrad_cuda, nms_cuda, roi_align_cuda, stem_conv_cuda
+    from medicaldetectiontoolkit_torch.ops import (conv_wgrad_cuda, nms_cuda, pointwise_wgrad_cuda, roi_align_cuda,
+                                                   stem_conv_cuda)
 
     return {"stem_fwd": stem_conv_cuda.stem_conv3d, "stem_wgrad": stem_conv_cuda.stem_wgrad,
             "nms": nms_cuda.batched_nms, "roi_align": roi_align_cuda.pyramid_roi_align,
             "roi_align_bwd": roi_align_cuda.pyramid_roi_align_backward,
-            "conv_wgrad": conv_wgrad_cuda.conv3d_wgrad}
+            "conv_wgrad": conv_wgrad_cuda.conv3d_wgrad, "pointwise_wgrad": pointwise_wgrad_cuda.pointwise_wgrad}
 
 
 def _reduce_ms(torch, net, params, iters=5):
@@ -1920,7 +1961,7 @@ def _drive_data_parallel(torch, np, common, counters, card, root):
             expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 1, "roi_align": 0, "roi_align_bwd": 0}
         else:
             expect = two_stage_launches(cf, cf.batch_size // 2, "train")
-        expect["conv_wgrad"] = K5_PER_STEP[model]
+        expect["conv_wgrad"], expect["pointwise_wgrad"] = K5_PER_STEP[model], K6_PER_STEP[model]
         loss, grads = ref[model]
         ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
         for r, res in enumerate(ranks):
@@ -2018,11 +2059,12 @@ def _sp_expected(cf, model):
     """Launches of one spatial test forward per rank (masks asked for): the
     refinement's K1 and K3 on conv0 (Retina U-Net) or on the C1 stem, K1
     twice and K2 for the classify-all chunks and the mask pass (Mask R-CNN);
-    no K5 (no gradient)."""
+    no K5 or K6 (no gradient)."""
     if model == "retina_unet":
-        return {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1, "roi_align": 0, "roi_align_bwd": 0, "conv_wgrad": 0}
+        return {"stem_fwd": 1, "stem_wgrad": 0, "nms": 1, "roi_align": 0, "roi_align_bwd": 0, "conv_wgrad": 0,
+                "pointwise_wgrad": 0}
     expect = two_stage_launches(cf, cf.batch_size, "test")
-    return dict(expect, roi_align=expect["roi_align"] + 1, conv_wgrad=0)
+    return dict(expect, roi_align=expect["roi_align"] + 1, conv_wgrad=0, pointwise_wgrad=0)
 
 
 def _sp_forward(torch, net, batch):
@@ -2527,7 +2569,7 @@ def _drive_spatial_training(torch, np, common, card, root):
             expect = {"stem_fwd": 2, "stem_wgrad": 1, "nms": 0, "roi_align": 0, "roi_align_bwd": 0}
         else:
             expect = two_stage_launches(cf, cf.batch_size, "train")
-        expect["conv_wgrad"] = K5_PER_STEP[model]
+        expect["conv_wgrad"], expect["pointwise_wgrad"] = K5_PER_STEP[model], K6_PER_STEP[model]
         want = _sp_train_expected(np, cf, model)
         ranks = [torch.load(os.path.join(out_dir, f"{model}_rank{r}.pt"), weights_only=False) for r in range(2)]
         for r, res in enumerate(ranks):
@@ -2645,11 +2687,11 @@ def main() -> int:
     from medicaldetectiontoolkit_torch.models.mrcnn import roi_levels
     from medicaldetectiontoolkit_torch.models.retina_net import refine_detections
     from medicaldetectiontoolkit_torch.ops import nms as nms_ops
-    from medicaldetectiontoolkit_torch.ops import conv_wgrad, conv_wgrad_cuda
+    from medicaldetectiontoolkit_torch.ops import conv_wgrad, conv_wgrad_cuda, pointwise_wgrad, pointwise_wgrad_cuda
     from medicaldetectiontoolkit_torch.ops import nms_cuda, roi_align_cuda, stem_conv, stem_conv_cuda
     from medicaldetectiontoolkit_torch.ops import roi_align as roi_ops
     from medicaldetectiontoolkit_torch.tools import time_conv_wgrad, time_nms, time_roi_align, time_roi_align_bwd
-    from medicaldetectiontoolkit_torch.tools import time_stem
+    from medicaldetectiontoolkit_torch.tools import time_pointwise_wgrad, time_stem
 
     t_start = time.perf_counter()
 
@@ -2670,9 +2712,10 @@ def main() -> int:
 
     print("== phase 2: build (one nvcc per source and the native host library, in parallel)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         host_lib = pool.submit(native.get_lib)
-        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda, conv_wgrad_cuda)))
+        libs = list(pool.map(lambda m: m.build(), (nms_cuda, roi_align_cuda, stem_conv_cuda, conv_wgrad_cuda,
+                                                   pointwise_wgrad_cuda)))
         host_lib.result()
     info = native.lib_info()
     print(f"  {', '.join(p.name for p in libs)}, {os.path.basename(info['path'])} ({info['compiler']}) in "
@@ -2690,7 +2733,10 @@ def main() -> int:
     bwd_entry, bwd_times = _check_roi_align_bwd(torch, np, common, roi_ops, roi_align_cuda, roi_levels, time_roi_align,
                                                 time_roi_align_bwd)
     wgrad_entry, wgrad_times = _check_wgrad(torch, common, conv_wgrad, conv_wgrad_cuda, time_conv_wgrad)
-    conv_wgrad_cuda.conv3d_wgrad.launches = 0  # from here the main path's launches, for the kernels line
+    pw_entry, pw_times = _check_pointwise_wgrad(torch, common, pointwise_wgrad, pointwise_wgrad_cuda,
+                                                time_pointwise_wgrad)
+    # from here the main path's launches, for the kernels line
+    conv_wgrad_cuda.conv3d_wgrad.launches = pointwise_wgrad_cuda.pointwise_wgrad.launches = 0
 
     lap("4: inference slices")
     batches = common.slice_batches(3)
@@ -2788,6 +2834,10 @@ def main() -> int:
               f"{t['wrapper_ms']:.4f} ms (host {t['host_ms']:.4f} ms), plain {t['plain_ms']:.2f} ms, conv3d_weight "
               f"{t['cudnn_ms']:.4f} ms (benchmark mode {t['cudnn_benchmark_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
+    for case, t in pw_times.items():
+        print(f"  pointwise weight gradient K6 {case}: launch alone {t['ms']:.4f} ms ({t['pct_bound']:.1f}% of a "
+              f"{t['bound_ms']:.4f} ms bound, {t['bound_by']}), wrapper {t['wrapper_ms']:.4f} ms (host "
+              f"{t['host_ms']:.4f} ms)")
     ms = two_stage["step_ms"]
     print(f"  exec --mode train_test, mrcnn 3D float32 at LIDC width: {sum(ms) / len(ms):.1f} ms per step of 8 as the "
           f"loop logs it (median {sorted(ms)[len(ms) // 2]:.1f}); mrcnn slice bfloat16: "
@@ -2887,6 +2937,14 @@ def main() -> int:
         "launches": conv_wgrad_cuda.conv3d_wgrad.launches + dp["launches"]["conv_wgrad"] + sp["launches"]["conv_wgrad"]
         + spt["launches"]["conv_wgrad"],
         **wgrad_entry,
+    }, {
+        "name": "pointwise_wgrad",
+        "route": "cuda",
+        "source": "medicaldetectiontoolkit_torch/csrc/pointwise_wgrad.cu",
+        "replaces": None,
+        "launches": pointwise_wgrad_cuda.pointwise_wgrad.launches + dp["launches"]["pointwise_wgrad"]
+        + sp["launches"]["pointwise_wgrad"] + spt["launches"]["pointwise_wgrad"],
+        **pw_entry,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

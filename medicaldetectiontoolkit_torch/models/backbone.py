@@ -21,9 +21,10 @@ counterpart here. Its opt-in Pallas stem does: with ``MDT_STEM_PALLAS=1`` a
 K4 (weight gradient) through ``ops/stem_conv.py``, as in JAX
 (``backbone.py:344-362``); its parameters stay those of ``nn.Conv3d``.
 Every other 3D conv that ``conv_wgrad.admits`` admits at the call
-(float32 on the card with TF32 off, stride 1, a kernel larger than 1 voxel)
-takes its weight gradient from the kernel K5 (``ops/conv_wgrad.py``); its
-forward stays ``F.conv3d``.
+(float32 on the card with TF32 off, stride 1) takes its weight gradient from
+a hand-written kernel: K6 (``ops/pointwise_wgrad.py``) for a 1x1x1 kernel,
+K5 (``ops/conv_wgrad.py``) for a larger one; its forward stays
+``F.conv3d``.
 
 ``remat`` (on by default in 3D, ``resolve_remat``) recomputes the stem
 convs, the ResBlocks and the full-resolution laterals in the backward pass

@@ -57,6 +57,8 @@ CLASSES = (
     ("K4 reduce", ("stem_wgrad_reduce_kernel",)),
     ("K5 partial pass", ("conv3d_wgrad_partial_kernel",)),
     ("K5 reduce", ("conv3d_wgrad_reduce_kernel",)),
+    ("K6 partial pass", ("pointwise_wgrad_partial_kernel",)),
+    ("K6 reduce", ("pointwise_wgrad_reduce_kernel",)),
     ("roi_align", ("pyramid_roi_align_kernel",)),
     ("K2 backward", ("pyramid_roi_align_bwd_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),

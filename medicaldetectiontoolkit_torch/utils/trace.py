@@ -31,8 +31,10 @@ already holds (shapes, byte counts, host copies already made), never from a
 read of the device: ``upload.bytes`` and ``upload.calls``
 (``base.host_to_device``), ``k1.lanes`` and ``k1.candidates`` (lanes and
 lane entries of each NMS launch), ``k2.slots`` (RoIs of each classify-all
-launch, padding included), ``detections`` (served rows) and ``proposals``
-(a training step's valid proposals).
+launch, padding included), ``k5.calls`` and ``k6.calls`` (calls of the conv
+weight-gradient kernels, ``ops/conv_wgrad.py``, ``ops/pointwise_wgrad.py``),
+``detections`` (served rows) and ``proposals`` (a training step's valid
+proposals).
 
 **The switch.** Tracing is on while a ``torch.profiler`` records, or
 between ``enable()`` and ``disable()``. A recording starts empty at the

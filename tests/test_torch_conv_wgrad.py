@@ -10,7 +10,8 @@ Tolerances:
   * the autograd function's dx, dw and db against ``F.conv3d``'s autograd in
     float64: 1e-12 of each gradient's max;
   * the gate: 62 convs a step of the LIDC Retina U-Net module and 29 of the
-    LIDC Mask R-CNN module (``BENCHMARK.json``'s training cells), exactly.
+    LIDC Mask R-CNN module (``BENCHMARK.json``'s training cells) take K5,
+    exactly; their 1x1x1 convs take K6 (``test_torch_pointwise_wgrad.py``).
 
 There is no card here: the kernel itself is held against the plain version
 on the card by ``chip_smoke.py`` phase 3e and ``tools/time_conv_wgrad.py``.
@@ -271,8 +272,8 @@ def test_plans_of_the_lidc_shapes(xs, ws, stride, padding):
 
 def _lidc_module_step(model, monkeypatch):
     """One training step of a small LIDC-topology module on the CPU with the
-    gate's device test passed: (ConvND layers that took K5 at their last
-    call, the step's ``k5.calls``)."""
+    gate's device test passed: (ConvND layers with a kernel larger than 1
+    that took K5 at their last call, the step's ``k5.calls``)."""
     monkeypatch.setattr(conv_wgrad, "on_card", lambda t: True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setenv("MDT_STEM_PALLAS", "1")
@@ -291,7 +292,8 @@ def _lidc_module_step(model, monkeypatch):
         calls = trace.summary()["counters"].get("k5.calls", 0)
     finally:
         trace.disable()
-    layers = [m for m in net.module.modules() if isinstance(m, tbb.ConvND) and m.wgrad_kernel]
+    layers = [m for m in net.module.modules()
+              if isinstance(m, tbb.ConvND) and m.wgrad_kernel and math.prod(m.conv.kernel_size) > 1]
     return layers, calls
 
 
@@ -303,8 +305,8 @@ def test_gate_admits_the_lidc_convs(model, expected, monkeypatch):
     32 layers in Retina U-Net (its two heads' 10 layers run on 4 pyramid
     levels; the strided 7x7x7 stem keeps cuDNN), 29 of 26 in Mask R-CNN (the
     RPN's conv on 4), 18 of 22 in Detection U-Net (its FPN's four pyramid
-    outputs feed no loss, so run no backward); K4's stem and the 1x1x1 convs
-    keep their paths."""
+    outputs feed no loss, so run no backward); K4's stem keeps its path and
+    the 1x1x1 convs take K6 (``test_torch_pointwise_wgrad.py``)."""
     layers, calls = _lidc_module_step(model, monkeypatch)
     assert calls == expected
     for m in layers:
@@ -324,7 +326,7 @@ def _conv_call(dim=3, cin=4, ks=3, stride=1, pad=1, dtype=torch.float32, grad=Tr
 REFUSED = {
     "bfloat16": lambda: _conv_call(dtype=torch.bfloat16),
     "2d": lambda: _conv_call(dim=2),
-    "1x1x1": lambda: _conv_call(ks=1, pad=0),
+    "1x1x1": lambda: _conv_call(ks=1, pad=0, stride=(2, 2, 2)),
     "k4_stem": lambda: _conv_call(cin=1, ks=3),
     "no_grad": lambda: _conv_call(grad=False),
     "z_stride_2": lambda: _conv_call(stride=2),
@@ -334,7 +336,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(REFUSED) + ["tf32_on", "cpu_tensor"])
 def test_gate_refuses(case, monkeypatch):
-    """bfloat16, TF32 on (exec on one card), 2D, 1x1x1, the cin-1 stem under
+    """bfloat16, TF32 on (exec on one card), 2D, a strided 1x1x1 (the
+    ResNet shortcuts; a stride-1 one takes K6), the cin-1 stem under
     ``MDT_STEM_PALLAS=1`` (K4's), no gradient, a stride (z, or y and x as
     the 7x7x7 stem's), a CPU tensor:
     ``F.conv3d`` / ``F.conv2d`` as before; the same conv in float32 with

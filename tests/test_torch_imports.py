@@ -36,6 +36,8 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.ops.stem_conv_cuda",
     "medicaldetectiontoolkit_torch.ops.conv_wgrad",
     "medicaldetectiontoolkit_torch.ops.conv_wgrad_cuda",
+    "medicaldetectiontoolkit_torch.ops.pointwise_wgrad",
+    "medicaldetectiontoolkit_torch.ops.pointwise_wgrad_cuda",
     "medicaldetectiontoolkit_torch.ops.topk",
     "medicaldetectiontoolkit_torch.ops.roi_align",
     "medicaldetectiontoolkit_torch.ops.roi_align_cuda",
@@ -86,6 +88,7 @@ PORT_MODULES = [
     "medicaldetectiontoolkit_torch.tools.time_roi_align_bwd",
     "medicaldetectiontoolkit_torch.tools.time_stem",
     "medicaldetectiontoolkit_torch.tools.time_conv_wgrad",
+    "medicaldetectiontoolkit_torch.tools.time_pointwise_wgrad",
     "medicaldetectiontoolkit_torch.tools.time_roi_align",
     "medicaldetectiontoolkit_torch.parallel",
     "medicaldetectiontoolkit_torch.parallel.mesh",
